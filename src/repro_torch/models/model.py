@@ -1,0 +1,163 @@
+"""Top-level decoder-only model: embeddings + transformer stack + LM head.
+
+Counterpart of the JAX package's ``models/model.py`` for decoder-only dense
+configs.  Parameters are a plain dict::
+
+    {"embed": [V, D], "final_norm": [D], "lm_head": [D, V],
+     "layers": [ {"ln1", "mixer": {"w_q", "w_k", "w_v", "w_o"[, "q_norm",
+                  "k_norm"]}, "ln2", "ffn": {"w_gate", "w_up", "w_down"}}, ... ]}
+
+``init`` makes them in ``cfg.param_dtype`` (fp32) on the model's device.
+``load`` casts them to ``cfg.compute_dtype`` once; the JAX package casts the
+fp32 weights on every call (``.astype(compute)``) and gets the same values,
+so the served numbers do not change.  The engines load their params this way.
+
+Encoder-decoder, multimodal frontends, MLA, MoE and SSM layers wait for
+later slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..device import resolve_device
+from . import transformer as tf
+from .attention import cache_length
+from .layers import dense_init, embed_init, rms_norm, zeros_init
+
+__all__ = ["Model", "build_model"]
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+class Model:
+    """Entry points of the served model: ``init``, ``load``, ``init_cache``,
+    ``prefill``, ``mask_prompt_cache``, ``prepare_decode_caches`` and
+    ``decode_step``.  Runs on ``device`` (``cuda`` unless asked otherwise)."""
+
+    def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
+        unsupported = [
+            name for name, on in (
+                ("encoder-decoder", cfg.enc_dec), ("frontend", cfg.frontend is not None),
+                ("MLA", cfg.attn_type == "mla"), ("MoE", cfg.moe is not None),
+                ("SSM", cfg.ssm is not None or cfg.attn_period != 1),
+            ) if on
+        ]
+        if unsupported:
+            raise NotImplementedError(
+                f"{cfg.name}: {', '.join(unsupported)} not ported yet; the port "
+                "runs decoder-only dense GQA models"
+            )
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.compute_dtype = _dtype(cfg.compute_dtype)
+
+    # ---------------- parameters ----------------
+    def init(self, gen: torch.Generator) -> dict:
+        """Fresh parameters in ``param_dtype`` on ``gen``'s device, which
+        must be the model's device."""
+        if torch.device(gen.device).type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on {self.device}")
+        cfg = self.cfg
+        dtype = _dtype(cfg.param_dtype)
+        params = {
+            "embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
+            "final_norm": zeros_init(gen, (cfg.d_model,), dtype),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
+        params["layers"] = tf.stack_init(gen, cfg, dtype)
+        return params
+
+    def load(self, params: dict) -> dict:
+        """Params on the model's device in the compute dtype -- the one cast
+        of the weights.  Tensors already in place are returned as they are."""
+        return _map(lambda t: t.to(device=self.device, dtype=self.compute_dtype), params)
+
+    # ---------------- caches ----------------
+    def init_cache(self, batch: int, seq_len: int) -> dict:
+        return tf.init_stack_cache(self.cfg, batch, seq_len, self.compute_dtype, self.device)
+
+    # ---------------- serving ----------------
+    def _logits(self, params, x):
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return x @ head.to(x.dtype)
+
+    def prefill(self, params: dict, tokens: torch.Tensor, last_pos=None):
+        """Forward over the prompt ``tokens`` [B, S]; returns (logits
+        [B, 1, V] at ``last_pos`` (default: the last position), caches).
+        ``last_pos`` [B] selects the last real token of right-padded prompts;
+        pair it with :meth:`mask_prompt_cache`."""
+        tokens = tokens.to(self.device)
+        b, s = tokens.shape
+        x = params["embed"].to(self.compute_dtype)[tokens]
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x, caches = tf.stack_apply(params["layers"], x, self.cfg, positions=positions,
+                                   update_cache=True)
+        if last_pos is None:
+            x_last = x[:, -1:]
+        else:
+            idx = torch.as_tensor(last_pos, device=self.device).long().reshape(-1)
+            x_last = x[torch.arange(b, device=self.device), idx][:, None]
+        return self._logits(params, x_last), caches
+
+    def mask_prompt_cache(self, caches: dict, true_len) -> dict:
+        """Invalidate the entries written by right-pad positions >= ``true_len``
+        (scalar or [B]) so that decode never attends to padding."""
+        true_len = torch.as_tensor(true_len, device=self.device, dtype=torch.int32)
+        bound = true_len[:, None] if true_len.dim() == 1 else true_len
+        pos = caches["pos"]  # [n_layers, B, S]
+        return {**caches, "pos": torch.where(pos < bound, pos, torch.full_like(pos, -1))}
+
+    def prepare_decode_caches(self, caches: dict, capacity: int) -> dict:
+        """Re-lay prefill caches into decode ring buffers with headroom:
+        entry at slot ``pos % cap`` with ``cap = capacity`` (SWA layers:
+        ``min(capacity, window)`` most recent entries).  Dropped entries go
+        to a discard slot ``cap`` that is cut off at the end."""
+        cap = cache_length(self.cfg, capacity)
+        pos = caches["pos"]  # [n_layers, B, L]
+        max_pos = pos.max(dim=-1, keepdim=True).values
+        keep = (pos >= 0) & (pos > max_pos - cap)
+        slot = torch.where(keep, pos % cap, torch.full_like(pos, cap)).long()
+
+        def scatter(src, fill):
+            shape = src.shape[:2] + (cap + 1,) + src.shape[3:]
+            dst = torch.full(shape, fill, dtype=src.dtype, device=src.device)
+            idx = slot.reshape(slot.shape + (1,) * (src.dim() - 3)).expand(src.shape)
+            return dst.scatter_(2, idx, src)[:, :, :cap]
+
+        return {
+            "k": scatter(caches["k"], 0),
+            "v": scatter(caches["v"], 0),
+            "pos": scatter(torch.where(keep, pos, torch.full_like(pos, -1)), -1),
+        }
+
+    def decode_step(self, params: dict, caches: dict, tokens: torch.Tensor, pos: torch.Tensor,
+                    ragged: bool = False):
+        """One token per row: ``tokens`` [B, 1], ``pos`` [B] absolute
+        positions.  ``ragged=False`` advances the batch in lockstep (one
+        shared ring slot); ``ragged=True`` writes each row's own slot
+        (continuous batching).  Writes into ``caches`` in place; returns
+        (logits [B, 1, V], caches)."""
+        tokens = tokens.to(self.device)
+        x = params["embed"].to(self.compute_dtype)[tokens]
+        positions = pos.to(self.device)[:, None]
+        x, caches = tf.stack_apply(params["layers"], x, self.cfg, positions=positions,
+                                   caches=caches, ragged=ragged)
+        return self._logits(params, x), caches
+
+
+def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:
+    return Model(cfg, device)

@@ -1,0 +1,342 @@
+"""The port's serving runtime: queue, KV pool, scheduler and cost hooks behave
+as ``tests/test_serving.py`` pins for the JAX package, and greedy fp32 token
+streams of the port's engines equal the JAX engines' on the same weights
+(internlm2 REDUCED, 2 layers, mixed prompt lengths)."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.runtime import serving as jax_serving
+from repro_torch.bridge import from_jax_params
+from repro_torch.configs.base import get_config
+from repro_torch.core import CollectiveCostModel
+from repro_torch.launch import serve
+from repro_torch.models import build_model
+from repro_torch.runtime.serving import (
+    SHED,
+    ContinuousBatchingEngine,
+    KVPool,
+    Request,
+    RequestQueue,
+    Scheduler,
+    SchedulerConfig,
+    ServingEngine,
+)
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """(JAX model, JAX params, port model, port params): same fp32 weights."""
+    over = dict(compute_dtype="float32", remat=False, n_layers=2)
+    cfg_j = dataclasses.replace(jax_get_config("internlm2-1.8b", reduced=True), **over)
+    cfg_t = dataclasses.replace(get_config("internlm2-1.8b", reduced=True), **over)
+    mj = jax_build_model(cfg_j)
+    pj = mj.init(jax.random.PRNGKey(0))
+    mt = build_model(cfg_t, device="cpu")
+    return mj, pj, mt, from_jax_params(cfg_t, jax.tree.map(np.asarray, pj))
+
+
+@pytest.fixture(scope="module")
+def tiny(pair):
+    return pair[2], pair[3]
+
+
+def _prompts(rng, vocab, lens):
+    return [rng.integers(1, vocab, (n,)).astype(np.int32) for n in lens]
+
+
+# ---------------------------------------------------------------- queue
+def test_request_queue_arrival_order_and_lazy_removal():
+    def mk(i, at=None):
+        return Request(rid=i, prompt=np.ones((4,), np.int32), max_new_tokens=1, arrival_time=at)
+
+    q = RequestQueue()
+    a, b, c, d = mk(0), mk(1, at=5.0), mk(2), mk(3, at=2.0)
+    for r in (a, b, c, d):
+        q.push(r)
+    assert len(q) == 4
+    assert [r.rid for r in q.arrived(0.0)] == [0, 2]
+    assert q.next_arrival() == 2.0
+    assert [r.rid for r in q.arrived(2.0)] == [0, 2, 3]
+    assert [r.rid for r in q.arrived(None)] == [0, 1, 2, 3]
+    assert q.next_arrival() == 5.0
+    q.remove([a, d])
+    assert len(q) == 2
+    assert [r.rid for r in q.arrived(10.0)] == [1, 2]
+    e = mk(4, at=20.0)
+    q.push(e)
+    assert q.next_arrival() == 20.0
+    q.remove([e])
+    assert q.next_arrival() is None
+    assert len(q) == 2
+    q.remove([b, c])
+    assert len(q) == 0 and q.arrived(100.0) == []
+
+
+def test_request_queue_compaction_preserves_order():
+    q = RequestQueue()
+    reqs = [Request(rid=i, prompt=np.ones((2,), np.int32), max_new_tokens=1) for i in range(200)]
+    for r in reqs:
+        q.push(r)
+    q.remove([reqs[i] for i in range(0, 200, 2)])
+    assert len(q) == 100
+    assert [r.rid for r in q.arrived(0.0)] == list(range(1, 200, 2))
+    assert len(q) == 100
+
+
+# ---------------------------------------------------------------- KV pool
+def test_kvpool_slot_eviction_and_reuse(tiny):
+    model, _ = tiny
+    pool = KVPool(model, n_slots=3, capacity=16)
+    assert [pool.allocate(rid) for rid in range(3)] == [0, 1, 2]
+    assert pool.allocate(99) is None
+    pool.free(1)
+    assert pool.n_free == 1
+    assert pool.allocate(100) == 1
+    with pytest.raises(ValueError):
+        pool.free(0) or pool.free(0)
+    assert pool.n_alloc == 4 and pool.n_evict == 2 and pool.high_water == 3
+    pool.check()
+
+
+def test_kvpool_write_isolates_slots(tiny):
+    model, params = tiny
+    pool = KVPool(model, n_slots=3, capacity=16)
+    _, caches = model.prefill(params, torch.ones((1, 8), dtype=torch.long))
+    one = model.prepare_decode_caches(caches, capacity=16)
+    before = {n: t.clone() for n, t in pool.caches.items()}
+    pool.write([1], one)
+    changed = {row for n in before for row in range(3)
+               if not torch.equal(before[n][:, row], pool.caches[n][:, row])}
+    assert changed == {1}
+    assert torch.equal(pool.caches["k"][:, 1], one["k"][:, 0])
+
+
+# ---------------------------------------------------------------- scheduler
+def _req(rid, heavy=False, deferred=0):
+    r = Request(rid=rid, prompt=np.ones((4,), np.int32), max_new_tokens=4,
+                dispatch_weight=1e4 if heavy else 0.0)
+    r.deferred = deferred
+    return r
+
+
+def test_scheduler_fcfs_is_arrival_order():
+    s = Scheduler(SchedulerConfig(policy="fcfs"))
+    assert [r.rid for r in s.select([_req(i) for i in range(5)], n_free=3)] == [0, 1, 2]
+
+
+def test_scheduler_cost_aware_coschedules_moe_heavy():
+    s = Scheduler(SchedulerConfig(policy="cost_aware", min_coschedule=2), CollectiveCostModel(),
+                  d_model=512, top_k=4, n_moe_layers=2)
+    lone_heavy = [_req(0, heavy=True), _req(1), _req(2)]
+    assert [r.rid for r in s.select(lone_heavy, n_free=2)] == [1, 2]
+    assert lone_heavy[0].deferred == 1
+    group = [_req(0, heavy=True), _req(1, heavy=True), _req(2)]
+    assert [r.rid for r in s.select(group, n_free=2)] == [0, 1]
+    assert s.last_step_cost > 0
+
+
+def test_scheduler_aging_prevents_starvation():
+    cfg = SchedulerConfig(policy="cost_aware", min_coschedule=4, max_defer_steps=3)
+    s = Scheduler(cfg, CollectiveCostModel(), d_model=512, top_k=4, n_moe_layers=2)
+    assert s.select([_req(0, heavy=True, deferred=3), _req(1)], n_free=2)[0].rid == 0
+
+
+def test_scheduler_aged_heavy_overrides_budget_in_mixed_traffic():
+    cfg = SchedulerConfig(policy="cost_aware", a2a_budget_s=1e-12, min_coschedule=1,
+                          max_defer_steps=3, work_conserving=False)
+    s = Scheduler(cfg, CollectiveCostModel(), d_model=4096, top_k=8, n_moe_layers=8)
+    picks = s.select([_req(0, heavy=True, deferred=3), _req(1)], n_free=2)
+    assert [r.rid for r in picks] == [0, 1]
+
+
+def test_scheduler_slot_exhaustion_still_ages_heavy():
+    s = Scheduler(SchedulerConfig(policy="cost_aware", min_coschedule=1), CollectiveCostModel(),
+                  d_model=64, top_k=2, n_moe_layers=1)
+    reqs = [_req(i, heavy=True) for i in range(3)]
+    picks = s.select(reqs, n_free=1)
+    assert len(picks) == 1
+    assert all(r.deferred == 1 for r in reqs if r not in picks)
+
+
+def test_scheduler_budget_caps_heavy_admission():
+    tight = SchedulerConfig(policy="cost_aware", a2a_budget_s=1e-12, min_coschedule=1,
+                            work_conserving=False)
+    s = Scheduler(tight, CollectiveCostModel(), d_model=4096, top_k=8, n_moe_layers=8)
+    reqs = [_req(i, heavy=True) for i in range(4)]
+    assert s.select(reqs, n_free=4) == []
+    assert all(r.deferred == 1 for r in reqs)
+    s2 = Scheduler(dataclasses.replace(tight, work_conserving=True), CollectiveCostModel(),
+                   d_model=4096, top_k=8, n_moe_layers=8)
+    assert len(s2.select(reqs, n_free=4)) >= 1
+
+
+def test_cost_model_serving_hooks_match_reference():
+    from repro.core.collectives import CollectiveCostModel as JaxCostModel
+
+    cm, ref = CollectiveCostModel(), JaxCostModel()
+    kw = dict(d_model=2048, top_k=2, n_low=8, n_pods=4)
+    for tokens in (1, 8):
+        for hier in (True, False):
+            assert cm.moe_dispatch_cost(tokens, hierarchical=hier, **kw) == \
+                ref.moe_dispatch_cost(tokens, hierarchical=hier, **kw)
+    assert cm.moe_dispatch_cost(1, **kw) < cm.moe_dispatch_cost(8, **kw)
+    assert cm.moe_dispatch_cost(8, **kw) < cm.moe_dispatch_cost(8, hierarchical=False, **kw)
+    assert cm.decode_step_a2a_cost(0, 2048, 2, 4, 8, 4) == 0.0
+    assert cm.decode_step_a2a_cost(4, 2048, 2, 4, 8, 4) == ref.decode_step_a2a_cost(
+        4, 2048, 2, 4, 8, 4)
+    assert cm.coschedule_gain(8, 2048, 2, 4, 8, 4) == ref.coschedule_gain(8, 2048, 2, 4, 8, 4) > 0
+    assert cm.coschedule_gain(1, 2048, 2, 4, 8, 4) == 0.0
+    assert cm.cold_prefill_cost(300) == ref.cold_prefill_cost(300)
+
+
+# ---------------------------------------------------------------- engines vs JAX
+def test_continuous_engine_matches_reference_greedy_streams(pair):
+    mj, pj, mt, pt = pair
+    rng = np.random.default_rng(4)
+    prompts = _prompts(rng, mt.cfg.vocab, [5, 9, 13, 3, 17])
+    budgets = [6, 4, 5, 7, 3]
+    ref = jax_serving.ContinuousBatchingEngine(mj, pj, n_slots=3, max_len=48, seed=0)
+    want = ref.generate(prompts, budgets)
+    eng = ContinuousBatchingEngine(mt, pt, n_slots=3, max_len=48, seed=0)
+    got = eng.generate(prompts, budgets)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    eng.pool.check()
+    assert eng.pool.n_alloc == eng.pool.n_evict == 5 and eng.pool.n_free == 3
+
+
+def test_one_shot_engine_matches_reference_greedy_streams(pair):
+    mj, pj, mt, pt = pair
+    rng = np.random.default_rng(3)
+    static = np.stack(_prompts(rng, mt.cfg.vocab, [8, 8, 8]))
+    want = jax_serving.ServingEngine(mj, pj, max_len=48).generate(static, 6)
+    got = ServingEngine(mt, pt, max_len=48).generate(static, 6)
+    np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------- engine behaviour
+def test_continuous_matches_one_shot(tiny):
+    model, params = tiny
+    rng = np.random.default_rng(5)
+    static = np.stack(_prompts(rng, model.cfg.vocab, [8, 8, 8]))
+    one = ServingEngine(model, params, max_len=48).generate(static, 6)
+    cont = ContinuousBatchingEngine(model, params, n_slots=3, max_len=48).generate(static, 6)
+    np.testing.assert_array_equal(one, np.stack(cont))
+    # ragged: each request alone at its exact length equals its pooled run
+    prompts = _prompts(rng, model.cfg.vocab, [5, 9, 13])
+    cont = ContinuousBatchingEngine(model, params, n_slots=2, max_len=48).generate(prompts, 5)
+    solo = ServingEngine(model, params, max_len=48)
+    for p, got in zip(prompts, cont):
+        np.testing.assert_array_equal(solo.generate(p[None], 5)[0], got)
+
+
+def test_ragged_admission_and_slot_reuse(tiny):
+    model, params = tiny
+    eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=48, policy="fcfs")
+    rng = np.random.default_rng(1)
+    budgets = [4, 2, 6, 3, 5]
+    rids = [eng.submit(p, b) for p, b in
+            zip(_prompts(rng, model.cfg.vocab, [5, 9, 3, 12, 7]), budgets)]
+    out = eng.run()
+    assert [len(out[r]) for r in rids] == budgets
+    assert eng.pool.n_alloc == 5 and eng.pool.n_evict == 5 and eng.pool.high_water <= 2
+    admits = [eng.requests[r].t_admit for r in rids]
+    assert admits == sorted(admits)
+    m = eng.metrics
+    assert m.decode_steps == len(m.decode_walls) and m.prefills == len(m.prefill_walls)
+    assert 0.5 < m.slot_utilization <= 1.0
+    eng.pool.check()
+
+
+def test_eos_stops_the_stream(tiny):
+    """EOS is a token whose first occurrence in the reference stream is at
+    index k: the stream then stops after k + 1 tokens."""
+    model, params = tiny
+    rng = np.random.default_rng(5)
+    for prompt in _prompts(rng, model.cfg.vocab, [8] * 8):  # random weights: some
+        ref = ContinuousBatchingEngine(  # greedy streams repeat one token throughout
+            model, params, n_slots=1, max_len=64).generate([prompt], 12)[0]
+        firsts = [i for i in range(1, len(ref) - 1) if ref[i] not in ref[:i]]
+        if firsts:
+            break
+    k = firsts[0]
+    out = ContinuousBatchingEngine(model, params, n_slots=1, max_len=64).generate(
+        [prompt], 12, eos_id=int(ref[k]))[0]
+    np.testing.assert_array_equal(out, ref[: k + 1])
+
+
+def test_temperature_sampling_does_not_depend_on_slots(tiny):
+    model, params = tiny
+    rng = np.random.default_rng(2)
+    prompts = _prompts(rng, model.cfg.vocab, [6, 11, 4, 8])
+    budgets = [5, 3, 6, 4]
+
+    def serve_with(n_slots, seed):
+        eng = ContinuousBatchingEngine(model, params, n_slots=n_slots, max_len=48, seed=seed)
+        return eng.generate(prompts, budgets, temperature=0.8)
+
+    a, b, c, d = serve_with(2, 7), serve_with(2, 7), serve_with(3, 7), serve_with(2, 8)
+    for x, y, z in zip(a, b, c):
+        np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(x, z)
+    assert any(not np.array_equal(x, y) for x, y in zip(a, d))
+
+
+def test_submit_rejects_over_capacity_and_sheds(tiny):
+    model, params = tiny
+    eng = ContinuousBatchingEngine(model, params, n_slots=1, max_len=16, policy="fcfs",
+                                   max_queue_depth=2)
+    with pytest.raises(ValueError):
+        eng.submit(np.ones((10,), np.int32), 10)
+    with pytest.raises(ValueError):
+        eng.submit(np.ones((0,), np.int32), 4)
+    rids = [eng.submit(np.full((4,), i + 1, np.int32), 3) for i in range(4)]
+    assert [eng.requests[r].state for r in rids] == ["queued"] * 2 + [SHED] * 2
+    assert eng.pool.n_alloc == 0 and eng.metrics.rejected == 2 and eng.metrics.shed_tokens == 6
+    out = eng.run()
+    assert set(out) == set(rids[:2]) and eng.pool.n_alloc == eng.pool.n_evict == 2
+
+
+def test_deadline_drop_and_virtual_clock(tiny):
+    model, params = tiny
+    eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=32, policy="fcfs")
+    r_live = eng.submit(np.ones((4,), np.int32), 3)
+    r_dead = eng.submit(np.ones((4,), np.int32), 3, deadline=1.0)
+    r_late = eng.submit(np.ones((4,), np.int32), 2, arrival_time=50.0)
+    out = eng.run(clock=lambda: 5.0)  # frozen virtual clock: jumps to the arrival
+    assert eng.requests[r_dead].state == SHED and eng.metrics.deadline_drops == 1
+    assert set(out) == {r_live, r_late} and len(out[r_late]) == 2
+    assert len(eng.queue) == 0
+
+
+def test_admission_groups_are_single_bucket_pow2(tiny):
+    model, params = tiny
+    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=256)
+    lens = [4, 100, 4, 4, 5, 6, 7, 8]
+    picks = [Request(rid=i, prompt=np.ones((n,), np.int32), max_new_tokens=1)
+             for i, n in enumerate(lens)]
+    groups = eng._admission_groups(picks)
+    assert sorted(r.rid for g in groups for r in g) == list(range(8))
+    padded = 0
+    for g in groups:
+        assert len({eng._bucket(r.prompt_len) for r in g}) == 1
+        assert len(g) & (len(g) - 1) == 0
+        padded += len(g) * eng._bucket(g[0].prompt_len)
+    assert padded == 184
+
+
+def test_launcher_runs_on_cpu(capsys):
+    serve.main(["--reduced", "--device", "cpu", "--requests", "3", "--slots", "2",
+                "--prompt-len", "12", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "served 3 ragged requests" in out and "on cpu" in out
+    serve.main(["--reduced", "--device", "cpu", "--one-shot", "--batch", "2",
+                "--prompt-len", "8", "--new-tokens", "3"])
+    assert "generated 6 tokens" in capsys.readouterr().out
