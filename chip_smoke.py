@@ -6,8 +6,10 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 1. card and build: the card's name and power limit, the kernel built from
    the sources in the checkout;
 2. every kernel against its plain PyTorch version on the card, at the shapes
-   of the kernel sweep, of the main path (internlm2-1.8b) and of
-   h2o-danube-1.8b, and at a ragged length;
+   of the kernel sweep, of the main path (internlm2-1.8b: every prefill
+   group of 1, 2 or 4 rows at every bucket of 128 to 2048 tokens) and of
+   h2o-danube-1.8b, and at a ragged length; phase 4 fails if it launched the
+   kernel at a group shape this phase did not check;
 3. kernel times at the main-path shapes beside the plain version, one
    library call (``scaled_dot_product_attention``, a yardstick the port never
    calls) and the least time the card could take (bound);
@@ -39,7 +41,6 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.base import get_config  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import reference_attention  # noqa: E402
@@ -53,6 +54,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; f
 PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 FP32_LOGITS_BOUND = 1e-3  # card vs CPU: fp32 sums over d_ff = 8192 in other orders
+MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
+MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
 
 
 def log(msg: str) -> None:
@@ -120,20 +123,26 @@ def phase_card_and_build() -> tuple[str, str]:
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    built = build.build_all({"flash_attention": fa_kernel.SOURCE})
-    fa_kernel.bind(built["flash_attention"])
-    regs = sorted({line.split("Used ")[1].split(",")[0] for line in built["flash_attention"].log
-                   .splitlines() if "Used " in line})
+    built = fa_kernel.load()
+    regs = sorted({line.split("Used ")[1].split(",")[0] for line in built.log.splitlines()
+                   if "Used " in line})
     log(f"phase 1 card+build: {kind}, torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"flash_attention built by nvcc in {built['flash_attention'].seconds:.1f} s "
+        f"flash_attention built by nvcc in {built.seconds:.1f} s "
         f"(wall {time.perf_counter() - t0:.1f} s; ptxas: {'; '.join(regs)})")
     return smi, kind
 
 
-def phase_check() -> float:
+def main_shape(rows: int, bucket: int) -> Shape:
+    """The kernel's shape in one internlm2-1.8b prefill group."""
+    cfg = get_config("internlm2-1.8b")
+    return Shape(rows, bucket, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16,
+                 window=cfg.sliding_window)
+
+
+def phase_check() -> tuple[float, set[Shape]]:
     """Kernel against plain version; returns the max error at the main-path
-    (internlm2) shapes."""
-    main = [Shape(b, s, 16, 8, 128, torch.bfloat16) for b in (1, 2, 4) for s in (128, 512, 2048)]
+    (internlm2) shapes and the main-path shapes checked."""
+    main = [main_shape(b, s) for b in MAIN_ROWS for s in MAIN_BUCKETS]
     other = [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
              Shape(1, 1000, 16, 8, 128, torch.bfloat16), Shape(2, 1000, 16, 8, 128, torch.float32)]
     main_err = 0.0
@@ -153,7 +162,7 @@ def phase_check() -> float:
             main_err = max(main_err, err.max().item())
         del q, k, v, out, ref, err
         torch.cuda.empty_cache()
-    return main_err
+    return main_err, set(main)
 
 
 def sweep_of(dt):
@@ -176,8 +185,7 @@ def library_call(q, k, v, shape: Shape):
 
 def phase_time() -> list[dict]:
     rows = []
-    shapes = [Shape(b, s, 16, 8, 128, torch.bfloat16) for b in (1, 2, 4)
-              for s in (128, 512, 1024, 2048)]
+    shapes = [main_shape(b, s) for b in MAIN_ROWS for s in MAIN_BUCKETS]
     shapes += [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
                Shape(2, 128, 16, 8, 128, torch.float32)]
     for shape in shapes:
@@ -200,8 +208,9 @@ def phase_time() -> list[dict]:
     return rows
 
 
-def phase_serve() -> int:
-    """The main path at full width; returns the flash launches it made."""
+def phase_serve(checked: set[Shape]) -> int:
+    """The main path at full width; returns the flash launches it made.
+    Fails if a prefill group ran the kernel at a shape phase 2 did not check."""
     cfg = get_config("internlm2-1.8b")
     model = build_model(cfg)
     t0 = time.perf_counter()
@@ -240,6 +249,10 @@ def phase_serve() -> int:
         if len(o) != new_tokens or o.min() < 0 or o.max() >= cfg.vocab:
             raise SystemExit(f"bad token stream {o}")
     engine.pool.check()
+    served = {main_shape(g, b) for g, b, _ in m.prefill_walls} | {main_shape(*batch.shape)}
+    if not served <= checked:
+        raise SystemExit("the main path launched flash_attention at shapes phase 2 did not "
+                         f"check: {', '.join(map(str, served - checked))}")
     logits, _ = model.prefill(params, torch.as_tensor(prompts[0][None]))
     if not bool(torch.isfinite(logits).all()):
         raise SystemExit("non-finite logits at full width")
@@ -348,11 +361,11 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     smi, kind = phase_card_and_build()
-    main_err = phase_check()
+    main_err, checked = phase_check()
     rows = phase_time()
-    launches = phase_serve()
+    launches = phase_serve(checked)
     phase_card_vs_cpu()
-    rep = next(r for r in rows if r["shape"] == str(Shape(4, 1024, 16, 8, 128, torch.bfloat16)))
+    rep = next(r for r in rows if r["shape"] == str(main_shape(4, 1024)))
     kernels = [{
         "name": "flash_attention",
         "route": "cuda",

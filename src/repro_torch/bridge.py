@@ -30,10 +30,11 @@ def _period(cfg: ModelConfig, n_pattern: int) -> tuple[int, int]:
     return n_pattern, cfg.n_layers // n_pattern
 
 
-def from_jax_params(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
-    """JAX params (numpy leaves, or arrays numpy can read) -> port params.
-    Leaves keep their dtype."""
-    to_t = lambda a: torch.from_numpy(np.array(a)).to(device)  # noqa: E731
+def from_jax_params(cfg: ModelConfig, tree: dict) -> dict:
+    """JAX params (numpy leaves, or arrays numpy can read) -> port params as
+    CPU tensors; ``Model.load`` puts them on the model's device.  Leaves keep
+    their dtype."""
+    to_t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     p, r = _period(cfg, len(tree["decoder"]))
     layers = []
     for i in range(cfg.n_layers):

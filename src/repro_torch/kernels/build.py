@@ -9,7 +9,6 @@ unchanged one is loaded as it is.  Nothing here runs at import time.
 
 from __future__ import annotations
 
-import concurrent.futures
 import ctypes
 import dataclasses
 import hashlib
@@ -19,7 +18,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["Built", "BUILD_DIR", "NVCC_FLAGS", "build", "build_all", "nvcc_path"]
+__all__ = ["Built", "BUILD_DIR", "NVCC_FLAGS", "build", "nvcc_path"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -73,9 +72,3 @@ def build(name: str, source: Path) -> Built:
         os.replace(tmp, out)
     return Built(name, ctypes.CDLL(str(out)), seconds, log)
 
-
-def build_all(specs: dict[str, Path]) -> dict[str, Built]:
-    """Build several kernels at once, one ``nvcc`` process per source."""
-    with concurrent.futures.ThreadPoolExecutor(max_workers=max(len(specs), 1)) as pool:
-        futures = {name: pool.submit(build, name, src) for name, src in specs.items()}
-        return {name: f.result() for name, f in futures.items()}
