@@ -3,21 +3,28 @@
 of a checkout: ``python3 chip_smoke.py``).  It imports only ``repro_torch``,
 torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 
-1. card and build: the card's name and power limit, the kernel built from
-   the sources in the checkout;
-2. every kernel against its plain PyTorch version on the card, at the shapes
-   of the kernel sweep, of the main path (internlm2-1.8b: every prefill
-   group of 1, 2 or 4 rows at every bucket of 128 to 2048 tokens) and of
-   h2o-danube-1.8b, and at a ragged length; phase 4 fails if it launched the
-   kernel at a group shape this phase did not check;
+1. card and build: the card's name and power limit, both kernels built from
+   the sources in the checkout (one nvcc each, started together);
+2. every kernel against its plain PyTorch version on the card.  Flash
+   attention at the shapes of the kernel sweep, of both main paths (every
+   prefill group of 1, 2 or 4 rows at every bucket of 128 to 2048 tokens:
+   internlm2-1.8b at head_dim 128, granite-moe-1b-a400m at head_dim 64) and
+   of h2o-danube-1.8b, and at a ragged length.  The grouped matmul at the
+   shapes of the JAX package's sweep, at ragged capacities and at every
+   granite expert shape of the served runs (gate/up and down at each
+   capacity C), in fp32 and bf16.  Phase 4 fails if it launched a kernel at
+   a shape this phase did not check;
 3. kernel times at the main-path shapes beside the plain version, one
-   library call (``scaled_dot_product_attention``, a yardstick the port never
-   calls) and the least time the card could take (bound);
-4. the main path at full width: internlm2-1.8b (all 24 layers, random
-   weights from a seed, bf16) serving 8 ragged requests on 4 slots through
+   library call the port never calls (``scaled_dot_product_attention``,
+   ``torch.bmm``) and the least time the card could take (bound);
+4. the two main paths at full width (all 24 layers, random weights from a
+   seed, bf16), each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
-   ``ServingEngine``; the launch counters are read around this phase only;
-5. card against CPU: the same model cut to 2 layers in fp32, prefill and 8
+   ``ServingEngine``: internlm2-1.8b (dense), then granite-moe-1b-a400m
+   (MoE, expert FFNs through the grouped matmul).  The launch counters are
+   set to 0 just before each path and read just after it, and must match
+   the path's layers, prefill groups and decode steps;
+5. card against CPU: each model cut to 2 layers in fp32, prefill and 8
    ragged decode steps on both; greedy tokens equal, logits within 1e-3;
 6. a JSON line of the kernels, and as the last line
    ``{"ok": true, "device": {...}}``.
@@ -27,8 +34,11 @@ It exits non-zero, printing no result, where no CUDA card is visible.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -44,7 +54,11 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import reference_attention  # noqa: E402
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
+from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import reference_grouped_matmul  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
@@ -53,9 +67,15 @@ from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine 
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; fp32 FMA
 PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
-FP32_LOGITS_BOUND = 1e-3  # card vs CPU: fp32 sums over d_ff = 8192 in other orders
+GMM_TOL = {dt: 5 * t for dt, t in TOL.items()}  # as the JAX package's gmm sweep
+# card vs CPU: fp32 sums over d_ff = 8192 (internlm2) or over 8 experts of
+# 512 (granite) in other orders
+FP32_LOGITS_BOUND = 1e-3
+DENSE, MOE = "internlm2-1.8b", "granite-moe-1b-a400m"
 MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
 MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
+N_SLOTS, NEW_TOKENS = 4, 32
+L2_BYTES = 50e6  # inputs of a timed call rotate through copies of at least 2.5x this
 
 
 def log(msg: str) -> None:
@@ -63,20 +83,37 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``.  The ``iters`` timed calls queue
+    behind a device-side sleep and run back to back, so the host's launch
+    overhead stays out of the time: a kernel shorter than its launch would
+    otherwise be timed at the host's launch rate.  The sleep grows until the
+    host has queued every call before it ends."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    cycles = 10_000_000
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ahead = not start.query()  # the sleep was still running
+        end.synchronize()
+        if queued_ahead:
+            return start.elapsed_time(end) / iters
+        cycles *= 4
+    raise SystemExit("cuda_ms: the host could not queue the timed calls ahead of the device")
+
+
+def _dt(dtype) -> str:
+    return "bf16" if dtype == torch.bfloat16 else "fp32"
 
 
 @dataclasses.dataclass(frozen=True)
 class Shape:
+    """A flash attention call: q [B, S, H, D], k/v [B, S, KV, D]."""
     b: int
     s: int
     h: int
@@ -87,9 +124,8 @@ class Shape:
     window: int = 0
 
     def __str__(self):
-        dt = "bf16" if self.dtype == torch.bfloat16 else "fp32"
         mask = ("causal" if self.causal else "full") + (f" w{self.window}" if self.window else "")
-        return f"{dt} B{self.b} S{self.s} H{self.h} KV{self.kv} D{self.d} {mask}"
+        return f"{_dt(self.dtype)} B{self.b} S{self.s} H{self.h} KV{self.kv} D{self.d} {mask}"
 
     def inputs(self, seed: int = 0):
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -113,6 +149,35 @@ class Shape:
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+@dataclasses.dataclass(frozen=True)
+class GmmShape:
+    """A grouped matmul call: x [E, C, D] x w [E, D, F]."""
+    e: int
+    c: int
+    d: int
+    f: int
+    dtype: torch.dtype
+
+    def __str__(self):
+        return f"{_dt(self.dtype)} E{self.e} C{self.c} D{self.d} F{self.f}"
+
+    def nbytes(self) -> int:
+        elem = 2 if self.dtype == torch.bfloat16 else 4
+        return (self.e * self.c * self.d + self.e * self.d * self.f
+                + self.e * self.c * self.f) * elem
+
+    def inputs(self, seed: int = 0):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(self.e, self.c, self.d, generator=gen, device="cuda").to(self.dtype)
+        w = torch.randn(self.e, self.d, self.f, generator=gen, device="cuda") / self.d**0.5
+        return x, w.to(self.dtype)
+
+    def bound(self) -> tuple[float, str]:
+        ops = 2.0 * self.e * self.c * self.d * self.f
+        t_ops, t_bytes = ops / PEAK_OPS[self.dtype], self.nbytes() / PEAK_BYTES
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_card_and_build() -> tuple[str, str]:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -122,54 +187,103 @@ def phase_card_and_build() -> tuple[str, str]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
+    log(f"phase 1 card: {kind}, torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    built = fa_kernel.load()
-    regs = sorted({line.split("Used ")[1].split(",")[0] for line in built.log.splitlines()
-                   if "Used " in line})
-    log(f"phase 1 card+build: {kind}, torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"flash_attention built by nvcc in {built.seconds:.1f} s "
-        f"(wall {time.perf_counter() - t0:.1f} s; ptxas: {'; '.join(regs)})")
+    kernels = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel}
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc each
+        built = dict(zip(kernels, pool.map(lambda k: k.load(), kernels.values())))
+    for name, b in built.items():
+        ptxas = "; ".join(line.split("ptxas info    : ")[-1].strip()
+                          for line in b.log.splitlines() if "Used " in line)
+        log(f"phase 1 build: {name} built by nvcc in {b.seconds:.1f} s (ptxas: {ptxas})")
+    log(f"phase 1 build: both kernels in {time.perf_counter() - t0:.1f} s wall")
     return smi, kind
 
 
-def main_shape(rows: int, bucket: int) -> Shape:
-    """The kernel's shape in one internlm2-1.8b prefill group."""
-    cfg = get_config("internlm2-1.8b")
+def main_shape(rows: int, bucket: int, arch: str = DENSE) -> Shape:
+    """The flash kernel's shape in one prefill group of ``arch``."""
+    cfg = get_config(arch)
     return Shape(rows, bucket, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16,
                  window=cfg.sliding_window)
 
 
-def phase_check() -> tuple[float, set[Shape]]:
-    """Kernel against plain version; returns the max error at the main-path
-    (internlm2) shapes and the main-path shapes checked."""
-    main = [main_shape(b, s) for b in MAIN_ROWS for s in MAIN_BUCKETS]
+def expert_shapes(c: int, dtype=torch.bfloat16) -> list[GmmShape]:
+    """granite's three grouped matmuls at capacity ``c``: gate and up share
+    one shape, then down."""
+    cfg = get_config(MOE)
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert_ff
+    return [GmmShape(e, c, d, f, dtype), GmmShape(e, c, f, d, dtype)]
+
+
+def main_capacities() -> list[int]:
+    """Every capacity granite's served runs can give the kernel on 4 slots:
+    decode, and prefill groups of 1 to 4 rows at buckets of 128 to 2048."""
+    cfg = get_config(MOE)
+    return sorted({capacity(cfg, N_SLOTS)}
+                  | {capacity(cfg, g * b) for g in MAIN_ROWS for b in MAIN_BUCKETS})
+
+
+def _check(name: str, shape, out, ref, tol: float) -> float:
+    err = (out.float() - ref.float()).abs()
+    ok = bool((err <= tol + tol * ref.float().abs()).all())
+    log(f"phase 2 check {name} {shape}: max_abs_err {err.max().item():.3e} "
+        f"(tol {tol:g} abs + rel) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version at {shape}")
+    return err.max().item()
+
+
+def phase_check_flash() -> tuple[float, set[Shape]]:
+    """Flash kernel against its plain version; returns the max error at the
+    main-path shapes and the main-path shapes checked."""
+    main = [main_shape(b, s, arch) for arch in (DENSE, MOE)
+            for b in MAIN_ROWS for s in MAIN_BUCKETS]
     other = [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
-             Shape(1, 1000, 16, 8, 128, torch.bfloat16), Shape(2, 1000, 16, 8, 128, torch.float32)]
+             Shape(1, 1000, 16, 8, 128, torch.bfloat16), Shape(2, 1000, 16, 8, 128, torch.float32),
+             Shape(2, 77, 16, 8, 64, torch.float32)]
     main_err = 0.0
     for shape in [s for dt in (torch.float32, torch.bfloat16) for s in sweep_of(dt)] + main + other:
         q, k, v = shape.inputs()
         out = fa_ops.flash_attention(q, k, v, causal=shape.causal, window=shape.window)
         torch.cuda.synchronize()
         ref = reference_attention(q, k, v, causal=shape.causal, window=shape.window)
-        err = (out.float() - ref.float()).abs()
-        tol = TOL[shape.dtype]
-        ok = bool((err <= tol + tol * ref.float().abs()).all())
-        log(f"phase 2 check {shape}: max_abs_err {err.max().item():.3e} "
-            f"(tol {tol:g} abs + rel) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"flash_attention disagrees with its plain version at {shape}")
+        err = _check("flash_attention", shape, out, ref, TOL[shape.dtype])
         if shape in main:
-            main_err = max(main_err, err.max().item())
-        del q, k, v, out, ref, err
+            main_err = max(main_err, err)
+        del q, k, v, out, ref
         torch.cuda.empty_cache()
     return main_err, set(main)
 
 
 def sweep_of(dt):
-    """The shapes of the JAX package's kernel sweep (tests/test_kernels.py)."""
+    """The shapes of the JAX package's flash kernel sweep (tests/test_kernels.py)."""
     return [Shape(2, 256, 4, 2, 64, dt), Shape(1, 512, 8, 8, 32, dt),
             Shape(2, 256, 4, 1, 64, dt, window=64), Shape(1, 128, 2, 2, 128, dt, causal=False),
             Shape(1, 384, 6, 3, 64, dt, window=128)]
+
+
+def phase_check_gmm() -> tuple[float, set[GmmShape]]:
+    """Grouped matmul against its plain version; returns the max error at
+    the main-path (granite bf16) shapes and every shape checked."""
+    main = [s for c in main_capacities() for s in expert_shapes(c)]
+    checked = set()
+    main_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        sweep = [GmmShape(4, 256, 256, 128, dt), GmmShape(8, 128, 512, 256, dt),
+                 GmmShape(2, 128, 128, 128, dt), GmmShape(16, 128, 256, 128, dt)]
+        ragged = [GmmShape(8, c, 256, 128, dt) for c in (1, 8, 40, 50, 160, 2560)]
+        granite = [s for c in main_capacities() for s in expert_shapes(c, dt)]
+        for shape in sweep + ragged + granite:
+            x, w = shape.inputs()
+            out = gmm_ops.gmm(x, w)
+            torch.cuda.synchronize()
+            err = _check("moe_gmm", shape, out, reference_grouped_matmul(x, w), GMM_TOL[dt])
+            if shape in main:
+                main_err = max(main_err, err)
+            checked.add(shape)
+            del x, w, out
+        torch.cuda.empty_cache()
+    return main_err, checked
 
 
 def library_call(q, k, v, shape: Shape):
@@ -183,9 +297,10 @@ def library_call(q, k, v, shape: Shape):
                                                   enable_gqa=True)
 
 
-def phase_time() -> list[dict]:
+def phase_time_flash() -> list[dict]:
     rows = []
-    shapes = [main_shape(b, s) for b in MAIN_ROWS for s in MAIN_BUCKETS]
+    shapes = [main_shape(b, s, arch) for arch in (DENSE, MOE)
+              for b in MAIN_ROWS for s in MAIN_BUCKETS]
     shapes += [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
                Shape(2, 128, 16, 8, 128, torch.float32)]
     for shape in shapes:
@@ -200,7 +315,7 @@ def phase_time() -> list[dict]:
         bound_ms, bound_by = shape.bound()
         rows.append(dict(shape=str(shape), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
-        log(f"phase 3 time {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        log(f"phase 3 time flash_attention {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"library (sdpa) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
             f"kernel at {100 * bound_ms / ms:.1f}% of bound")
         del q, k, v
@@ -208,10 +323,42 @@ def phase_time() -> list[dict]:
     return rows
 
 
-def phase_serve(checked: set[Shape]) -> int:
-    """The main path at full width; returns the flash launches it made.
-    Fails if a prefill group ran the kernel at a shape phase 2 did not check."""
-    cfg = get_config("internlm2-1.8b")
+def _rotating(fn, sets):
+    """A call of ``fn`` on the next input set of ``sets`` each time."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
+def phase_time_gmm() -> list[dict]:
+    """The grouped matmul at granite's shapes.  Each timed call reads inputs
+    that the previous calls did not (copies rotate through at least 2.5x the
+    50 MB L2), as in serving, where 72 calls a step stream 2.4 GB of weights."""
+    rows = []
+    shapes = [s for c in main_capacities() for s in expert_shapes(c)]
+    shapes += expert_shapes(capacity(get_config(MOE), 2 * 128), torch.float32)[:1]
+    for shape in shapes:
+        n_sets = max(1, min(8, math.ceil(2.5 * L2_BYTES / shape.nbytes())))
+        sets = [shape.inputs(seed=i) for i in range(n_sets)]
+        iters = 20 if shape.c <= 1280 else 10
+        ms = cuda_ms(_rotating(gmm_ops.gmm, sets), iters=iters)
+        plain_ms = cuda_ms(_rotating(reference_grouped_matmul, sets), iters=5, warmup=1)
+        lib_ms = cuda_ms(_rotating(torch.bmm, sets), iters=iters)
+        bound_ms, bound_by = shape.bound()
+        rows.append(dict(shape=str(shape), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log(f"phase 3 time moe_gmm {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library (torch.bmm) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"kernel at {100 * bound_ms / ms:.1f}% of bound ({n_sets} input sets)")
+        del sets
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]) -> dict:
+    """One main path at full width; returns the launches it made by kernel.
+    Fails if a launch count does not match the path, or if the path ran a
+    kernel at a shape phase 2 did not check."""
+    cfg = get_config(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.load(model.init(torch.Generator(device="cuda").manual_seed(0)))
@@ -224,56 +371,69 @@ def phase_serve(checked: set[Shape]) -> int:
     lens = rng.integers(100, 1001, 8)
     prompts = [rng.integers(1, cfg.vocab, (int(n),)).astype(np.int32) for n in lens]
     batch = rng.integers(1, cfg.vocab, (4, 512)).astype(np.int32)
-    new_tokens = 32
-    engine = ContinuousBatchingEngine(model, params, n_slots=4, max_len=1000 + new_tokens + 8)
-    one_shot = ServingEngine(model, params, max_len=512 + new_tokens + 8)
+    engine = ContinuousBatchingEngine(model, params, n_slots=N_SLOTS,
+                                      max_len=1000 + NEW_TOKENS + 8)
+    one_shot = ServingEngine(model, params, max_len=512 + NEW_TOKENS + 8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa_kernel.launches = 0
+    fa_kernel.launches = gmm_kernel.launches = 0
     t0 = time.perf_counter()
-    outs = engine.generate(prompts, new_tokens)
+    outs = engine.generate(prompts, NEW_TOKENS)
     cb_s = time.perf_counter() - t0
-    cb_launches = fa_kernel.launches
+    cb = {"flash_attention": fa_kernel.launches, "moe_gmm": gmm_kernel.launches}
     t0 = time.perf_counter()
-    one = one_shot.generate(batch, new_tokens)
+    one = one_shot.generate(batch, NEW_TOKENS)
     one_s = time.perf_counter() - t0
-    launches = fa_kernel.launches
+    launches = {"flash_attention": fa_kernel.launches, "moe_gmm": gmm_kernel.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     m = engine.metrics
-    if cb_launches != cfg.n_layers * m.prefills or launches != cb_launches + cfg.n_layers:
-        raise SystemExit(f"flash launches {cb_launches}/{launches} do not match "
-                         f"{m.prefills} prefill groups x {cfg.n_layers} layers (+ one-shot)")
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    want_cb = {"flash_attention": cfg.n_layers * m.prefills,
+               "moe_gmm": 3 * n_moe * (m.prefills + m.decode_steps)}
+    want = {"flash_attention": want_cb["flash_attention"] + cfg.n_layers,
+            "moe_gmm": want_cb["moe_gmm"] + 3 * n_moe * NEW_TOKENS}
+    if cb != want_cb or launches != want:
+        raise SystemExit(f"{cfg.name}: launches {cb} / {launches} do not match {m.prefills} "
+                         f"prefill groups and {m.decode_steps} decode steps of "
+                         f"{cfg.n_layers} layers (+ one-shot): want {want_cb} / {want}")
     for o in outs + list(one):
-        if len(o) != new_tokens or o.min() < 0 or o.max() >= cfg.vocab:
+        if len(o) != NEW_TOKENS or o.min() < 0 or o.max() >= cfg.vocab:
             raise SystemExit(f"bad token stream {o}")
     engine.pool.check()
-    served = {main_shape(g, b) for g, b, _ in m.prefill_walls} | {main_shape(*batch.shape)}
-    if not served <= checked:
+    groups = [(g, b) for g, b, _ in m.prefill_walls] + [batch.shape]
+    served = {main_shape(g, b, arch) for g, b in groups}
+    if not served <= flash_checked:
         raise SystemExit("the main path launched flash_attention at shapes phase 2 did not "
-                         f"check: {', '.join(map(str, served - checked))}")
+                         f"check: {', '.join(map(str, served - flash_checked))}")
+    if n_moe:
+        tokens = [g * b for g, b in groups] + [N_SLOTS, batch.shape[0]]  # prefills, decodes
+        served_gmm = {s for t in tokens for s in expert_shapes(capacity(cfg, t))}
+        if not served_gmm <= gmm_checked:
+            raise SystemExit("the main path launched moe_gmm at shapes phase 2 did not "
+                             f"check: {', '.join(map(str, served_gmm - gmm_checked))}")
     logits, _ = model.prefill(params, torch.as_tensor(prompts[0][None]))
     if not bool(torch.isfinite(logits).all()):
         raise SystemExit("non-finite logits at full width")
 
-    groups = ", ".join(f"{g}x{b}: {1e3 * s:.1f}" for g, b, s in m.prefill_walls)
+    walls = ", ".join(f"{g}x{b}: {1e3 * s:.1f}" for g, b, s in m.prefill_walls)
     dec = np.array([s for _, s in m.decode_walls]) * 1e3
     toks = sum(len(o) for o in outs)
-    log(f"phase 4 serve continuous: {len(prompts)} requests (prompts {lens.min()}-{lens.max()}),"
-        f" {toks} tokens in {cb_s:.3f} s = {toks / cb_s:.1f} tok/s; "
-        f"{m.prefills} prefill groups, {m.decode_steps} decode steps; "
-        f"flash launches {cb_launches}")
-    log(f"phase 4 prefill ms per group (rows x bucket: ms): {groups}")
-    log(f"phase 4 decode ms per step: median {np.median(dec):.2f}, mean {dec.mean():.2f}, "
-        f"min {dec.min():.2f}, max {dec.max():.2f} (host clock, ends in a sync)")
-    log(f"phase 4 serve one-shot: 4 x 512 prompt, {one.size} tokens in {one_s:.3f} s = "
-        f"{one.size / one_s:.1f} tok/s; max_memory_allocated {peak_gb:.2f} GiB")
-    profile_decode(engine, prompts)
+    log(f"phase 4 serve {cfg.name} continuous: {len(prompts)} requests (prompts "
+        f"{lens.min()}-{lens.max()}), {toks} tokens in {cb_s:.3f} s = {toks / cb_s:.1f} tok/s; "
+        f"{m.prefills} prefill groups, {m.decode_steps} decode steps; launches {cb}")
+    log(f"phase 4 {cfg.name} prefill ms per group (rows x bucket: ms): {walls}")
+    log(f"phase 4 {cfg.name} decode ms per step: median {np.median(dec):.2f}, mean "
+        f"{dec.mean():.2f}, min {dec.min():.2f}, max {dec.max():.2f} (host clock, ends in a sync)")
+    log(f"phase 4 serve {cfg.name} one-shot: 4 x 512 prompt, {one.size} tokens in {one_s:.3f} s"
+        f" = {one.size / one_s:.1f} tok/s; max_memory_allocated {peak_gb:.2f} GiB; "
+        f"launches of both runs {launches}")
+    profile_decode(cfg.name, engine, prompts)
     return launches
 
 
-def profile_decode(engine, prompts, steps: int = 12) -> None:
+def profile_decode(name: str, engine, prompts, steps: int = 12) -> None:
     """Device busy share of decode: 4 slots decoding, ``steps`` engine steps
     under torch.profiler (after the launch counts were read)."""
     for p in prompts[:4]:
@@ -293,12 +453,13 @@ def profile_decode(engine, prompts, steps: int = 12) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
-        log("phase 4 decode profile: the profiler saw no device time (not measured)")
+        log(f"phase 4 {name} decode profile: the profiler saw no device time (not measured)")
         return
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
-    log(f"phase 4 decode profile: {steps} steps of 4 rows, wall {wall_ms / steps:.2f} ms/step, "
-        f"device busy {busy_ms / steps:.2f} ms/step = {100 * busy_ms / wall_ms:.1f}% "
-        f"(idle {100 - 100 * busy_ms / wall_ms:.1f}%); top device time: "
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    log(f"phase 4 {name} decode profile: {steps} steps of 4 rows, wall {wall_ms / steps:.2f} "
+        f"ms/step, device busy {busy_ms / steps:.2f} ms/step = {100 * busy_ms / wall_ms:.1f}% "
+        f"(idle {100 - 100 * busy_ms / wall_ms:.1f}%), "
+        f"{sum(e.count for e in events) / steps:.0f} kernels/step; top device time: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
                     f"x{e.count // steps}" for e in top))
 
@@ -333,26 +494,46 @@ def _greedy_run(model, params, toks, lens, capacity, steps):
     return torch.stack([t.cpu() for t in out_toks], 1), torch.stack(out_logits, 1)
 
 
-def phase_card_vs_cpu() -> None:
-    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2, compute_dtype="float32")
+def phase_card_vs_cpu(arch: str, steps: int = 8) -> None:
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32")
     cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     params = cpu_model.init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(1)
     lens = np.array([100, 77])
     toks = rng.integers(1, cfg.vocab, (2, 128))
     toks[1, lens[1]:] = 0
-    before = fa_kernel.launches
-    t_gpu, l_gpu = _greedy_run(gpu_model, gpu_model.load(params), toks, lens, 144, 8)
-    if fa_kernel.launches != before + cfg.n_layers:
-        raise SystemExit("the card's prefill did not go through the kernel")
-    t_cpu, l_cpu = _greedy_run(cpu_model, cpu_model.load(params), toks, lens, 144, 8)
+    before = {"flash_attention": fa_kernel.launches, "moe_gmm": gmm_kernel.launches}
+    t_gpu, l_gpu = _greedy_run(gpu_model, gpu_model.load(params), toks, lens, 144, steps)
+    made = {"flash_attention": fa_kernel.launches - before["flash_attention"],
+            "moe_gmm": gmm_kernel.launches - before["moe_gmm"]}
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    if made != {"flash_attention": cfg.n_layers, "moe_gmm": 3 * n_moe * (1 + steps)}:
+        raise SystemExit(f"the card's run did not go through the kernels: launches {made}")
+    t_cpu, l_cpu = _greedy_run(cpu_model, cpu_model.load(params), toks, lens, 144, steps)
     gap = (l_gpu - l_cpu).abs().max().item()
     same = torch.equal(t_gpu, t_cpu)
-    log(f"phase 5 card vs cpu ({cfg.name} 2 layers fp32, prefill + 8 decode steps): "
+    log(f"phase 5 card vs cpu ({cfg.name} 2 layers fp32, prefill + {steps} decode steps): "
         f"greedy tokens {'equal' if same else 'DIFFER'}, max logit gap {gap:.3e} "
-        f"(bound {FP32_LOGITS_BOUND:g})")
+        f"(bound {FP32_LOGITS_BOUND:g}); card launches {made}")
     if not same or gap > FP32_LOGITS_BOUND:
         raise SystemExit("card and CPU disagree")
+
+
+def _kernel_entry(name, mod, launches, err, rep) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": str(mod.SOURCE.relative_to(Path(__file__).resolve().parent)),
+        "replaces": mod.REPLACES,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": rep["ms"],
+        "plain_ms": rep["plain_ms"],
+        "bound_ms": rep["bound_ms"],
+        "bound_by": rep["bound_by"],
+        "library_ms": rep["library_ms"],
+        "shape": rep["shape"],
+    }
 
 
 def main() -> int:
@@ -361,26 +542,25 @@ def main() -> int:
         return 1
     t_start = time.perf_counter()
     smi, kind = phase_card_and_build()
-    main_err, checked = phase_check()
-    rows = phase_time()
-    launches = phase_serve(checked)
-    phase_card_vs_cpu()
-    rep = next(r for r in rows if r["shape"] == str(main_shape(4, 1024)))
-    kernels = [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": str(fa_kernel.SOURCE.relative_to(Path(__file__).resolve().parent)),
-        "replaces": fa_kernel.REPLACES,
-        "launches": launches,
-        "max_abs_err": main_err,
-        "ms": rep["ms"],
-        "plain_ms": rep["plain_ms"],
-        "bound_ms": rep["bound_ms"],
-        "bound_by": rep["bound_by"],
-        "library_ms": rep["library_ms"],
-        "shape": rep["shape"],
-    }]
-    log("kernels: flash_attention (launched on the main path, held against its plain version)")
+    fa_err, fa_checked = phase_check_flash()
+    gmm_err, gmm_checked = phase_check_gmm()
+    fa_rows, gmm_rows = phase_time_flash(), phase_time_gmm()
+    dense = phase_serve(DENSE, fa_checked, gmm_checked)
+    moe = phase_serve(MOE, fa_checked, gmm_checked)
+    for arch in (DENSE, MOE):
+        phase_card_vs_cpu(arch)
+    fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
+    decode_c = capacity(get_config(MOE), N_SLOTS)
+    gmm_rep = next(r for r in gmm_rows if r["shape"] == str(expert_shapes(decode_c)[0]))
+    kernels = [
+        _kernel_entry("flash_attention", fa_kernel,
+                      dense["flash_attention"] + moe["flash_attention"], fa_err, fa_rep),
+        _kernel_entry("moe_gmm", gmm_kernel, moe["moe_gmm"], gmm_err, gmm_rep),
+    ]
+    kernels[0]["launches_by_path"] = {DENSE: dense["flash_attention"], MOE: moe["flash_attention"]}
+    kernels[1]["launches_by_path"] = {DENSE: dense["moe_gmm"], MOE: moe["moe_gmm"]}
+    log("kernels: flash_attention, moe_gmm (each launched on a main path, held against its "
+        "plain version)")
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -136,6 +136,8 @@ _MODULES = {
     "internlm2-1.8b": "internlm2_1_8b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "qwen3-32b": "qwen3_32b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "olmoe-1b-7b": "olmoe_1b_7b",
 }
 
 ARCH_IDS = list(_MODULES)

@@ -4,6 +4,12 @@ one-shot baseline, on the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
       --requests 8 --slots 4
 
+  # MoE: granite-moe-1b-a400m on the card, olmoe-1b-7b small on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \
+      --requests 8 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced \
+      --device cpu
+
   # one-shot lockstep baseline, small config on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --one-shot --batch 4 --prompt-len 32 --new-tokens 16

@@ -1,19 +1,23 @@
 """Top-level decoder-only model: embeddings + transformer stack + LM head.
 
 Counterpart of the JAX package's ``models/model.py`` for decoder-only dense
-configs.  Parameters are a plain dict::
+and MoE configs.  Parameters are a plain dict::
 
     {"embed": [V, D], "final_norm": [D], "lm_head": [D, V],
      "layers": [ {"ln1", "mixer": {"w_q", "w_k", "w_v", "w_o"[, "q_norm",
-                  "k_norm"]}, "ln2", "ffn": {"w_gate", "w_up", "w_down"}}, ... ]}
+                  "k_norm"]}, "ln2", "ffn": FFN}, ... ]}
+
+where FFN is ``{"w_gate", "w_up": [D, F], "w_down": [F, D]}`` on a dense
+layer and ``{"router": [D, E], "w_gate", "w_up": [E, D, F], "w_down":
+[E, F, D]}`` on an MoE layer (``cfg.layer_is_moe``).
 
 ``init`` makes them in ``cfg.param_dtype`` (fp32) on the model's device.
 ``load`` casts them to ``cfg.compute_dtype`` once; the JAX package casts the
 fp32 weights on every call (``.astype(compute)``) and gets the same values,
 so the served numbers do not change.  The engines load their params this way.
 
-Encoder-decoder, multimodal frontends, MLA, MoE and SSM layers wait for
-later slices and raise ``NotImplementedError``.
+Encoder-decoder, multimodal frontends, MLA and SSM layers wait for later
+slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,14 +54,14 @@ class Model:
         unsupported = [
             name for name, on in (
                 ("encoder-decoder", cfg.enc_dec), ("frontend", cfg.frontend is not None),
-                ("MLA", cfg.attn_type == "mla"), ("MoE", cfg.moe is not None),
+                ("MLA", cfg.attn_type == "mla"),
                 ("SSM", cfg.ssm is not None or cfg.attn_period != 1),
             ) if on
         ]
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unsupported)} not ported yet; the port "
-                "runs decoder-only dense GQA models"
+                "runs decoder-only GQA models, dense or MoE"
             )
         self.cfg = cfg
         self.device = resolve_device(device)

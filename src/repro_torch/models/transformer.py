@@ -1,7 +1,11 @@
-"""Transformer stack for decoder-only dense models.
+"""Transformer stack for decoder-only dense and MoE models.
 
 Counterpart of the JAX package's ``models/transformer.py``.  Block = norm ->
-GQA attention -> residual -> norm -> dense SwiGLU -> residual.  The JAX stack
+GQA attention -> residual -> norm -> FFN -> residual, where the FFN is the
+MoE layer on the layers ``cfg.layer_is_moe(i)`` names and the dense SwiGLU
+elsewhere (none where ``d_ff`` is 0).  The MoE load-balancing loss is
+dropped: the stack serves, and the reference's prefill and decode drop it
+too.  The JAX stack
 scans over scan-stacked parameters; here the layers are a Python list (one
 param dict per layer) run in a loop.  There is no mesh, so the sharding
 constraints of the JAX stack have no counterpart.
@@ -19,6 +23,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
+from . import moe as moe_mod
 from .layers import mlp_apply, mlp_init, rms_norm, zeros_init
 
 __all__ = ["block_init", "block_apply", "stack_init", "stack_apply", "init_stack_cache"]
@@ -26,31 +31,42 @@ __all__ = ["block_init", "block_apply", "stack_init", "stack_apply", "init_stack
 CACHE_KEYS = ("k", "v", "pos")
 
 
-def block_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> dict:
+def block_init(gen: torch.Generator, cfg: ModelConfig, i: int, dtype=torch.float32) -> dict:
+    """Parameters of layer ``i``."""
     d = cfg.d_model
-    return {
+    params = {
         "ln1": zeros_init(gen, (d,), dtype),
         "mixer": attn_mod.attention_init(gen, cfg, dtype),
-        "ln2": zeros_init(gen, (d,), dtype),
-        "ffn": mlp_init(gen, d, cfg.d_ff, dtype),
     }
+    if cfg.layer_is_moe(i):
+        params["ln2"] = zeros_init(gen, (d,), dtype)
+        params["ffn"] = moe_mod.moe_init(gen, cfg, dtype)
+    elif cfg.d_ff:
+        params["ln2"] = zeros_init(gen, (d,), dtype)
+        params["ffn"] = mlp_init(gen, d, cfg.d_ff, dtype)
+    return params
 
 
-def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
+def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *, positions,
                 cache: dict | None = None, update_cache: bool = False, ragged: bool = False):
-    """Returns (x, cache)."""
+    """Layer ``i``; returns (x, cache)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     out, new_cache = attn_mod.attention_apply(
         params["mixer"], h, cfg, positions=positions, cache=cache,
         update_cache=update_cache, ragged=ragged,
     )
     x = x + out
-    x = x + mlp_apply(params["ffn"], rms_norm(x, params["ln2"], cfg.norm_eps))
+    if "ffn" in params:
+        h = rms_norm(x, params["ln2"], cfg.norm_eps)
+        if cfg.layer_is_moe(i):
+            x = x + moe_mod.moe_apply(params["ffn"], h, cfg)[0]
+        else:
+            x = x + mlp_apply(params["ffn"], h)
     return x, new_cache
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> list[dict]:
-    return [block_init(gen, cfg, dtype) for _ in range(cfg.n_layers)]
+    return [block_init(gen, cfg, i, dtype) for i in range(cfg.n_layers)]
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfloat16,
@@ -70,7 +86,7 @@ def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positi
     emitted = []
     for i, layer in enumerate(layers):
         layer_cache = None if caches is None else {n: caches[n][i] for n in CACHE_KEYS}
-        x, nc = block_apply(layer, x, cfg, positions=positions, cache=layer_cache,
+        x, nc = block_apply(layer, x, cfg, i, positions=positions, cache=layer_cache,
                             update_cache=update_cache, ragged=ragged)
         if caches is None and update_cache:
             emitted.append(nc)

@@ -13,6 +13,9 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.flash_attention.ref import reference_attention
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
+from repro_torch.kernels.moe_gmm.ref import reference_grouped_matmul
 from repro_torch.models import build_model
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -24,6 +27,10 @@ SHAPES = [  # b, s, h, kv, d, causal, window
     (1, 384, 6, 3, 64, True, 128),
     (1, 1000, 16, 8, 128, True, 0),
     (2, 77, 32, 8, 80, True, 64),
+]
+GMM_SHAPES = [  # e, c, d, f: the JAX sweep, ragged capacities, granite's decode and prefill
+    (4, 256, 256, 128), (8, 128, 512, 256), (2, 128, 128, 128), (16, 128, 256, 128),
+    (4, 1, 128, 64), (8, 50, 128, 64), (32, 8, 1024, 512), (32, 160, 512, 1024),
 ]
 
 
@@ -48,6 +55,55 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype):
         assert kernel.launches == before + 1
         ref = reference_attention(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_matches_plain_version(cuda, dtype):
+    """Tolerance 5 x the per-kernel one, as the JAX package's gmm sweep."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for e, c, d, f in GMM_SHAPES:
+        x = torch.randn(e, c, d, generator=gen, device=cuda).to(dtype)
+        w = (torch.randn(e, d, f, generator=gen, device=cuda) / d**0.5).to(dtype)
+        before = gmm_kernel.launches
+        out = gmm_ops.gmm(x, w)
+        torch.cuda.synchronize()
+        assert gmm_kernel.launches == before + 1
+        ref = reference_grouped_matmul(x, w)
+        tol = 5 * TOL[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+        # a strided view of the rows reads the same values
+        view = gmm_ops.gmm(x[:, : (c + 1) // 2], w)
+        torch.testing.assert_close(view, out[:, : (c + 1) // 2], atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_moe_prefill_and_decode_on_card_match_cpu(cuda):
+    """fp32 REDUCED granite-moe: the card (both kernels) and the CPU (plain
+    versions) give the same greedy tokens and logits within 1e-4."""
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", reduced=True),
+                              compute_dtype="float32")
+    cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, (2, 96)))
+    runs = []
+    for model in (cpu_model, gpu_model):
+        p = model.load(params)
+        logits, caches = model.prefill(p, toks)
+        caches = model.prepare_decode_caches(caches, 128)
+        out = [logits[:, 0].cpu()]
+        pos = torch.full((2,), 96, device=model.device)
+        for _ in range(4):
+            tok = out[-1].argmax(-1)[:, None].to(model.device)
+            logits, caches = model.decode_step(p, caches, tok, pos, ragged=True)
+            out.append(logits[:, 0].cpu())
+            pos = pos + 1
+        runs.append(torch.stack(out, 1))
+    before = gmm_kernel.launches
+    gpu_model.prefill(gpu_model.load(params), toks)
+    assert gmm_kernel.launches == before + 3 * cfg.n_layers
+    torch.testing.assert_close(runs[1], runs[0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(runs[1].argmax(-1), runs[0].argmax(-1))
 
 
 @pytest.mark.gpu

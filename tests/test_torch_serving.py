@@ -1,7 +1,9 @@
 """The port's serving runtime: queue, KV pool, scheduler and cost hooks behave
 as ``tests/test_serving.py`` pins for the JAX package, and greedy fp32 token
 streams of the port's engines equal the JAX engines' on the same weights
-(internlm2 REDUCED, 2 layers, mixed prompt lengths)."""
+(internlm2 and granite-moe REDUCED, 2 layers, mixed prompt lengths; the MoE
+streams at the same ``n_slots``, since expert capacity couples the rows of a
+step)."""
 
 import dataclasses
 
@@ -30,16 +32,25 @@ from repro_torch.runtime.serving import (
 )
 
 
-@pytest.fixture(scope="module")
-def pair():
+def _make_pair(arch):
     """(JAX model, JAX params, port model, port params): same fp32 weights."""
     over = dict(compute_dtype="float32", remat=False, n_layers=2)
-    cfg_j = dataclasses.replace(jax_get_config("internlm2-1.8b", reduced=True), **over)
-    cfg_t = dataclasses.replace(get_config("internlm2-1.8b", reduced=True), **over)
+    cfg_j = dataclasses.replace(jax_get_config(arch, reduced=True), **over)
+    cfg_t = dataclasses.replace(get_config(arch, reduced=True), **over)
     mj = jax_build_model(cfg_j)
     pj = mj.init(jax.random.PRNGKey(0))
     mt = build_model(cfg_t, device="cpu")
     return mj, pj, mt, from_jax_params(cfg_t, jax.tree.map(np.asarray, pj))
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _make_pair("internlm2-1.8b")
+
+
+@pytest.fixture(scope="module")
+def moe_pair():
+    return _make_pair("granite-moe-1b-a400m")
 
 
 @pytest.fixture(scope="module")
@@ -221,6 +232,32 @@ def test_one_shot_engine_matches_reference_greedy_streams(pair):
     np.testing.assert_array_equal(got, want)
 
 
+def test_moe_continuous_engine_matches_reference_greedy_streams(moe_pair):
+    """MoE: prefill groups of several buckets and sizes, ragged decode with
+    idle slots (their stale tokens route and take expert capacity in both)."""
+    mj, pj, mt, pt = moe_pair
+    rng = np.random.default_rng(6)
+    prompts = _prompts(rng, mt.cfg.vocab, [5, 9, 13, 3, 17, 30, 8])
+    budgets = [6, 4, 5, 7, 3, 5, 6]
+    ref = jax_serving.ContinuousBatchingEngine(mj, pj, n_slots=3, max_len=48, seed=0)
+    want = ref.generate(prompts, budgets)
+    eng = ContinuousBatchingEngine(mt, pt, n_slots=3, max_len=48, seed=0)
+    got = eng.generate(prompts, budgets)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    eng.pool.check()
+    assert eng.metrics.prefills > 1 and eng.pool.n_free == 3
+
+
+def test_moe_one_shot_engine_matches_reference_greedy_streams(moe_pair):
+    mj, pj, mt, pt = moe_pair
+    rng = np.random.default_rng(7)
+    static = np.stack(_prompts(rng, mt.cfg.vocab, [12, 12, 12, 12]))
+    want = jax_serving.ServingEngine(mj, pj, max_len=48).generate(static, 8)
+    got = ServingEngine(mt, pt, max_len=48).generate(static, 8)
+    np.testing.assert_array_equal(got, want)
+
+
 # ---------------------------------------------------------------- engine behaviour
 def test_continuous_matches_one_shot(tiny):
     model, params = tiny
@@ -340,3 +377,11 @@ def test_launcher_runs_on_cpu(capsys):
     serve.main(["--reduced", "--device", "cpu", "--one-shot", "--batch", "2",
                 "--prompt-len", "8", "--new-tokens", "3"])
     assert "generated 6 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "olmoe-1b-7b"])
+def test_launcher_serves_moe_on_cpu(arch, capsys):
+    serve.main(["--arch", arch, "--reduced", "--device", "cpu", "--requests", "3",
+                "--slots", "2", "--prompt-len", "12", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "served 3 ragged requests" in out and f"{arch}: 4 layers" in out
