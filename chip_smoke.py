@@ -3,27 +3,33 @@
 of a checkout: ``python3 chip_smoke.py``).  It imports only ``repro_torch``,
 torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 
-1. card and build: the card's name and power limit, both kernels built from
-   the sources in the checkout (one nvcc each, started together);
+1. card and build: the card's name and power limit, the three kernels built
+   from the sources in the checkout (one nvcc each, started together);
 2. every kernel against its plain PyTorch version on the card.  Flash
-   attention at the shapes of the kernel sweep, of both main paths (every
+   attention at the shapes of the kernel sweep, of both attention paths (every
    prefill group of 1, 2 or 4 rows at every bucket of 128 to 2048 tokens:
    internlm2-1.8b at head_dim 128, granite-moe-1b-a400m at head_dim 64) and
    of h2o-danube-1.8b, and at a ragged length.  The grouped matmul at the
    shapes of the JAX package's sweep, at ragged capacities and at every
    granite expert shape of the served runs (gate/up and down at each
-   capacity C), in fp32 and bf16.  Phase 4 fails if it launched a kernel at
-   a shape this phase did not check;
+   capacity C), in fp32 and bf16.  The SSD scan at the shapes of the JAX
+   package's sweep, at ragged S and at every mamba2-1.3b shape of the
+   served runs (one prompt at each of its exact lengths, and the 4 x 512
+   batch), in fp32 and bf16.  Phase 4 fails if it launched a kernel at a
+   shape this phase did not check;
 3. kernel times at the main-path shapes beside the plain version, one
    library call the port never calls (``scaled_dot_product_attention``,
-   ``torch.bmm``) and the least time the card could take (bound);
-4. the two main paths at full width (all 24 layers, random weights from a
-   seed, bf16), each serving 8 ragged requests on 4 slots through
+   ``torch.bmm``; no single PyTorch call computes the SSD scan) and the
+   least time the card could take (bound);
+4. the three main paths at full width (random weights from a seed, bf16),
+   each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
-   ``ServingEngine``: internlm2-1.8b (dense), then granite-moe-1b-a400m
-   (MoE, expert FFNs through the grouped matmul).  The launch counters are
+   ``ServingEngine``: internlm2-1.8b (dense, 24 layers), granite-moe-1b-a400m
+   (MoE, 24 layers, expert FFNs through the grouped matmul), then
+   mamba2-1.3b (48 SSM layers, each prefill through the SSD scan, every
+   prompt prefilled alone at its exact length).  The launch counters are
    set to 0 just before each path and read just after it, and must match
-   the path's layers, prefill groups and decode steps;
+   the path's layers, prefills and decode steps;
 5. card against CPU: each model cut to 2 layers in fp32, prefill and 8
    ragged decode steps on both; greedy tokens equal, logits within 1e-3;
 6. a JSON line of the kernels, and as the last line
@@ -57,6 +63,9 @@ from repro_torch.kernels.flash_attention.ref import reference_attention  # noqa:
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import reference_grouped_matmul  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine  # noqa: E402
@@ -68,10 +77,13 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # tensor-core bf16; f
 PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 GMM_TOL = {dt: 5 * t for dt, t in TOL.items()}  # as the JAX package's gmm sweep
-# card vs CPU: fp32 sums over d_ff = 8192 (internlm2) or over 8 experts of
-# 512 (granite) in other orders
+SSD_TOL = {dt: 20 * t for dt, t in TOL.items()}  # as the JAX package's SSD sweep
+# card vs CPU: fp32 sums over d_ff = 8192 (internlm2), over 8 experts of
+# 512 (granite) or over the SSD scan's chunks (mamba2) in other orders
 FP32_LOGITS_BOUND = 1e-3
-DENSE, MOE = "internlm2-1.8b", "granite-moe-1b-a400m"
+DENSE, MOE, SSM = "internlm2-1.8b", "granite-moe-1b-a400m", "mamba2-1.3b"
+ARCHS = (DENSE, MOE, SSM)
+KERNELS = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel, "ssd_scan": ssd_kernel}
 MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
 MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
 N_SLOTS, NEW_TOKENS = 4, 32
@@ -178,6 +190,53 @@ class GmmShape:
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+@dataclasses.dataclass(frozen=True)
+class SsdShape:
+    """An SSD scan call: x [B, S, H, P], dt [B, S, H], a [H], b/c [B, S, N].
+    ``chunk`` is the plain version's (the kernel takes its own)."""
+    b: int
+    s: int
+    h: int
+    p: int
+    n: int
+    dtype: torch.dtype
+    chunk: int = dataclasses.field(default=512, compare=False)
+
+    def __str__(self):
+        return f"{_dt(self.dtype)} B{self.b} S{self.s} H{self.h} P{self.p} N{self.n}"
+
+    def nbytes(self) -> int:
+        """x and y in their dtype, b and c read once, dt, a and the fp32 state."""
+        elem = 2 if self.dtype == torch.bfloat16 else 4
+        return (elem * (2 * self.b * self.s * self.h * self.p + 2 * self.b * self.s * self.n)
+                + 4 * (self.b * self.s * self.h + self.h + self.b * self.h * self.p * self.n))
+
+    def inputs(self, seed: int = 0):
+        """x, dt, a, b, c drawn as the JAX package's SSD sweep draws them."""
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        x = torch.randn(self.b, self.s, self.h, self.p, generator=gen, device="cuda")
+        dt = torch.rand(self.b, self.s, self.h, generator=gen, device="cuda") * 0.199 + 0.001
+        a = -(torch.rand(self.h, generator=gen, device="cuda") * 3.5 + 0.5)
+        bc = [torch.randn(self.b, self.s, self.n, generator=gen, device="cuda").to(self.dtype)
+              for _ in range(2)]
+        return x.to(self.dtype), dt, a, *bc
+
+    def bound(self) -> tuple[float, str]:
+        """Operations of the chunked schedule at the kernel's chunk Q: per
+        chunk of L rows, C B^T over the lower triangle, L (L + 1) N, once for
+        all heads (bf16 inputs could take it exactly on the tensor cores, so
+        it counts at their peak there), and per head G u over the lower
+        triangle, L (L + 1) P, C S^T, 2 L N P (not in the first chunk,
+        where S = 0), and the state update, 2 L P N, all in fp32 on FMA."""
+        rows = [min(ssd_kernel.CHUNK, self.s - t0) for t0 in range(0, self.s, ssd_kernel.CHUNK)]
+        cb = self.b * sum(r * (r + 1) * self.n for r in rows)
+        rest = self.b * self.h * sum(r * (r + 1) * self.p + 2 * r * self.n * self.p * (1 + (i > 0))
+                                     for i, r in enumerate(rows))
+        t_ops = cb / PEAK_OPS[self.dtype] + rest / PEAK_OPS[torch.float32]
+        t_bytes = self.nbytes() / PEAK_BYTES
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def phase_card_and_build() -> tuple[str, str]:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -189,14 +248,13 @@ def phase_card_and_build() -> tuple[str, str]:
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1 card: {kind}, torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    kernels = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel}
-    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:  # one nvcc each
-        built = dict(zip(kernels, pool.map(lambda k: k.load(), kernels.values())))
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc each
+        built = dict(zip(KERNELS, pool.map(lambda k: k.load(), KERNELS.values())))
     for name, b in built.items():
         ptxas = "; ".join(line.split("ptxas info    : ")[-1].strip()
-                          for line in b.log.splitlines() if "Used " in line)
+                          for line in b.log.splitlines() if "Used " in line or "spill" in line)
         log(f"phase 1 build: {name} built by nvcc in {b.seconds:.1f} s (ptxas: {ptxas})")
-    log(f"phase 1 build: both kernels in {time.perf_counter() - t0:.1f} s wall")
+    log(f"phase 1 build: all {len(built)} kernels in {time.perf_counter() - t0:.1f} s wall")
     return smi, kind
 
 
@@ -224,13 +282,16 @@ def main_capacities() -> list[int]:
 
 
 def _check(name: str, shape, out, ref, tol: float) -> float:
-    err = (out.float() - ref.float()).abs()
-    ok = bool((err <= tol + tol * ref.float().abs()).all())
-    log(f"phase 2 check {name} {shape}: max_abs_err {err.max().item():.3e} "
+    """``out`` against ``ref`` (a tensor each, or tuples of them)."""
+    pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
+    errs = [(o.float() - r.float()).abs() for o, r in pairs]
+    ok = all(bool((e <= tol + tol * r.float().abs()).all()) for e, (_, r) in zip(errs, pairs))
+    err = max(e.max().item() for e in errs)
+    log(f"phase 2 check {name} {shape}: max_abs_err {err:.3e} "
         f"(tol {tol:g} abs + rel) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version at {shape}")
-    return err.max().item()
+    return err
 
 
 def phase_check_flash() -> tuple[float, set[Shape]]:
@@ -354,7 +415,103 @@ def phase_time_gmm() -> list[dict]:
     return rows
 
 
-def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]) -> dict:
+def traffic(vocab: int):
+    """The served traffic, from seed 0: 8 prompts of 100 to 1000 tokens (their
+    lengths, and the prompts) and one 4 x 512 batch."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(100, 1001, 8)
+    prompts = [rng.integers(1, vocab, (int(n),)).astype(np.int32) for n in lens]
+    batch = rng.integers(1, vocab, (4, 512)).astype(np.int32)
+    return lens, prompts, batch
+
+
+def ssm_shape(b: int, s: int, dtype=torch.bfloat16) -> SsdShape:
+    """The SSD scan's shape in a prefill of mamba2-1.3b: b rows of s tokens."""
+    cfg = get_config(SSM)
+    c = cfg.ssm
+    return SsdShape(b, s, c.expand * cfg.d_model // c.head_dim, c.head_dim, c.state_dim, dtype,
+                    chunk=c.chunk_size)
+
+
+def main_ssd_shapes(dtype=torch.bfloat16) -> list[SsdShape]:
+    """Every shape mamba2's served runs give the kernel: each prompt alone at
+    its exact length, and the one-shot 4 x 512 batch."""
+    lens = traffic(get_config(SSM).vocab)[0]
+    return [ssm_shape(1, int(n), dtype) for n in lens] + [ssm_shape(4, 512, dtype)]
+
+
+def phase_check_ssd() -> tuple[float, set[SsdShape]]:
+    """SSD scan against its plain version; returns the max error at the
+    main-path (mamba2 bf16) shapes and every shape checked."""
+    main = main_ssd_shapes()
+    checked = set()
+    main_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        sweep = [SsdShape(2, 128, 4, 32, 16, dt, 32), SsdShape(1, 256, 2, 64, 32, dt, 64),
+                 SsdShape(1, 64, 8, 16, 128, dt, 16)]
+        ragged = [SsdShape(2, 77, 3, 16, 32, dt, 32), SsdShape(1, 1, 4, 64, 128, dt, 64),
+                  SsdShape(3, 130, 2, 8, 16, dt, 64), SsdShape(1, 1000, 8, 64, 128, dt, 256)]
+        card_vs_cpu = [ssm_shape(1, 100, dt), ssm_shape(1, 77, dt)]  # phase 5's prefills
+        for shape in sweep + ragged + card_vs_cpu + main_ssd_shapes(dt):
+            args = shape.inputs()
+            out = ssd_ops.ssd(*args)  # (y, final state)
+            torch.cuda.synchronize()
+            err = _check("ssd_scan", shape, out, ssd_chunked(*args, shape.chunk), SSD_TOL[dt])
+            if shape in main:
+                main_err = max(main_err, err)
+            checked.add(shape)
+            del args, out
+        torch.cuda.empty_cache()
+    return main_err, checked
+
+
+def phase_time_ssd() -> list[dict]:
+    """The SSD scan at mamba2's longest served prompt, the one-shot batch and
+    the shortest prompt, bf16, and one fp32 shape; inputs rotate through at
+    least 2.5x the L2 as in ``phase_time_gmm``."""
+    lens = traffic(get_config(SSM).vocab)[0]
+    shapes = [ssm_shape(1, int(lens.max())), ssm_shape(4, 512), ssm_shape(1, int(lens.min())),
+              ssm_shape(1, 100, torch.float32)]
+    rows = []
+    for shape in shapes:
+        n_sets = max(1, min(8, math.ceil(2.5 * L2_BYTES / shape.nbytes())))
+        sets = [shape.inputs(seed=i) for i in range(n_sets)]
+        ms = cuda_ms(_rotating(ssd_ops.ssd, sets), iters=20)
+        plain_ms = cuda_ms(_rotating(lambda *a: ssd_chunked(*a, shape.chunk), sets), iters=5,
+                           warmup=1)
+        bound_ms, bound_by = shape.bound()
+        rows.append(dict(shape=str(shape), ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        log(f"phase 3 time ssd_scan {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"library none, bound {bound_ms:.4f} ms ({bound_by}); "
+            f"kernel at {100 * bound_ms / ms:.1f}% of bound ({n_sets} input sets)")
+        del sets
+        torch.cuda.empty_cache()
+    return rows
+
+
+def layer_kinds(cfg) -> tuple[int, int, int]:
+    """(attention layers, MoE layers, SSM layers)."""
+    n_attn = sum(cfg.layer_is_attention(i) for i in range(cfg.n_layers))
+    return n_attn, sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)), cfg.n_layers - n_attn
+
+
+def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """Launches a path makes: flash attention once per attention layer and
+    prefill, the grouped matmul three times per MoE layer and prefill or
+    decode step, the SSD scan once per SSM layer and prefill (decode keeps
+    the plain ``ssd_step``)."""
+    n_attn, n_moe, n_ssm = layer_kinds(cfg)
+    return {"flash_attention": n_attn * prefills, "moe_gmm": 3 * n_moe * (prefills + decode_steps),
+            "ssd_scan": n_ssm * prefills}
+
+
+def _launches() -> dict:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape],
+                ssd_checked: set[SsdShape]) -> dict:
     """One main path at full width; returns the launches it made by kernel.
     Fails if a launch count does not match the path, or if the path ran a
     kernel at a shape phase 2 did not check."""
@@ -367,52 +524,59 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     log(f"phase 4 init: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
         f"{cfg.compute_dtype} on {model.device} in {time.perf_counter() - t0:.1f} s")
 
-    rng = np.random.default_rng(0)
-    lens = rng.integers(100, 1001, 8)
-    prompts = [rng.integers(1, cfg.vocab, (int(n),)).astype(np.int32) for n in lens]
-    batch = rng.integers(1, cfg.vocab, (4, 512)).astype(np.int32)
+    lens, prompts, batch = traffic(cfg.vocab)
     engine = ContinuousBatchingEngine(model, params, n_slots=N_SLOTS,
                                       max_len=1000 + NEW_TOKENS + 8)
     one_shot = ServingEngine(model, params, max_len=512 + NEW_TOKENS + 8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    fa_kernel.launches = gmm_kernel.launches = 0
+    for mod in KERNELS.values():
+        mod.launches = 0
     t0 = time.perf_counter()
     outs = engine.generate(prompts, NEW_TOKENS)
     cb_s = time.perf_counter() - t0
-    cb = {"flash_attention": fa_kernel.launches, "moe_gmm": gmm_kernel.launches}
+    cb = _launches()
     t0 = time.perf_counter()
     one = one_shot.generate(batch, NEW_TOKENS)
     one_s = time.perf_counter() - t0
-    launches = {"flash_attention": fa_kernel.launches, "moe_gmm": gmm_kernel.launches}
+    launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
 
     m = engine.metrics
-    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
-    want_cb = {"flash_attention": cfg.n_layers * m.prefills,
-               "moe_gmm": 3 * n_moe * (m.prefills + m.decode_steps)}
-    want = {"flash_attention": want_cb["flash_attention"] + cfg.n_layers,
-            "moe_gmm": want_cb["moe_gmm"] + 3 * n_moe * NEW_TOKENS}
+    want_cb = expected_launches(cfg, m.prefills, m.decode_steps)
+    one_shot_want = expected_launches(cfg, 1, NEW_TOKENS - 1)
+    want = {k: want_cb[k] + one_shot_want[k] for k in want_cb}
     if cb != want_cb or launches != want:
         raise SystemExit(f"{cfg.name}: launches {cb} / {launches} do not match {m.prefills} "
-                         f"prefill groups and {m.decode_steps} decode steps of "
-                         f"{cfg.n_layers} layers (+ one-shot): want {want_cb} / {want}")
+                         f"prefills and {m.decode_steps} decode steps of {cfg.n_layers} "
+                         f"layers (+ one-shot): want {want_cb} / {want}")
     for o in outs + list(one):
         if len(o) != NEW_TOKENS or o.min() < 0 or o.max() >= cfg.vocab:
             raise SystemExit(f"bad token stream {o}")
     engine.pool.check()
+    n_attn, n_moe, n_ssm = layer_kinds(cfg)
     groups = [(g, b) for g, b, _ in m.prefill_walls] + [batch.shape]
-    served = {main_shape(g, b, arch) for g, b in groups}
-    if not served <= flash_checked:
-        raise SystemExit("the main path launched flash_attention at shapes phase 2 did not "
-                         f"check: {', '.join(map(str, served - flash_checked))}")
+    if n_attn:
+        served = {main_shape(g, b, arch) for g, b in groups}
+        if not served <= flash_checked:
+            raise SystemExit("the main path launched flash_attention at shapes phase 2 did not "
+                             f"check: {', '.join(map(str, served - flash_checked))}")
     if n_moe:
         tokens = [g * b for g, b in groups] + [N_SLOTS, batch.shape[0]]  # prefills, decodes
         served_gmm = {s for t in tokens for s in expert_shapes(capacity(cfg, t))}
         if not served_gmm <= gmm_checked:
             raise SystemExit("the main path launched moe_gmm at shapes phase 2 did not "
                              f"check: {', '.join(map(str, served_gmm - gmm_checked))}")
+    if n_ssm:
+        exact = sorted(b for g, b, _ in m.prefill_walls if g == 1)
+        if len(exact) != m.prefills or exact != sorted(int(n) for n in lens):
+            raise SystemExit(f"{cfg.name}: prompts not prefilled one at a time at their exact "
+                             f"length: {[(g, b) for g, b, _ in m.prefill_walls]}")
+        served_ssd = {ssm_shape(g, b) for g, b in groups}
+        if not served_ssd <= ssd_checked:
+            raise SystemExit("the main path launched ssd_scan at shapes phase 2 did not "
+                             f"check: {', '.join(map(str, served_ssd - ssd_checked))}")
     logits, _ = model.prefill(params, torch.as_tensor(prompts[0][None]))
     if not bool(torch.isfinite(logits).all()):
         raise SystemExit("non-finite logits at full width")
@@ -422,8 +586,10 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     toks = sum(len(o) for o in outs)
     log(f"phase 4 serve {cfg.name} continuous: {len(prompts)} requests (prompts "
         f"{lens.min()}-{lens.max()}), {toks} tokens in {cb_s:.3f} s = {toks / cb_s:.1f} tok/s; "
-        f"{m.prefills} prefill groups, {m.decode_steps} decode steps; launches {cb}")
-    log(f"phase 4 {cfg.name} prefill ms per group (rows x bucket: ms): {walls}")
+        f"{m.prefills} prefills, {m.decode_steps} decode steps; launches {cb} "
+        f"(per prefill {expected_launches(cfg, 1, 0)}, per decode step "
+        f"{expected_launches(cfg, 0, 1)})")
+    log(f"phase 4 {cfg.name} prefill ms per group (rows x tokens: ms): {walls}")
     log(f"phase 4 {cfg.name} decode ms per step: median {np.median(dec):.2f}, mean "
         f"{dec.mean():.2f}, min {dec.min():.2f}, max {dec.max():.2f} (host clock, ends in a sync)")
     log(f"phase 4 serve {cfg.name} one-shot: 4 x 512 prompt, {one.size} tokens in {one_s:.3f} s"
@@ -476,12 +642,20 @@ def _leaves(tree):
 
 
 def _greedy_run(model, params, toks, lens, capacity, steps):
-    """Prefill right-padded prompts, then ``steps`` ragged greedy decode
+    """Prefill right-padded prompts in one batch -- or, for a stack with SSM
+    layers, whose state would run through the padding, each row alone at its
+    exact length, as the engines do -- then ``steps`` ragged greedy decode
     steps; returns (tokens [B, steps + 1], logits of every step)."""
     dev = model.device
     true_len = torch.as_tensor(lens, device=dev)
-    logits, caches = model.prefill(params, torch.as_tensor(toks, device=dev),
-                                   last_pos=true_len - 1)
+    if layer_kinds(model.cfg)[2]:
+        rows = [model.prefill(params, torch.as_tensor(toks[i:i + 1, :n], device=dev))
+                for i, n in enumerate(lens)]
+        logits = torch.cat([r[0] for r in rows])
+        caches = {k: torch.cat([r[1][k] for r in rows], dim=1) for k in rows[0][1]}
+    else:
+        logits, caches = model.prefill(params, torch.as_tensor(toks, device=dev),
+                                       last_pos=true_len - 1)
     caches = model.prepare_decode_caches(model.mask_prompt_cache(caches, true_len), capacity)
     pos = true_len.clone()
     out_toks, out_logits = [logits[:, 0].argmax(-1)], [logits[:, 0].float().cpu()]
@@ -502,12 +676,11 @@ def phase_card_vs_cpu(arch: str, steps: int = 8) -> None:
     lens = np.array([100, 77])
     toks = rng.integers(1, cfg.vocab, (2, 128))
     toks[1, lens[1]:] = 0
-    before = {"flash_attention": fa_kernel.launches, "moe_gmm": gmm_kernel.launches}
+    before = _launches()
     t_gpu, l_gpu = _greedy_run(gpu_model, gpu_model.load(params), toks, lens, 144, steps)
-    made = {"flash_attention": fa_kernel.launches - before["flash_attention"],
-            "moe_gmm": gmm_kernel.launches - before["moe_gmm"]}
-    n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
-    if made != {"flash_attention": cfg.n_layers, "moe_gmm": 3 * n_moe * (1 + steps)}:
+    made = {k: n - before[k] for k, n in _launches().items()}
+    prefills = len(lens) if layer_kinds(cfg)[2] else 1
+    if made != expected_launches(cfg, prefills, steps):
         raise SystemExit(f"the card's run did not go through the kernels: launches {made}")
     t_cpu, l_cpu = _greedy_run(cpu_model, cpu_model.load(params), toks, lens, 144, steps)
     gap = (l_gpu - l_cpu).abs().max().item()
@@ -544,22 +717,23 @@ def main() -> int:
     smi, kind = phase_card_and_build()
     fa_err, fa_checked = phase_check_flash()
     gmm_err, gmm_checked = phase_check_gmm()
-    fa_rows, gmm_rows = phase_time_flash(), phase_time_gmm()
-    dense = phase_serve(DENSE, fa_checked, gmm_checked)
-    moe = phase_serve(MOE, fa_checked, gmm_checked)
-    for arch in (DENSE, MOE):
+    ssd_err, ssd_checked = phase_check_ssd()
+    fa_rows, gmm_rows, ssd_rows = phase_time_flash(), phase_time_gmm(), phase_time_ssd()
+    paths = {arch: phase_serve(arch, fa_checked, gmm_checked, ssd_checked) for arch in ARCHS}
+    for arch in ARCHS:
         phase_card_vs_cpu(arch)
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)
     gmm_rep = next(r for r in gmm_rows if r["shape"] == str(expert_shapes(decode_c)[0]))
-    kernels = [
-        _kernel_entry("flash_attention", fa_kernel,
-                      dense["flash_attention"] + moe["flash_attention"], fa_err, fa_rep),
-        _kernel_entry("moe_gmm", gmm_kernel, moe["moe_gmm"], gmm_err, gmm_rep),
-    ]
-    kernels[0]["launches_by_path"] = {DENSE: dense["flash_attention"], MOE: moe["flash_attention"]}
-    kernels[1]["launches_by_path"] = {DENSE: dense["moe_gmm"], MOE: moe["moe_gmm"]}
-    log("kernels: flash_attention, moe_gmm (each launched on a main path, held against its "
+    ssd_rep = next(r for r in ssd_rows if r["shape"] == str(ssm_shape(4, 512)))
+    kernels = []
+    for name, mod, err, rep in (("flash_attention", fa_kernel, fa_err, fa_rep),
+                                ("moe_gmm", gmm_kernel, gmm_err, gmm_rep),
+                                ("ssd_scan", ssd_kernel, ssd_err, ssd_rep)):
+        entry = _kernel_entry(name, mod, sum(p[name] for p in paths.values()), err, rep)
+        entry["launches_by_path"] = {arch: p[name] for arch, p in paths.items()}
+        kernels.append(entry)
+    log(f"kernels: {', '.join(KERNELS)} (each launched on a main path, held against its "
         "plain version)")
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -138,6 +138,7 @@ _MODULES = {
     "qwen3-32b": "qwen3_32b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "olmoe-1b-7b": "olmoe_1b_7b",
+    "mamba2-1.3b": "mamba2_1_3b",
 }
 
 ARCH_IDS = list(_MODULES)

@@ -1,23 +1,28 @@
 """Top-level decoder-only model: embeddings + transformer stack + LM head.
 
 Counterpart of the JAX package's ``models/model.py`` for decoder-only dense
-and MoE configs.  Parameters are a plain dict::
+and MoE configs and attention-free SSM (Mamba-2) ones.  Parameters are a
+plain dict::
 
     {"embed": [V, D], "final_norm": [D], "lm_head": [D, V],
-     "layers": [ {"ln1", "mixer": {"w_q", "w_k", "w_v", "w_o"[, "q_norm",
-                  "k_norm"]}, "ln2", "ffn": FFN}, ... ]}
+     "layers": [ {"ln1", "mixer": MIXER[, "ln2", "ffn": FFN]}, ... ]}
 
-where FFN is ``{"w_gate", "w_up": [D, F], "w_down": [F, D]}`` on a dense
-layer and ``{"router": [D, E], "w_gate", "w_up": [E, D, F], "w_down":
-[E, F, D]}`` on an MoE layer (``cfg.layer_is_moe``).
+where MIXER is ``{"w_q", "w_k", "w_v", "w_o"[, "q_norm", "k_norm"]}`` on an
+attention layer and the SSM's dict (``models/ssm.py``) elsewhere, and FFN is
+``{"w_gate", "w_up": [D, F], "w_down": [F, D]}`` on a dense layer and
+``{"router": [D, E], "w_gate", "w_up": [E, D, F], "w_down": [E, F, D]}`` on
+an MoE layer (``cfg.layer_is_moe``); a layer has no FFN where ``d_ff`` is 0.
 
 ``init`` makes them in ``cfg.param_dtype`` (fp32) on the model's device.
-``load`` casts them to ``cfg.compute_dtype`` once; the JAX package casts the
-fp32 weights on every call (``.astype(compute)``) and gets the same values,
-so the served numbers do not change.  The engines load their params this way.
+``load`` casts the matrices to ``cfg.compute_dtype`` once; the JAX package
+casts the fp32 weights on every call (``.astype(compute)``) and gets the
+same values, so the served numbers do not change.  1-D leaves (norm scales,
+biases, the SSM's ``a_log``/``dt_bias``/``d_skip``) stay in fp32: the
+reference reads them in fp32, or casts them itself.  The engines load their
+params this way.
 
-Encoder-decoder, multimodal frontends, MLA and SSM layers wait for later
-slices and raise ``NotImplementedError``.
+Encoder-decoder, multimodal frontends, MLA and hybrid attention/SSM stacks
+wait for later slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -55,13 +60,15 @@ class Model:
             name for name, on in (
                 ("encoder-decoder", cfg.enc_dec), ("frontend", cfg.frontend is not None),
                 ("MLA", cfg.attn_type == "mla"),
-                ("SSM", cfg.ssm is not None or cfg.attn_period != 1),
+                ("hybrid attention/SSM stack (attn_period > 1)", cfg.attn_period > 1),
+                ("attention-free stack without an SSM config",
+                 cfg.attn_period == 0 and cfg.ssm is None),
             ) if on
         ]
         if unsupported:
             raise NotImplementedError(
                 f"{cfg.name}: {', '.join(unsupported)} not ported yet; the port "
-                "runs decoder-only GQA models, dense or MoE"
+                "runs decoder-only GQA models, dense or MoE, and attention-free SSM models"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -85,9 +92,11 @@ class Model:
         return params
 
     def load(self, params: dict) -> dict:
-        """Params on the model's device in the compute dtype -- the one cast
-        of the weights.  Tensors already in place are returned as they are."""
-        return _map(lambda t: t.to(device=self.device, dtype=self.compute_dtype), params)
+        """Params on the model's device, matrices in the compute dtype -- the
+        one cast of the weights -- and 1-D leaves in fp32.  Tensors already in
+        place are returned as they are."""
+        return _map(lambda t: t.to(device=self.device, dtype=self.compute_dtype if t.dim() > 1
+                                   else torch.float32), params)
 
     # ---------------- caches ----------------
     def init_cache(self, batch: int, seq_len: int) -> dict:
@@ -118,8 +127,12 @@ class Model:
         return self._logits(params, x_last), caches
 
     def mask_prompt_cache(self, caches: dict, true_len) -> dict:
-        """Invalidate the entries written by right-pad positions >= ``true_len``
-        (scalar or [B]) so that decode never attends to padding."""
+        """Invalidate the attention entries written by right-pad positions
+        >= ``true_len`` (scalar or [B]) so that decode never attends to
+        padding.  SSM state has no positional record and passes through: an
+        SSM prompt must be prefilled at its exact length (the engines do)."""
+        if "pos" not in caches:
+            return caches
         true_len = torch.as_tensor(true_len, device=self.device, dtype=torch.int32)
         bound = true_len[:, None] if true_len.dim() == 1 else true_len
         pos = caches["pos"]  # [n_layers, B, S]
@@ -129,7 +142,10 @@ class Model:
         """Re-lay prefill caches into decode ring buffers with headroom:
         entry at slot ``pos % cap`` with ``cap = capacity`` (SWA layers:
         ``min(capacity, window)`` most recent entries).  Dropped entries go
-        to a discard slot ``cap`` that is cut off at the end."""
+        to a discard slot ``cap`` that is cut off at the end.  SSM caches
+        (O(1) state) pass through."""
+        if "pos" not in caches:
+            return caches
         cap = cache_length(self.cfg, capacity)
         pos = caches["pos"]  # [n_layers, B, L]
         max_pos = pos.max(dim=-1, keepdim=True).values
@@ -143,6 +159,7 @@ class Model:
             return dst.scatter_(2, idx, src)[:, :, :cap]
 
         return {
+            **caches,
             "k": scatter(caches["k"], 0),
             "v": scatter(caches["v"], 0),
             "pos": scatter(torch.where(keep, pos, torch.full_like(pos, -1)), -1),

@@ -1,20 +1,25 @@
-"""Transformer stack for decoder-only dense and MoE models.
+"""Transformer stack for decoder-only dense, MoE and attention-free SSM
+models.
 
 Counterpart of the JAX package's ``models/transformer.py``.  Block = norm ->
-GQA attention -> residual -> norm -> FFN -> residual, where the FFN is the
-MoE layer on the layers ``cfg.layer_is_moe(i)`` names and the dense SwiGLU
-elsewhere (none where ``d_ff`` is 0).  The MoE load-balancing loss is
-dropped: the stack serves, and the reference's prefill and decode drop it
-too.  The JAX stack
-scans over scan-stacked parameters; here the layers are a Python list (one
-param dict per layer) run in a loop.  There is no mesh, so the sharding
-constraints of the JAX stack have no counterpart.
+mixer -> residual -> norm -> FFN -> residual.  The mixer is GQA attention on
+the layers ``cfg.layer_is_attention(i)`` names and the Mamba-2 SSM elsewhere
+(``mixer_kind``); the FFN is the MoE layer on the layers
+``cfg.layer_is_moe(i)`` names, the dense SwiGLU elsewhere, and none where
+``d_ff`` is 0 (mamba2 is norm -> SSM mixer -> residual only).  The MoE
+load-balancing loss is dropped: the stack serves, and the reference's
+prefill and decode drop it too.  The JAX stack scans over scan-stacked
+parameters; here the layers are a Python list (one param dict per layer)
+run in a loop.  There is no mesh, so the sharding constraints of the JAX
+stack have no counterpart.
 
-KV cache layout, which the serving pool indexes: one dict
-``{"k", "v": [n_layers, B, L, KV, D], "pos": [n_layers, B, L] int32}`` --
-the layout of the JAX package's stacked caches for a period-1 pattern.
-Layer ``i`` works on the views ``k[i]``, ``v[i]``, ``pos[i]``, so decode
-writes into the stacked tensors in place.
+Cache layout, which the serving pool indexes: one flat dict whose every
+leaf has batch on dim 1, each kind stacked over the layers of that kind
+only -- ``{"k", "v": [n_attn, B, L, KV, D], "pos": [n_attn, B, L] int32}``
+for the attention layers, ``{"conv_x", "conv_b", "conv_c": [n_ssm, B, W-1,
+C] (compute dtype), "h": [n_ssm, B, H, P, N] fp32}`` for the SSM layers (a
+kind without layers has no keys).  A layer works on the views of its index
+within its kind, so decode writes into the stacked tensors in place.
 """
 
 from __future__ import annotations
@@ -24,20 +29,35 @@ import torch
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
 from .layers import mlp_apply, mlp_init, rms_norm, zeros_init
 
-__all__ = ["block_init", "block_apply", "stack_init", "stack_apply", "init_stack_cache"]
+__all__ = ["mixer_kind", "block_init", "block_apply", "stack_init", "stack_apply",
+           "init_stack_cache"]
 
-CACHE_KEYS = ("k", "v", "pos")
+CACHE_KEYS = {"attn": ("k", "v", "pos"), "ssm": ("conv_x", "conv_b", "conv_c", "h")}
+
+
+def mixer_kind(cfg: ModelConfig, i: int) -> str:
+    return "attn" if cfg.layer_is_attention(i) else "ssm"
+
+
+def _kind_index(cfg: ModelConfig) -> list[tuple[str, int]]:
+    """(mixer kind, index among the layers of that kind) of every layer."""
+    seen = {"attn": 0, "ssm": 0}
+    out = []
+    for i in range(cfg.n_layers):
+        kind = mixer_kind(cfg, i)
+        out.append((kind, seen[kind]))
+        seen[kind] += 1
+    return out
 
 
 def block_init(gen: torch.Generator, cfg: ModelConfig, i: int, dtype=torch.float32) -> dict:
     """Parameters of layer ``i``."""
     d = cfg.d_model
-    params = {
-        "ln1": zeros_init(gen, (d,), dtype),
-        "mixer": attn_mod.attention_init(gen, cfg, dtype),
-    }
+    init = attn_mod.attention_init if mixer_kind(cfg, i) == "attn" else ssm_mod.ssm_init
+    params = {"ln1": zeros_init(gen, (d,), dtype), "mixer": init(gen, cfg, dtype)}
     if cfg.layer_is_moe(i):
         params["ln2"] = zeros_init(gen, (d,), dtype)
         params["ffn"] = moe_mod.moe_init(gen, cfg, dtype)
@@ -51,10 +71,14 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *, posi
                 cache: dict | None = None, update_cache: bool = False, ragged: bool = False):
     """Layer ``i``; returns (x, cache)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    out, new_cache = attn_mod.attention_apply(
-        params["mixer"], h, cfg, positions=positions, cache=cache,
-        update_cache=update_cache, ragged=ragged,
-    )
+    if mixer_kind(cfg, i) == "attn":
+        out, new_cache = attn_mod.attention_apply(
+            params["mixer"], h, cfg, positions=positions, cache=cache,
+            update_cache=update_cache, ragged=ragged,
+        )
+    else:  # positions unused: the state carries no positional record
+        out, new_cache = ssm_mod.ssm_apply(params["mixer"], h, cfg, cache=cache,
+                                           update_cache=update_cache)
     x = x + out
     if "ffn" in params:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
@@ -71,11 +95,17 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> l
 
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfloat16,
                      device=None) -> dict:
-    one = attn_mod.init_attention_cache(cfg, batch, seq_len, dtype, device)
-    return {
-        name: t.unsqueeze(0).repeat((cfg.n_layers,) + (1,) * t.dim())
-        for name, t in one.items()
-    }
+    kinds = [mixer_kind(cfg, i) for i in range(cfg.n_layers)]
+    out = {}
+    if "attn" in kinds:
+        one = attn_mod.init_attention_cache(cfg, batch, seq_len, dtype, device)
+        out.update({n: t.unsqueeze(0).repeat((kinds.count("attn"),) + (1,) * t.dim())
+                    for n, t in one.items()})
+    if "ssm" in kinds:
+        one = ssm_mod.init_ssm_cache(cfg, batch, dtype, device)
+        out.update({n: t.unsqueeze(0).repeat((kinds.count("ssm"),) + (1,) * t.dim())
+                    for n, t in one.items()})
+    return out
 
 
 def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positions,
@@ -83,15 +113,16 @@ def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positi
     """Returns (x, caches).  With ``caches`` (decode) each layer writes into
     its slice in place and the same dict comes back; with ``update_cache``
     (prefill) the new entries of every layer are stacked into a new dict."""
-    emitted = []
-    for i, layer in enumerate(layers):
-        layer_cache = None if caches is None else {n: caches[n][i] for n in CACHE_KEYS}
+    emitted = {"attn": [], "ssm": []}
+    for i, (layer, (kind, k)) in enumerate(zip(layers, _kind_index(cfg))):
+        layer_cache = None if caches is None else {n: caches[n][k] for n in CACHE_KEYS[kind]}
         x, nc = block_apply(layer, x, cfg, i, positions=positions, cache=layer_cache,
                             update_cache=update_cache, ragged=ragged)
         if caches is None and update_cache:
-            emitted.append(nc)
+            emitted[kind].append(nc)
     if caches is not None:
         return x, caches
     if update_cache:
-        return x, {n: torch.stack([c[n] for c in emitted]) for n in CACHE_KEYS}
+        return x, {n: torch.stack([c[n] for c in cs])
+                   for kind, cs in emitted.items() if cs for n in CACHE_KEYS[kind]}
     return x, None

@@ -8,6 +8,7 @@ Counterpart of the JAX package's ``runtime/serving.py``:
 * ``Scheduler`` -- ``fcfs`` or ``cost_aware`` admission (MoE-heavy requests
   are co-scheduled, priced by the collective cost model).
 * ``ContinuousBatchingEngine`` -- bucketed, grouped prefill into free slots
+  (for stacks with SSM layers: one request at a time at its exact length)
   and one ragged decode step over all active slots per round.
 * ``ServingEngine`` -- the one-shot lockstep baseline.
 
@@ -407,6 +408,13 @@ class ContinuousBatchingEngine:
     decode step advances every active slot; rows that finish (token budget
     or EOS) free their slot for the next admission.
 
+    SSM state has no positional record, so right-padded prefill would
+    advance it through pad tokens: only pure-attention stacks are bucketed,
+    and a stack with SSM layers prefills each request alone at its exact
+    length.  Idle slots of such a stack advance their state on stale tokens
+    in every decode step; that is harmless, since admission overwrites every
+    leaf of the slot (``KVPool.write``).
+
     Sampling is deterministic per (seed, request id, token index): results do
     not depend on slot assignment, pool size or admission order.
     """
@@ -438,6 +446,7 @@ class ContinuousBatchingEngine:
         self.min_prompt_bucket = min_prompt_bucket
 
         cfg = model.cfg
+        self._bucket_prompts = all(cfg.layer_is_attention(i) for i in range(cfg.n_layers))
         n_moe_layers = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
         self._dispatch_weight = (
             float(cfg.moe.top_k * cfg.d_model * 2 * n_moe_layers) if cfg.moe is not None else 0.0
@@ -503,11 +512,16 @@ class ContinuousBatchingEngine:
     # ---------------- serving loop ----------------
 
     def _bucket(self, length: int) -> int:
+        if not self._bucket_prompts:
+            return length
         return min(max(_next_pow2(length), self.min_prompt_bucket), self.pool.capacity)
 
     def _admission_groups(self, picks: list[Request]) -> list[list[Request]]:
         """Group admitted requests by prompt bucket (stable), then split each
-        bucket run into power-of-two group sizes."""
+        bucket run into power-of-two group sizes.  Stacks with SSM layers
+        prefill one request at a time."""
+        if not self._bucket_prompts:
+            return [[r] for r in picks]
         by_bucket: dict[int, list[Request]] = {}
         for r in picks:
             by_bucket.setdefault(self._bucket(r.prompt_len), []).append(r)
@@ -677,7 +691,8 @@ class ContinuousBatchingEngine:
 class ServingEngine:
     """One-shot batch generator: one prefill over a fixed (left-padded)
     batch, then lockstep decode for a fixed token budget -- the baseline
-    continuous batching is measured against."""
+    continuous batching is measured against.  A stack with SSM layers takes
+    unpadded rows of one length: its state would run through the padding."""
 
     def __init__(self, model: Model, params: dict, max_len: int = 512):
         self.model = model

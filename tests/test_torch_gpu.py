@@ -16,6 +16,9 @@ from repro_torch.kernels.flash_attention.ref import reference_attention
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import reference_grouped_matmul
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import reference_ssd, ssd_chunked
 from repro_torch.models import build_model
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -31,6 +34,12 @@ SHAPES = [  # b, s, h, kv, d, causal, window
 GMM_SHAPES = [  # e, c, d, f: the JAX sweep, ragged capacities, granite's decode and prefill
     (4, 256, 256, 128), (8, 128, 512, 256), (2, 128, 128, 128), (16, 128, 256, 128),
     (4, 1, 128, 64), (8, 50, 128, 64), (32, 8, 1024, 512), (32, 160, 512, 1024),
+]
+
+SSD_SHAPES = [  # b, s, h, p, n, the plain version's chunk: the JAX sweep, ragged S, mamba2
+    (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 128, 16),
+    (2, 77, 3, 16, 32, 32), (1, 1, 2, 32, 16, 256),
+    (1, 300, 64, 64, 128, 512), (2, 512, 64, 64, 128, 512),
 ]
 
 
@@ -118,3 +127,56 @@ def test_prefill_on_card_matches_cpu(cuda):
     l_gpu, _ = gpu_model.prefill(gpu_model.load(params), toks)
     torch.testing.assert_close(l_gpu.cpu(), l_cpu, atol=1e-4, rtol=1e-4)
     assert torch.equal(l_gpu.argmax(-1).cpu(), l_cpu.argmax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_version(cuda, dtype):
+    """Tolerance 20 x the per-kernel one, as the JAX package's SSD sweep; at
+    ragged S also against the sequential recurrence."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tol = 20 * TOL[dtype]
+    for b, s, h, p, n, chunk in SSD_SHAPES:
+        x = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
+        dt = torch.rand(b, s, h, generator=gen, device=cuda) * 0.2 + 0.001
+        a = -(torch.rand(h, generator=gen, device=cuda) * 3.5 + 0.5)
+        bb = torch.randn(b, s, n, generator=gen, device=cuda).to(dtype)
+        cc = torch.randn(b, s, n, generator=gen, device=cuda).to(dtype)
+        before = ssd_kernel.launches
+        y, hf = ssd_ops.ssd(x, dt, a, bb, cc, chunk=chunk)
+        torch.cuda.synchronize()
+        assert ssd_kernel.launches == before + 1
+        assert y.dtype == dtype and hf.dtype == torch.float32
+        wants = [ssd_chunked(x, dt, a, bb, cc, chunk)]
+        if s < 100:
+            wants.append(reference_ssd(x, dt, a, bb, cc))
+        for yr, hr in wants:
+            torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+            torch.testing.assert_close(hf, hr, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_mamba2_prefill_and_decode_on_card_match_cpu(cuda):
+    """fp32 REDUCED mamba2 at an exact prompt length: the card (the SSD
+    kernel in prefill) and the CPU (plain version) give the same greedy
+    tokens and logits within 1e-4."""
+    cfg = dataclasses.replace(get_config("mamba2-1.3b", reduced=True), compute_dtype="float32")
+    cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, (2, 97)))
+    runs = []
+    for model in (cpu_model, gpu_model):
+        p = model.load(params)
+        before = ssd_kernel.launches
+        logits, caches = model.prefill(p, toks)
+        assert ssd_kernel.launches == before + (cfg.n_layers if model is gpu_model else 0)
+        out = [logits[:, 0].cpu()]
+        pos = torch.full((2,), 97, device=model.device)
+        for _ in range(4):
+            tok = out[-1].argmax(-1)[:, None].to(model.device)
+            logits, caches = model.decode_step(p, caches, tok, pos, ragged=True)
+            out.append(logits[:, 0].cpu())
+            pos = pos + 1
+        runs.append(torch.stack(out, 1))
+    torch.testing.assert_close(runs[1], runs[0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(runs[1].argmax(-1), runs[0].argmax(-1))

@@ -232,3 +232,134 @@ def test_unported_families_raise():
     for bad in (dict(enc_dec=True), dict(attn_type="mla"), dict(attn_period=2)):
         with pytest.raises(NotImplementedError):
             build_model(dataclasses.replace(cfg, **bad), device="cpu")
+
+
+# ---------------------------------------------------------------- mamba2 (SSM)
+# mamba2 has its own cases: SSM state has no positional record, so its
+# prompts are prefilled at their exact length (no right padding, no
+# ``last_pos``), as the engines do.  S = 40 is below the REDUCED chunk of 256,
+# which both JAX impls accept.
+SSM = "mamba2-1.3b"
+SSM_SEQ = 40
+
+
+def test_mamba2_config_and_bridge_match_reference():
+    for reduced in (False, True):
+        assert dataclasses.asdict(get_config(SSM, reduced)) == dataclasses.asdict(
+            jax_get_config(SSM, reduced))
+    _, pj, _, _ = make_pair(SSM)
+    pj = jax.tree.map(np.asarray, pj)
+    cfg = get_config(SSM, reduced=True)
+    pt = from_jax_params(cfg, pj)
+    assert len(pt["layers"]) == cfg.n_layers and "ffn" not in pt["layers"][0]
+    assert set(pt["layers"][0]["mixer"]) >= {"w_x", "conv_wx", "a_log", "dt_bias", "d_skip"}
+    for a, b in zip(jax.tree.leaves(to_jax_params(cfg, pt)), jax.tree.leaves(pj)):
+        np.testing.assert_array_equal(a, b)
+
+
+@functools.lru_cache(maxsize=None)
+def ssm_reference_run(compute_dtype="float32", impl="xla"):
+    """The JAX package's exact-length prefill of two prompts of SSM_SEQ
+    tokens, then (``impl="xla"``) STEPS greedy ragged decode steps."""
+    mj, pj, mt, _ = make_pair(SSM, compute_dtype)
+    toks = np.random.default_rng(8).integers(1, mt.cfg.vocab, (2, SSM_SEQ)).astype(np.int32)
+    logits, caches = jax.jit(lambda p, t: mj.prefill(p, {"tokens": t}, impl=impl))(pj, toks)
+    out = dict(toks=toks, prefill_logits=np.asarray(logits), prefill_caches=_jax_cache(caches))
+    if impl != "xla":
+        return out
+    caches = mj.prepare_decode_caches(mj.mask_prompt_cache(caches, SSM_SEQ), capacity=CAPACITY)
+    dec = jax.jit(lambda p, c, t, pos: mj.decode_step(p, c, t, pos, ragged=True))
+    tok, pos = np.array(jnp.argmax(logits[:, 0], axis=-1), np.int32), np.full(2, SSM_SEQ)
+    out["feeds"], out["step_logits"] = [], []
+    for _ in range(STEPS):
+        out["feeds"].append(tok)
+        logits, caches = dec(pj, caches, tok[:, None], pos)
+        out["step_logits"].append(np.asarray(logits))
+        tok, pos = np.array(jnp.argmax(logits[:, 0], axis=-1), np.int32), pos + 1
+    out["final_caches"] = _jax_cache(caches)
+    return out
+
+
+def ssm_port_run(ref, compute_dtype="float32"):
+    _, _, mt, pt = make_pair(SSM, compute_dtype)
+    logits, caches = mt.prefill(pt, torch.as_tensor(ref["toks"]))
+    out = dict(prefill_logits=logits, prefill_caches={n: t.clone() for n, t in caches.items()})
+    lens = torch.full((2,), SSM_SEQ)
+    caches = mt.prepare_decode_caches(mt.mask_prompt_cache(caches, lens), CAPACITY)
+    out["step_logits"], pos = [], lens
+    for tok in ref.get("feeds", []):
+        step, caches = mt.decode_step(pt, caches, torch.as_tensor(tok[:, None]), pos,
+                                      ragged=True)
+        out["step_logits"].append(step)
+        pos = pos + 1
+    out["final_caches"] = caches
+    return out
+
+
+def _check_ssm_caches(got, want, tol, atol=None):
+    """conv_x/conv_b/conv_c [layers, B, W-1, C] and h [layers, B, H, P, N]."""
+    assert set(got) == set(want) == {"conv_x", "conv_b", "conv_c", "h"}
+    for name in want:
+        assert tuple(got[name].shape) == want[name].shape
+        assert got[name].dtype == getattr(torch, str(want[name].dtype))
+        _close(got[name], want[name], tol, atol)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_mamba2_prefill_matches_reference(impl):
+    ref = ssm_reference_run(impl=impl)
+    got = ssm_port_run(ref)
+    assert got["prefill_logits"].shape == (2, 1, get_config(SSM, True).vocab)
+    _close(got["prefill_logits"], ref["prefill_logits"], FP32_TOL)
+    _check_ssm_caches(got["prefill_caches"], ref["prefill_caches"], FP32_TOL)
+
+
+def test_mamba2_decode_matches_reference():
+    """8 ragged decode steps: logits and greedy tokens at every step, and the
+    state at the end; the cache re-lay passes SSM state through."""
+    ref = ssm_reference_run()
+    got = ssm_port_run(ref)
+    for i, (lt, lj) in enumerate(zip(got["step_logits"], ref["step_logits"])):
+        _close(lt, lj, FP32_TOL)
+        if i + 1 < STEPS:
+            np.testing.assert_array_equal(lt[:, 0].argmax(-1).numpy(), ref["feeds"][i + 1])
+    _check_ssm_caches(got["final_caches"], ref["final_caches"], FP32_TOL)
+
+
+def test_mamba2_bf16_prefill_matches_reference():
+    """bf16: prefill logits, the state it leaves and the first decode step,
+    at the whole-model bf16 tolerance.  Later steps are compared in fp32
+    above: the recurrent state carries each step's bf16 rounding on, and the
+    logit gap grows to 0.057 by step 6 (4 bf16 ulps at magnitude 3; the
+    reference's own XLA and Pallas prefills differ by 0.023 here)."""
+    ref = ssm_reference_run("bfloat16")
+    got = ssm_port_run(ref, "bfloat16")
+    assert got["prefill_logits"].dtype == torch.bfloat16
+    assert got["prefill_caches"]["conv_x"].dtype == torch.bfloat16
+    assert got["prefill_caches"]["h"].dtype == torch.float32
+    _close(got["prefill_logits"], ref["prefill_logits"], BF16_TOL, BF16_MODEL_ATOL)
+    _check_ssm_caches(got["prefill_caches"], ref["prefill_caches"], BF16_TOL, BF16_MODEL_ATOL)
+    _close(got["step_logits"][0], ref["step_logits"][0], BF16_TOL, BF16_MODEL_ATOL)
+
+
+def test_mamba2_load_keeps_ssm_constants_in_fp32():
+    """``a_log``, ``dt_bias`` and ``d_skip`` are not bf16-exact; the reference
+    reads them in fp32, so loading keeps every 1-D leaf in fp32."""
+    cfg = get_config(SSM, reduced=True)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    loaded = model.load(params)
+    mixer = loaded["layers"][0]["mixer"]
+    assert mixer["w_x"].dtype == torch.bfloat16
+    for name in ("a_log", "dt_bias", "d_skip", "norm"):
+        assert mixer[name].dtype == torch.float32
+        assert torch.equal(mixer[name], params["layers"][0]["mixer"][name])
+
+
+def test_hybrid_stacks_are_refused_by_name():
+    cfg = dataclasses.replace(get_config(SSM, reduced=True), attn_period=2, n_heads=4,
+                              n_kv_heads=2)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        build_model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="without an SSM config"):
+        build_model(dataclasses.replace(cfg, attn_period=0, ssm=None), device="cpu")

@@ -1,9 +1,10 @@
 """The port's serving runtime: queue, KV pool, scheduler and cost hooks behave
 as ``tests/test_serving.py`` pins for the JAX package, and greedy fp32 token
 streams of the port's engines equal the JAX engines' on the same weights
-(internlm2 and granite-moe REDUCED, 2 layers, mixed prompt lengths; the MoE
-streams at the same ``n_slots``, since expert capacity couples the rows of a
-step)."""
+(internlm2, granite-moe and mamba2 REDUCED, 2 layers, mixed prompt lengths;
+the MoE streams at the same ``n_slots``, since expert capacity couples the
+rows of a step; mamba2's prompts below its chunk of 256, which the JAX
+package's SSD paths require of a prompt prefilled at its exact length)."""
 
 import dataclasses
 
@@ -51,6 +52,11 @@ def pair():
 @pytest.fixture(scope="module")
 def moe_pair():
     return _make_pair("granite-moe-1b-a400m")
+
+
+@pytest.fixture(scope="module")
+def ssm_pair():
+    return _make_pair("mamba2-1.3b")
 
 
 @pytest.fixture(scope="module")
@@ -385,3 +391,71 @@ def test_launcher_serves_moe_on_cpu(arch, capsys):
                 "--slots", "2", "--prompt-len", "12", "--new-tokens", "4"])
     out = capsys.readouterr().out
     assert "served 3 ragged requests" in out and f"{arch}: 4 layers" in out
+
+
+# ---------------------------------------------------------------- SSM (mamba2)
+def test_ssm_continuous_engine_matches_reference_greedy_streams(ssm_pair):
+    """An SSM stack is not bucketed: each request is prefilled alone at its
+    exact length, in the port as in the reference."""
+    mj, pj, mt, pt = ssm_pair
+    rng = np.random.default_rng(9)
+    lens = [5, 9, 13, 3, 9]
+    prompts = _prompts(rng, mt.cfg.vocab, lens)
+    budgets = [6, 4, 5, 7, 3]
+    ref = jax_serving.ContinuousBatchingEngine(mj, pj, n_slots=3, max_len=48, seed=0)
+    want = ref.generate(prompts, budgets)
+    eng = ContinuousBatchingEngine(mt, pt, n_slots=3, max_len=48, seed=0)
+    got = eng.generate(prompts, budgets)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    assert [(g, b) for g, b, _ in eng.metrics.prefill_walls] == [(1, n) for n in lens]
+    assert eng._admission_groups([eng.requests[r] for r in range(3)]) == [
+        [eng.requests[0]], [eng.requests[1]], [eng.requests[2]]]
+    eng.pool.check()
+    assert eng.pool.n_alloc == eng.pool.n_evict == 5 and eng.pool.n_free == 3
+
+
+def test_ssm_one_shot_engine_matches_reference_greedy_streams(ssm_pair):
+    mj, pj, mt, pt = ssm_pair
+    rng = np.random.default_rng(10)
+    static = np.stack(_prompts(rng, mt.cfg.vocab, [12, 12, 12]))
+    want = jax_serving.ServingEngine(mj, pj, max_len=48).generate(static, 6)
+    got = ServingEngine(mt, pt, max_len=48).generate(static, 6)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_ssm_idle_slots_are_overwritten_at_admission(ssm_pair):
+    """An idle slot's SSM state advances on stale tokens in every decode
+    step; admission writes every leaf of the slot, so a request admitted
+    into it streams as it would alone."""
+    _, _, model, params = ssm_pair
+    rng = np.random.default_rng(11)
+    long, short, late = _prompts(rng, model.cfg.vocab, [7, 4, 10])
+    eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=48, seed=0)
+    r_long, r_short = eng.submit(long, 12), eng.submit(short, 2)
+    for _ in range(4):  # the short request finishes in the first; its slot then idles
+        eng.step()
+    (free,) = [s for s, rid in enumerate(eng.pool.slot_rid) if rid is None]
+    idle = {n: t[:, free].clone() for n, t in eng.pool.caches.items()}
+    eng.step()
+    assert not torch.equal(idle["h"], eng.pool.caches["h"][:, free])  # advanced on garbage
+
+    _, caches = model.prefill(eng.params, torch.as_tensor(late[None], dtype=torch.long))
+    fresh = model.prepare_decode_caches(caches, capacity=48)
+    assert set(fresh) == set(eng.pool.caches)
+    r_late = eng.submit(late, 6)
+    eng.step()  # admits into the dirty slot, then decodes once
+    assert eng.requests[r_late].slot == free
+    out = eng.run()
+    solo = ContinuousBatchingEngine(model, params, n_slots=1, max_len=48, seed=0)
+    rid = solo.submit(late, 6)
+    np.testing.assert_array_equal(out[r_late], solo.run()[rid])
+    assert len(out[r_long]) == 12 and len(out[r_short]) == 2
+
+
+def test_launcher_serves_mamba2_on_cpu(capsys):
+    serve.main(["--arch", "mamba2-1.3b", "--reduced", "--device", "cpu", "--requests", "3",
+                "--slots", "2", "--prompt-len", "12", "--new-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "served 3 ragged requests" in out and "prefills=3" in out
+    assert "mamba2-1.3b: 4 layers" in out
