@@ -4,13 +4,17 @@ of a checkout: ``python3 chip_smoke.py``).  It imports only ``repro_torch``,
 torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, the three kernels built
-   from the sources in the checkout (one nvcc each, started together);
+   from the sources in the checkout (one nvcc each, started together), with
+   ptxas's registers, spills and any compiler warning;
 2. every kernel against its plain PyTorch version on the card.  Flash
    attention at the shapes of the kernel sweep, of both attention paths (every
    prefill group of 1, 2 or 4 rows at every bucket of 128 to 2048 tokens:
    internlm2-1.8b at head_dim 128, granite-moe-1b-a400m at head_dim 64) and
-   of h2o-danube-1.8b, and at a ragged length.  The grouped matmul at the
-   shapes of the JAX package's sweep, at ragged capacities and at every
+   of h2o-danube-1.8b, at a ragged length, and at the edges of the bf16
+   kernel's tiles (S of 1, 127, 129 and 1025, windows below one tile, GQA
+   groups of 1 to 8, every head dim, q/k/v as views of a fused buffer).  The
+   grouped matmul at the shapes of the JAX package's sweep, at ragged
+   capacities around its tiles (1 to 2560), on strided views, and at every
    granite expert shape of the served runs (gate/up and down at each
    capacity C), in fp32 and bf16.  The SSD scan at the shapes of the JAX
    package's sweep, at ragged S and at every mamba2-1.3b shape of the
@@ -19,8 +23,8 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    shape this phase did not check;
 3. kernel times at the main-path shapes beside the plain version, one
    library call the port never calls (``scaled_dot_product_attention``,
-   ``torch.bmm``; no single PyTorch call computes the SSD scan) and the
-   least time the card could take (bound);
+   ``torch.bmm``; no single PyTorch call computes the SSD scan), the
+   kernel-to-library ratio and the least time the card could take (bound);
 4. the three main paths at full width (random weights from a seed, bf16),
    each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
@@ -125,7 +129,9 @@ def _dt(dtype) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class Shape:
-    """A flash attention call: q [B, S, H, D], k/v [B, S, KV, D]."""
+    """A flash attention call: q [B, S, H, D], k/v [B, S, KV, D]; ``fused``
+    takes q, k and v as strided views of one [B, S, H + 2 KV, D] buffer, as
+    a fused projection gives them."""
     b: int
     s: int
     h: int
@@ -134,15 +140,20 @@ class Shape:
     dtype: torch.dtype
     causal: bool = True
     window: int = 0
+    fused: bool = False
 
     def __str__(self):
         mask = ("causal" if self.causal else "full") + (f" w{self.window}" if self.window else "")
-        return f"{_dt(self.dtype)} B{self.b} S{self.s} H{self.h} KV{self.kv} D{self.d} {mask}"
+        return (f"{_dt(self.dtype)} B{self.b} S{self.s} H{self.h} KV{self.kv} D{self.d} {mask}"
+                + (" fused-qkv" if self.fused else ""))
 
     def inputs(self, seed: int = 0):
         gen = torch.Generator(device="cuda").manual_seed(seed)
         mk = lambda heads: torch.randn(self.b, self.s, heads, self.d, generator=gen,  # noqa: E731
                                        device="cuda").to(self.dtype)
+        if self.fused:
+            qkv = mk(self.h + 2 * self.kv)
+            return qkv.split([self.h, self.kv, self.kv], dim=2)
         return mk(self.h), mk(self.kv), mk(self.kv)
 
     def attended_pairs(self) -> int:
@@ -163,15 +174,19 @@ class Shape:
 
 @dataclasses.dataclass(frozen=True)
 class GmmShape:
-    """A grouped matmul call: x [E, C, D] x w [E, D, F]."""
+    """A grouped matmul call: x [E, C, D] x w [E, D, F]; ``strided`` takes x
+    and w as views of larger buffers (rows, columns and experts at other
+    strides, starting off the buffers' first element)."""
     e: int
     c: int
     d: int
     f: int
     dtype: torch.dtype
+    strided: bool = False
 
     def __str__(self):
-        return f"{_dt(self.dtype)} E{self.e} C{self.c} D{self.d} F{self.f}"
+        return (f"{_dt(self.dtype)} E{self.e} C{self.c} D{self.d} F{self.f}"
+                + (" strided" if self.strided else ""))
 
     def nbytes(self) -> int:
         elem = 2 if self.dtype == torch.bfloat16 else 4
@@ -180,9 +195,13 @@ class GmmShape:
 
     def inputs(self, seed: int = 0):
         gen = torch.Generator(device="cuda").manual_seed(seed)
-        x = torch.randn(self.e, self.c, self.d, generator=gen, device="cuda").to(self.dtype)
-        w = torch.randn(self.e, self.d, self.f, generator=gen, device="cuda") / self.d**0.5
-        return x, w.to(self.dtype)
+        pad = 3 if self.strided else 0  # rows, and 8 x as many columns, around each view
+        x = torch.randn(self.e + pad, self.c + 2 * pad, self.d + 16 * pad, generator=gen,
+                        device="cuda").to(self.dtype)[pad:, pad:pad + self.c, 8 * pad:8 * pad + self.d]
+        w = torch.randn(self.e + pad, self.d + pad, self.f + 16 * pad, generator=gen,
+                        device="cuda") / self.d**0.5
+        w = w.to(self.dtype)[pad:, pad:pad + self.d, 8 * pad:8 * pad + self.f]
+        return x, w
 
     def bound(self) -> tuple[float, str]:
         ops = 2.0 * self.e * self.c * self.d * self.f
@@ -253,7 +272,11 @@ def phase_card_and_build() -> tuple[str, str]:
     for name, b in built.items():
         ptxas = "; ".join(line.split("ptxas info    : ")[-1].strip()
                           for line in b.log.splitlines() if "Used " in line or "spill" in line)
-        log(f"phase 1 build: {name} built by nvcc in {b.seconds:.1f} s (ptxas: {ptxas})")
+        warnings = [line.strip() for line in b.log.splitlines() if "warning" in line.lower()]
+        log(f"phase 1 build: {name} built by nvcc in {b.seconds:.1f} s (ptxas: {ptxas}); "
+            f"{len(warnings)} compiler warnings")
+        for w in warnings:  # e.g. ptxas's "setmaxnreg ignored"
+            log(f"phase 1 build: {name} warning: {w}")
     log(f"phase 1 build: all {len(built)} kernels in {time.perf_counter() - t0:.1f} s wall")
     return smi, kind
 
@@ -302,8 +325,10 @@ def phase_check_flash() -> tuple[float, set[Shape]]:
     other = [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
              Shape(1, 1000, 16, 8, 128, torch.bfloat16), Shape(2, 1000, 16, 8, 128, torch.float32),
              Shape(2, 77, 16, 8, 64, torch.float32)]
+    edges = [s for dt in (torch.float32, torch.bfloat16) for s in flash_edges(dt)]
     main_err = 0.0
-    for shape in [s for dt in (torch.float32, torch.bfloat16) for s in sweep_of(dt)] + main + other:
+    for shape in [s for dt in (torch.float32, torch.bfloat16) for s in sweep_of(dt)] + main + other \
+            + edges:
         q, k, v = shape.inputs()
         out = fa_ops.flash_attention(q, k, v, causal=shape.causal, window=shape.window)
         torch.cuda.synchronize()
@@ -314,6 +339,19 @@ def phase_check_flash() -> tuple[float, set[Shape]]:
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     return main_err, set(main)
+
+
+def flash_edges(dt):
+    """Shapes at the edges of the kernels' tiles (128 query rows, 128 keys, 64
+    columns): S of 1, 127, 129 and 1025; windows below one tile; GQA groups of
+    1, 2, 4 and 8; every head dim; q, k and v as views of a fused buffer."""
+    return ([Shape(2, s, 16, 8, 128, dt) for s in (1, 127, 129, 1025)]
+            + [Shape(2, 300, 8, 4, 64, dt, window=32), Shape(1, 1025, 8, 2, 128, dt, window=100)]
+            + [Shape(1, 257, 8, kv, 64, dt) for kv in (8, 4, 2, 1)]
+            + [Shape(2, 200, 4, 2, d, dt) for d in fa_kernel.HEAD_DIMS]
+            + [Shape(1, 129, 4, 2, 128, dt, causal=False)]
+            + [Shape(2, 333, 16, 8, 128, dt, fused=True),
+               Shape(1, 129, 32, 8, 80, dt, window=64, fused=True)])
 
 
 def sweep_of(dt):
@@ -332,9 +370,13 @@ def phase_check_gmm() -> tuple[float, set[GmmShape]]:
     for dt in (torch.float32, torch.bfloat16):
         sweep = [GmmShape(4, 256, 256, 128, dt), GmmShape(8, 128, 512, 256, dt),
                  GmmShape(2, 128, 128, 128, dt), GmmShape(16, 128, 256, 128, dt)]
-        ragged = [GmmShape(8, c, 256, 128, dt) for c in (1, 8, 40, 50, 160, 2560)]
+        ragged = [GmmShape(8, c, 256, 128, dt)
+                  for c in (1, 7, 8, 9, 16, 17, 40, 50, 63, 65, 127, 129, 160, 2560)]
+        strided = [GmmShape(8, c, 256, 128, dt, strided=True) for c in (8, 65, 129)] \
+            + [GmmShape(32, 8, 1024, 512, dt, strided=True),
+               GmmShape(32, 200, 512, 1024, dt, strided=True)]
         granite = [s for c in main_capacities() for s in expert_shapes(c, dt)]
-        for shape in sweep + ragged + granite:
+        for shape in sweep + ragged + strided + granite:
             x, w = shape.inputs()
             out = gmm_ops.gmm(x, w)
             torch.cuda.synchronize()
@@ -377,8 +419,8 @@ def phase_time_flash() -> list[dict]:
         rows.append(dict(shape=str(shape), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
         log(f"phase 3 time flash_attention {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library (sdpa) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-            f"kernel at {100 * bound_ms / ms:.1f}% of bound")
+            f"library (sdpa) {lib_ms:.4f} ms, kernel/library {ms / lib_ms:.2f}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of bound")
         del q, k, v
         torch.cuda.empty_cache()
     return rows
@@ -408,8 +450,9 @@ def phase_time_gmm() -> list[dict]:
         rows.append(dict(shape=str(shape), ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
         log(f"phase 3 time moe_gmm {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library (torch.bmm) {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
-            f"kernel at {100 * bound_ms / ms:.1f}% of bound ({n_sets} input sets)")
+            f"library (torch.bmm) {lib_ms:.4f} ms, kernel/library {ms / lib_ms:.2f}, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of bound "
+            f"({n_sets} input sets)")
         del sets
         torch.cuda.empty_cache()
     return rows

@@ -3,8 +3,9 @@
 Each kernel is one ``.cu`` file with a plain C interface, compiled for
 Hopper (``sm_90a``) into a shared library under ``build/kernels/`` at the
 root of the checkout (``.gitignore`` lists it).  The library's name carries a
-hash of the source and the flags, so an edited source is rebuilt and an
-unchanged one is loaded as it is.  Nothing here runs at import time.
+hash of the source, of the headers it includes (``common/csrc/hopper.cuh``)
+and of the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -13,12 +14,13 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["Built", "BUILD_DIR", "NVCC_FLAGS", "build", "nvcc_path"]
+__all__ = ["Built", "BUILD_DIR", "NVCC_FLAGS", "build", "nvcc_path", "sources"]
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -48,8 +50,26 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built with the CUDA toolkit")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(source: Path) -> list[Path]:
+    """``source`` and every header it includes by a quoted path, resolved
+    relative to the including file, recursively."""
+    found, todo = [], [Path(source).resolve()]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        todo += [(path.parent / inc.decode()).resolve()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return found
+
+
 def _library_path(name: str, source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = b"".join(path.read_bytes() for path in sources(source))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

@@ -10,31 +10,68 @@
 // What bounds it on this card.  Causal prefill does about 2*B*H*S^2*D
 // operations (the causal half of Q K^T and of P V) and must move
 // (2*H + 2*KV)*B*S*D elements (q, k, v read once, o written once).  At the
-// internlm2-1.8b shapes (H 16, KV 8, D 128, bf16) the operations over
-// 989 TFLOP/s outweigh the bytes over 3.35 TB/s once S exceeds about 900:
-// long prompts are bound by the tensor cores, short ones by memory.
+// served shapes (internlm2-1.8b: H 16, KV 8, D 128; granite-moe: D 64; bf16)
+// the operations over 989 TFLOP/s outweigh the bytes over 3.35 TB/s once S
+// passes about 900 (D 128).  Below those bounds sit two more: every block
+// streams each K/V tile it needs from L2 (64 KB per 128 x 128 tile step at
+// D 128: 128 operations per byte read, which the L2's bandwidth does not
+// sustain at the tensor cores' rate), and the softmax, whose 16 K
+// exponentials per step take as long on the special-function units (16 a
+// cycle per SM) as the step's products at D 64 take on the tensor cores.
 //
-// What the design does about that.  The bf16 kernel runs both products on
-// the tensor cores (mma.sync m16n8k16 with fp32 accumulation), keeps each
-// 64 x 64 score tile in registers so that no score reaches device memory,
-// reads each K/V tile once per 64-row query tile, and skips the tiles beyond
-// the causal frontier or outside the window, so it does only the causal half
-// of the work.  The heaviest query tiles are launched first to even out the
-// causal imbalance.  It is a first, simple design: no TMA, no wgmma, no warp
-// specialisation and no double buffering yet.  The fp32 kernel, used where
-// the model computes in fp32, runs on the FMA units: TF32 tensor cores would
-// not hold fp32's tolerance.
+// What the design does about that (bf16).  Only wgmma reaches the tensor
+// cores' full rate, and it wants its operands in swizzled shared memory, fed
+// without the threads' help.  One block takes 128 query rows of one (batch,
+// head): warpgroups 0 and 1 (64 rows each) compute, warpgroup 2 loads.  One
+// thread of the loader brings Q once and then K and V tiles of 128 keys
+// through a ring of stages (3 at D > 64, 6 at D <= 64) with TMA, K and V
+// each completing on an mbarrier, a stage released by the consumers on
+// another, so later tiles stream in while this one is computed.  S = Q K^T
+// is a wgmma with both operands K-major in shared memory; P, converted to
+// bf16 in registers, is the A operand of O += P V, and V is read in place as
+// an MN-major B operand (the transpose bit): nothing is transposed or staged
+// by the threads.  S and O stay in registers (setmaxnreg gives the
+// consumers 240 and the loader 24).  Each warpgroup issues S_i = Q K_i^T and
+// O += P_{i-1} V_{i-1} together and runs the softmax of tile i while they
+// run; the two warpgroups take turns at issuing (named barriers), so one's
+// softmax overlaps the other's products.  The exponentials are single
+// ex2.approx instructions with the scale folded into one FMA.  The mask is
+// computed only on tiles that cross the diagonal, the window's edge or Skv;
+// tiles wholly masked for the block are skipped; the query tiles are the
+// grid's slow dimension, heaviest first.  O / l goes through shared memory
+// (Q's rows, no longer read) to one TMA store per warpgroup.
+//
+// Tried on the H100 and dropped: a cluster of two blocks (the two query heads
+// of a kv head) multicasting each K/V tile, which halves the L2 reads, was
+// slower; Q in registers, 192-key tiles at D 64, and separate K and V
+// releases were no faster.
+//
+// Head dims.  The 128-byte swizzle spans 64 bf16, so Q, K, V and O move as
+// 64-column boxes: one at D <= 64, two at D > 64.  The columns past D
+// (D 32, 80, 96) are zero-filled by TMA and cost math, never a wrong
+// number: a zero column adds 0 to every score, and its output column is
+// clipped by the store.  Rows past S and keys past Skv also load as zeros; a
+// zero key still scores 0, so keys past Skv are masked, and rows past S are
+// clipped.
+//
+// The fp32 kernel, used where the model computes in fp32 (parity runs and
+// tests), runs on the FMA units as before: TF32 tensor cores would not hold
+// fp32's tolerance.
 //
 // Layout.  q and o are [B, S, H, D], k and v [B, Skv, KV, D], read through
 // their strides with the last dim contiguous, so the caller needs no
-// transpose copy.  GQA maps query head h to kv head h / (H / KV).  Rows past
-// S and keys past Skv are masked, so S need not be a multiple of the tile.
-// The caller guarantees 16-byte aligned rows (see ops.py).
+// transpose copy: the tensor maps are 4-D (D, heads, S, B) over the
+// caller's strides (TMA takes any strides that are multiples of 16 bytes).
+// GQA maps query head h to kv head h / (H / KV).  The caller guarantees
+// 16-byte aligned rows and strides (ops.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "../../common/csrc/hopper.cuh"
 
 namespace {
 
@@ -79,22 +116,12 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// ---------------------------------------------------------------- bf16
-constexpr int kBQ = 64;  // query rows per block: 16 per warp
-constexpr int kBK = 64;  // keys per tile
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
+// 2^x on the special-function unit, one instruction (subnormal results
+// flush to 0: a weight below 2^-126 of the row's largest adds nothing in fp32)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -102,157 +129,293 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Fragment layout of mma m16n8k16 (lane = 4 * g + tg):
-//   A 16x16: a0 (g, 2tg..2tg+1), a1 (g+8, 2tg..), a2 (g, 2tg+8..), a3 (g+8, 2tg+8..)
-//   B 16x8:  b0 (k 2tg..2tg+1, n g), b1 (k 2tg+8.., n g)
-//   C 16x8:  c0,c1 (g, 2tg..2tg+1), c2,c3 (g+8, 2tg..2tg+1)
-// Two neighbouring C tiles of P form one A fragment of the P V product.
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_bf16(const Params p) {
-  constexpr int LD = D + 8;     // pitch of the Q and K tiles: conflict-free fragment loads
-  constexpr int LDV = kBK + 8;  // pitch of the transposed V tile
-  constexpr int KD = D / 16;    // k-steps of Q K^T
-  constexpr int ND = D / 8;     // n-tiles of the output
-  constexpr int NK = kBK / 8;   // n-tiles of the score tile
-  constexpr int VEC = 8;        // bf16 per 16-byte load
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kBQ][LD]
-  __nv_bfloat16* Ks = Qs + kBQ * LD;                           // [kBK][LD]
-  __nv_bfloat16* Vt = Ks + kBK * LD;                           // [D][LDV]
+// ---------------------------------------------------------------- bf16
+constexpr int kBQ = 128;        // query rows per block: 64 per consumer warpgroup
+constexpr int kBK = 128;        // keys per tile
+constexpr int kConsumers = 256;  // warpgroups 0 and 1
+constexpr int kThreads = 384;    // and the loader, warpgroup 2
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int b = blockIdx.y / p.H, h = blockIdx.y % p.H;
+template <int D>
+struct Tiles {
+  static constexpr int DP = D <= 64 ? 64 : 128;  // D in 64-column boxes, zero-filled past D
+  static constexpr int BOXES = DP / 64;
+  static constexpr int STAGES = DP == 64 ? 6 : 3;
+  static constexpr int Q_ELEMS = kBQ * DP;
+  static constexpr int KV_ELEMS = kBK * DP;  // one of K or V in one stage
+  static constexpr size_t SMEM = 2 * (Q_ELEMS + 2 * STAGES * KV_ELEMS) + 1024;  // + alignment
+};
+
+// S = Q K^T for one tile: 64 rows of this warpgroup x 128 keys, depth DP in
+// steps of 16 (issued, not waited for)
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBK / 2], const __nv_bfloat16* q_wg,
+                                         const __nv_bfloat16* ks) {
+#pragma unroll
+  for (int kk = 0; kk < Tiles<D>::DP / 16; ++kk) {
+    const int box = kk / 4, step = (kk % 4) * 16;  // 64-column box, 32 bytes a step
+    const uint64_t da = hopper::desc_sw128(q_wg + box * kBQ * 64 + step, 16, 1024);
+    const uint64_t db = hopper::desc_sw128(ks + box * kBK * 64 + step, 16, 1024);
+    hopper::wgmma_ss_n128<0, 0>(sc, da, db, kk > 0);
+  }
+}
+
+// O += P V for one tile: V [keys][DP] read in place as an MN-major operand
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[Tiles<D>::DP / 2],
+                                         const uint32_t (&pa)[kBK / 16][4],
+                                         const __nv_bfloat16* vs) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t db = hopper::desc_sw128(vs + kk * 16 * 64, 2 * kBK * 64, 1024);
+    if constexpr (Tiles<D>::DP == 64)
+      hopper::wgmma_rs_n64<1>(o, pa[kk], db, 1);
+    else
+      hopper::wgmma_rs_n128<1>(o, pa[kk], db, 1);
+  }
+}
+
+// The online softmax of one score tile, in place: raw scores in, P (fp32)
+// out; m (raw units) and l updated; returns in alpha the factor by which
+// the rows' earlier sums shrink.  The mask is applied only where ``edge``.
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], const Params& p, bool edge,
+                                             int row0, int col0, float scale_log2) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!attends(p, row0 + 8 * (e >> 1), col0 + 8 * j + (e & 1))) sc[4 * j + e] = -INFINITY;
+    }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * j + e]);
+  }
+  float nb[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = quad_max(mx[r]);
+    const float base = mx[r] == -INFINITY ? 0.f : mx[r];  // every key so far masked
+    alpha[r] = fast_exp2((m[r] - base) * scale_log2);
+    nb[r] = -base * scale_log2;
+    m[r] = mx[r];
+  }
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pr = fast_exp2(fmaf(sc[4 * j + e], scale_log2, nb[e >> 1]));
+      sc[4 * j + e] = pr;
+      rs[e >> 1] += pr;
+    }
+  }
+  l[0] = l[0] * alpha[0] + rs[0];
+  l[1] = l[1] * alpha[1] + rs[1];
+}
+
+// P in bf16 as the A fragments of P V: k-step kk takes columns 16kk.. of the
+// score tile, i.e. its n8 tiles 2kk and 2kk + 1
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBK / 16][4], const float (&sc)[kBK / 2]) {
+#pragma unroll
+  for (int j = 0; j < kBK / 8; ++j) {
+    pa[j / 2][(j % 2) * 2 + 0] = pack_bf16(sc[4 * j + 0], sc[4 * j + 1]);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(sc[4 * j + 2], sc[4 * j + 3]);
+  }
+}
+
+// Shared memory, from a 1024-byte boundary: Q as BOXES boxes [kBQ][64], then
+// per stage K as BOXES boxes [kBK][64] and V the same, all 128-byte swizzled.
+// K and V of a stage complete on barriers of their own, so S = Q K^T of a
+// tile may start before its V has landed.
+//
+// In step i a consumer warpgroup issues S_i = Q K_i^T and then
+// O += P_{i-1} V_{i-1}, waits for S_i only, runs the softmax of tile i while
+// P V runs, then waits for P V, releases the stage of tile i - 1 and
+// rescales O.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap to,
+                   const Params p) {
+  using T = Tiles<D>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, k_full[T::STAGES], v_full[T::STAGES],
+      kv_empty[T::STAGES];
+  bf16* Qs = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* KVs = Qs + T::Q_ELEMS;
+
+  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KV);
   const int q0 = qt * kBQ;
+  int t_begin, t_end;
+  kv_tile_range(p, q0, kBQ, kBK, &t_begin, &t_end);
 
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  for (int i = tid; i < kBQ * (D / VEC); i += kThreads) {
-    const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < p.S) val = *reinterpret_cast<const uint4*>(qg + (q0 + r) * p.q_ss + c);
-    *reinterpret_cast<uint4*>(Qs + r * LD + c) = val;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&q_full, 1);
+#pragma unroll
+    for (int s = 0; s < T::STAGES; ++s) {
+      hopper::mbar_init(&k_full[s], 1);
+      hopper::mbar_init(&v_full[s], 1);
+      hopper::mbar_init(&kv_empty[s], kConsumers / 32);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
   }
   __syncthreads();
 
-  uint32_t qf[KD][4];
-  {
-    const __nv_bfloat16* base = Qs + (warp * 16 + g) * LD + tg * 2;
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------ loader warpgroup
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      hopper::tma_prefetch(&tq);
+      hopper::tma_prefetch(&tk);
+      hopper::tma_prefetch(&tv);
+      hopper::mbar_arrive_expect_tx(&q_full, 2 * T::Q_ELEMS);
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      qf[kk][0] = ld_u32(base + kk * 16);
-      qf[kk][1] = ld_u32(base + 8 * LD + kk * 16);
-      qf[kk][2] = ld_u32(base + kk * 16 + 8);
-      qf[kk][3] = ld_u32(base + 8 * LD + kk * 16 + 8);
-    }
-  }
-
-  float acc[ND][4];
+      for (int c = 0; c < T::BOXES; ++c)
+        hopper::tma_load_4d(Qs + c * kBQ * 64, &tq, &q_full, 64 * c, h, q0, b);
+      for (int t = t_begin, i = 0; t < t_end; ++t, ++i) {
+        const int s = i % T::STAGES;
+        hopper::mbar_wait(&kv_empty[s], ((i / T::STAGES) & 1) ^ 1);
+        bf16* ks = KVs + s * 2 * T::KV_ELEMS;
+        bf16* vs = ks + T::KV_ELEMS;
+        hopper::mbar_arrive_expect_tx(&k_full[s], 2 * T::KV_ELEMS);
 #pragma unroll
-  for (int nd = 0; nd < ND; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max, log2 domain
-  float l[2] = {0.f, 0.f};              // this lane's part of the normaliser
-  const int row0 = q0 + warp * 16 + g;  // this lane's rows: row0 and row0 + 8
-  const float scale_log2 = p.scale * 1.4426950408889634f;
-
-  int t_begin, t_end;
-  kv_tile_range(p, q0, kBQ, kBK, &t_begin, &t_end);
-  for (int t = t_begin; t < t_end; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBK * (D / VEC); i += kThreads) {
-      const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-      uint4 kk4 = make_uint4(0u, 0u, 0u, 0u), vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + r < p.Skv) {
-        kk4 = *reinterpret_cast<const uint4*>(kg + (k0 + r) * p.k_ss + c);
-        vv4 = *reinterpret_cast<const uint4*>(vg + (k0 + r) * p.v_ss + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * LD + c) = kk4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
+        for (int c = 0; c < T::BOXES; ++c)
+          hopper::tma_load_4d(ks + c * kBK * 64, &tk, &k_full[s], 64 * c, kvh, t * kBK, b);
+        hopper::mbar_arrive_expect_tx(&v_full[s], 2 * T::KV_ELEMS);
 #pragma unroll
-      for (int j = 0; j < VEC; ++j) Vt[(c + j) * LDV + r] = ve[j];
-    }
-    __syncthreads();
-
-    float s[NK][4];
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kb = Ks + (nt * 8 + g) * LD + tg * 2;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        mma_16816(s[nt], qf[kk], ld_u32(kb + kk * 16), ld_u32(kb + kk * 16 + 8));
-    }
-
-    float mx[2] = {m[0], m[1]};
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = row0 + (e >> 1) * 8;
-        const int col = k0 + nt * 8 + tg * 2 + (e & 1);
-        const float x = attends(p, row, col) ? s[nt][e] * scale_log2 : -INFINITY;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int c = 0; c < T::BOXES; ++c)
+          hopper::tma_load_4d(vs + c * kBK * 64, &tv, &v_full[s], 64 * c, kvh, t * kBK, b);
       }
     }
-    float base[2], alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = quad_max(mx[i]);
-      base[i] = mx[i] == -INFINITY ? 0.f : mx[i];  // every key so far masked
-      alpha[i] = exp2f(m[i] - base[i]);
-      m[i] = mx[i];
-    }
-#pragma unroll
-    for (int nt = 0; nt < NK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pr = exp2f(s[nt][e] - base[e >> 1]);
-        s[nt][e] = pr;
-        rs[e >> 1] += pr;
-      }
-    }
-    l[0] = l[0] * alpha[0] + rs[0];
-    l[1] = l[1] * alpha[1] + rs[1];
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      acc[nd][0] *= alpha[0];
-      acc[nd][1] *= alpha[0];
-      acc[nd][2] *= alpha[1];
-      acc[nd][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int kt = 0; kt < kBK / 16; ++kt) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kt][0], s[2 * kt][1]), pack_bf16(s[2 * kt][2], s[2 * kt][3]),
-          pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
-          pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
-      const __nv_bfloat16* vb = Vt + g * LDV + kt * 16 + tg * 2;
-#pragma unroll
-      for (int nd = 0; nd < ND; ++nd)
-        mma_16816(acc[nd], a, ld_u32(vb + nd * 8 * LDV), ld_u32(vb + nd * 8 * LDV + 8));
-    }
-  }
+  } else {
+    // ------------------------------------------------ consumer warpgroups
+    hopper::setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+    const int warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
+    const int wq0 = q0 + 64 * wg;            // this warpgroup's first row
+    const int row0 = wq0 + 16 * warp + g;    // this lane's rows: row0 and row0 + 8
+    const float scale_log2 = p.scale * 1.4426950408889634f;
+    const bf16* q_wg = Qs + 64 * wg * 64;
+    // masks only where the tile crosses an edge for this warpgroup's rows
+    auto edge = [&](int t) {
+      const int k0 = t * kBK;
+      return k0 + kBK > p.Skv || (p.causal && k0 + kBK - 1 > wq0) ||
+             (p.window > 0 && wq0 + 63 - k0 >= p.window);
+    };
+    auto keys = [&](int i) { return KVs + (i % T::STAGES) * 2 * T::KV_ELEMS; };
+    auto values = [&](int i) { return keys(i) + T::KV_ELEMS; };
+    auto parity = [](int i) { return (uint32_t)((i / T::STAGES) & 1); };
+    auto release = [&](int i) {  // one arrival per warp on the stage's barrier
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&kv_empty[i % T::STAGES]);
+    };
 
-  const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
-  const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
-  if (row0 < p.S) {
-    __nv_bfloat16* orow = og + row0 * p.o_ss + tg * 2;
+    float o[T::DP / 2];
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(orow + nd * 8) = pack_bf16(acc[nd][0] / d0, acc[nd][1] / d0);
-  }
-  if (row0 + 8 < p.S) {
-    __nv_bfloat16* orow = og + (row0 + 8) * p.o_ss + tg * 2;
+    for (int i = 0; i < T::DP / 2; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
+    float l[2] = {0.f, 0.f};              // this lane's part of the normaliser
+    float sc[kBK / 2], alpha[2];
+    uint32_t pa[kBK / 16][4];
+
+    // The two warpgroups take turns at issuing their products (named barriers
+    // 1 and 2): while one runs its softmax, the other's products keep the
+    // tensor cores busy.  Warpgroup 0 goes first; warpgroup 1 owes no turn
+    // after its last.
+    const int n = t_end - t_begin;
+    auto my_turn = [&] { hopper::named_barrier_sync(1 + wg, kConsumers); };
+    auto pass_turn = [&](bool last) {
+      if (!(last && wg == 1)) hopper::named_barrier_arrive(2 - wg, kConsumers);
+    };
+    if (wg == 1 && n > 0) hopper::named_barrier_arrive(1, kConsumers);
+
+    hopper::mbar_wait(&q_full, 0);
+    if (n > 0) {
+      hopper::mbar_wait(&k_full[0], 0);
+      my_turn();
+      hopper::wgmma_fence();
+      issue_qk<D>(sc, q_wg, keys(0));
+      hopper::wgmma_commit();
+      pass_turn(false);
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(sc);
+      softmax_tile(sc, m, l, alpha, p, edge(t_begin), row0, t_begin * kBK + 2 * tg, scale_log2);
+      pack_p(pa, sc);
+    }
+    for (int i = 1; i < n; ++i) {
+      const int t = t_begin + i;
+      hopper::mbar_wait(&k_full[i % T::STAGES], parity(i));
+      hopper::mbar_wait(&v_full[(i - 1) % T::STAGES], parity(i - 1));
+      my_turn();
+      hopper::fence_operands(o);
+      hopper::wgmma_fence();
+      issue_qk<D>(sc, q_wg, keys(i));
+      hopper::wgmma_commit();
+      issue_pv<D>(o, pa, values(i - 1));
+      hopper::wgmma_commit();
+      pass_turn(false);
+      hopper::wgmma_wait<1>();  // S_i has landed; P V of tile i - 1 still runs
+      hopper::fence_operands(sc);
+      softmax_tile(sc, m, l, alpha, p, edge(t), row0, t * kBK + 2 * tg, scale_log2);
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(o);
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<uint32_t*>(orow + nd * 8) = pack_bf16(acc[nd][2] / d1, acc[nd][3] / d1);
+      for (int kk = 0; kk < kBK / 16; ++kk) hopper::fence_operands(pa[kk]);
+      release(i - 1);
+#pragma unroll
+      for (int j = 0; j < T::DP / 8; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      pack_p(pa, sc);
+    }
+    if (n > 0) {
+      hopper::mbar_wait(&v_full[(n - 1) % T::STAGES], parity(n - 1));
+      my_turn();
+      hopper::fence_operands(o);
+      hopper::wgmma_fence();
+      issue_pv<D>(o, pa, values(n - 1));
+      hopper::wgmma_commit();
+      pass_turn(true);
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(o);
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) hopper::fence_operands(pa[kk]);
+      release(n - 1);
+    }
+
+    // O / l into this warpgroup's rows of the Q tile, which nothing reads any
+    // more, in TMA's swizzle; then one thread stores them (rows past S and
+    // columns past D are clipped)
+    const float l0 = quad_sum(l[0]), l1 = quad_sum(l[1]);
+    const float d0 = l0 == 0.f ? 1.f : l0, d1 = l1 == 0.f ? 1.f : l1;
+    bf16* ob = Qs + 64 * wg * 64;
+    const int r = 16 * warp + g;
+#pragma unroll
+    for (int j = 0; j < T::DP / 8; ++j) {
+      bf16* box = ob + (j / 8) * kBQ * 64;
+      const int col = (8 * j) % 64 + 2 * tg;
+      *reinterpret_cast<uint32_t*>(box + hopper::sw128_offset(r, col)) =
+          pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+      *reinterpret_cast<uint32_t*>(box + hopper::sw128_offset(r + 8, col)) =
+          pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+    }
+    hopper::fence_proxy_async();
+    hopper::named_barrier_sync(3 + wg, 128);  // this warpgroup's rows are written
+    if (tid == 0 && wq0 < p.S) {
+#pragma unroll
+      for (int c = 0; c < T::BOXES; ++c) hopper::tma_store_4d(&to, ob + c * kBQ * 64, 64 * c, h, wq0, b);
+      hopper::bulk_commit();
+      hopper::bulk_wait<0, false>();
+    }
   }
 }
 
@@ -371,32 +534,60 @@ __global__ void __launch_bounds__(kFThreads) flash_fwd_f32(const Params p) {
 
 // ---------------------------------------------------------------- launch
 template <typename Kernel>
-int launch(Kernel kernel, int q_tiles, int threads, size_t smem, const Params& p,
-           cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<dim3(q_tiles, p.B * p.H), threads, smem, stream>>>(p);
+int set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+constexpr int kTmaError = -1000;  // kTmaError - CUresult: a tensor map the driver refused
+
+// 4-D tensor map (D, heads, S, B) of q, k or v with boxes of 64 columns of one
+// head and ``rows`` rows of S
+int encode_qkv(CUtensorMap* map, const void* base, int D, int heads, int S, int B, long long sb,
+               long long ss, long long sh, int rows) {
+  const long long dims[4] = {D, heads, S, B};
+  const long long strides[3] = {sh, ss, sb};
+  const int box[4] = {64, 1, rows, 1};
+  const int rc = hopper::encode_bf16(map, base, 4, dims, strides, box);
+  return rc == 0 ? 0 : kTmaError - rc;
+}
+
+template <int D>
+int launch_bf16(const Params& p, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, to;
+  int rc = encode_qkv(&tq, p.q, D, p.H, p.S, p.B, p.q_sb, p.q_ss, p.q_sh, kBQ);
+  if (rc == 0) rc = encode_qkv(&tk, p.k, D, p.KV, p.Skv, p.B, p.k_sb, p.k_ss, p.k_sh, kBK);
+  if (rc == 0) rc = encode_qkv(&tv, p.v, D, p.KV, p.Skv, p.B, p.v_sb, p.v_ss, p.v_sh, kBK);
+  if (rc == 0) rc = encode_qkv(&to, p.o, D, p.H, p.S, p.B, p.o_sb, p.o_ss, p.o_sh, 64);
+  if (rc != 0) return rc;
+  const int attr = set_smem(flash_fwd_bf16<D>, Tiles<D>::SMEM);
+  if (attr != 0) return attr;
+  // the query tiles are the slow grid dimension, so the heaviest are dispatched first
+  flash_fwd_bf16<D><<<dim3(p.B * p.H, (p.S + kBQ - 1) / kBQ), kThreads, Tiles<D>::SMEM, stream>>>(
+      tq, tk, tv, to, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_f32(const Params& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * ((kFBQ + kFBK) * (D + 1) + kFBK * D + kFBQ * (kFBK + 1));
+  const int attr = set_smem(flash_fwd_f32<D>, smem);
+  if (attr != 0) return attr;
+  flash_fwd_f32<D><<<dim3((p.S + kFBQ - 1) / kFBQ, p.B * p.H), kFThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dispatch(int dtype, const Params& p, cudaStream_t stream) {
-  if (dtype == 1) {
-    const size_t smem = sizeof(__nv_bfloat16) * ((kBQ + kBK) * (D + 8) + D * (kBK + 8));
-    return launch(flash_fwd_bf16<D>, (p.S + kBQ - 1) / kBQ, kThreads, smem, p, stream);
-  }
-  const size_t smem = sizeof(float) * ((kFBQ + kFBK) * (D + 1) + kFBK * D + kFBQ * (kFBK + 1));
-  return launch(flash_fwd_f32<D>, (p.S + kFBQ - 1) / kFBQ, kFThreads, smem, p, stream);
+  return dtype == 1 ? launch_bf16<D>(p, stream) : launch_f32<D>(p, stream);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16.  Strides are in elements.  Returns the
-// cudaGetLastError() of the launch (0 on success), or -1 for a head dim or
-// dtype this library was not built for.
+// cudaGetLastError() of the launch (0 on success), -1 for a head dim or
+// dtype this library was not built for, or -1000 - CUresult for a tensor
+// map the driver refused.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                    void* o, long long q_sb, long long q_ss, long long q_sh,
                                    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
@@ -419,5 +610,11 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k, cons
 }
 
 extern "C" const char* flash_attention_error_string(int code) {
-  return code < 0 ? "head dim or dtype not built" : cudaGetErrorString((cudaError_t)code);
+  static thread_local char msg[96];
+  if (code == -1) return "head dim or dtype not built";
+  if (code <= kTmaError) {
+    snprintf(msg, sizeof msg, "tensor map refused by the driver (CUresult %d)", kTmaError - code);
+    return msg;
+  }
+  return cudaGetErrorString((cudaError_t)code);
 }

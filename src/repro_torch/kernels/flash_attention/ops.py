@@ -33,7 +33,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                         f"{q.dtype} {k.dtype} {v.dtype}")
     if d not in kernel.HEAD_DIMS:
         raise ValueError(f"head dim {d} not built; the kernel takes {kernel.HEAD_DIMS}")
-    elems = 16 // q.element_size()  # 16-byte rows for vector loads
+    elems = 16 // q.element_size()  # 16-byte rows: TMA (bf16) and vector loads (fp32)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"{name} must be contiguous in its head dim")

@@ -33,7 +33,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
     if x.dtype not in kernel.DTYPES or x.dtype != w.dtype:
         raise TypeError(f"the kernel takes float32 or bfloat16 x/w of one dtype; got "
                         f"{x.dtype} {w.dtype}")
-    elems = 16 // x.element_size()  # 16-byte rows and chunks for cp.async
+    elems = 16 // x.element_size()  # 16-byte rows: TMA (bf16) and vector loads (fp32)
     if d % elems or w.shape[2] % elems:
         raise ValueError(f"D ({d}) and F ({w.shape[2]}) must be multiples of {elems}")
     for name, t in (("x", x), ("w", w)):

@@ -376,6 +376,13 @@ def _next_pow2(n: int) -> int:
     return p
 
 
+def _one_device(mesh) -> None:
+    """The engines take the reference's ``mesh`` in its place; the port
+    serves on one device until the multi-device work."""
+    if mesh is not None:
+        raise NotImplementedError("the port serves on one device: mesh must be None")
+
+
 @dataclasses.dataclass
 class EngineMetrics:
     """Engine counters, and the host-clock wall time of every prefill group
@@ -425,6 +432,7 @@ class ContinuousBatchingEngine:
         params: dict,
         n_slots: int = 8,
         max_len: int = 512,
+        mesh=None,
         scheduler: Optional[Scheduler] = None,
         cost_model: Optional[CollectiveCostModel] = None,
         policy: str = "cost_aware",
@@ -433,6 +441,7 @@ class ContinuousBatchingEngine:
         min_prompt_bucket: int = 8,
         max_queue_depth: Optional[int] = None,
     ):
+        _one_device(mesh)
         self.model = model
         self.params = model.load(params)
         self.pad_id = pad_id
@@ -694,14 +703,16 @@ class ServingEngine:
     continuous batching is measured against.  A stack with SSM layers takes
     unpadded rows of one length: its state would run through the padding."""
 
-    def __init__(self, model: Model, params: dict, max_len: int = 512):
+    def __init__(self, model: Model, params: dict, max_len: int = 512, mesh=None):
+        _one_device(mesh)
         self.model = model
         self.params = model.load(params)
         self.max_len = max_len
 
-    def generate(self, prompts: np.ndarray, max_new_tokens: int, temperature: float = 0.0,
-                 seed: int = 0) -> np.ndarray:
-        """``prompts`` [B, S] int; returns generated tokens [B, max_new_tokens]."""
+    def generate(self, prompts: np.ndarray, max_new_tokens: int, pad_id: int = 0,
+                 temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+        """``prompts`` [B, S] int; returns generated tokens [B, max_new_tokens].
+        ``pad_id`` is accepted and unused, as in the reference."""
         model = self.model
         b, s = prompts.shape
         temps = [temperature] * b

@@ -30,10 +30,19 @@ SHAPES = [  # b, s, h, kv, d, causal, window
     (1, 384, 6, 3, 64, True, 128),
     (1, 1000, 16, 8, 128, True, 0),
     (2, 77, 32, 8, 80, True, 64),
+    # the edges of the bf16 kernel's tiles (128 query rows, 128 keys, 64 columns)
+    *[(2, s, 16, 8, 128, True, 0) for s in (1, 127, 129, 1025)],
+    (2, 300, 8, 4, 64, True, 32), (1, 1025, 8, 2, 128, True, 100),  # windows below one tile
+    *[(1, 257, 8, kv, 64, True, 0) for kv in (8, 4, 2, 1)],  # GQA groups of 1, 2, 4, 8
+    *[(2, 200, 4, 2, d, True, 0) for d in (32, 64, 80, 96, 128)],
+    (1, 129, 4, 2, 128, False, 0),
 ]
+FUSED_SHAPES = [(2, 333, 16, 8, 128, True, 0), (1, 129, 32, 8, 80, True, 64)]
 GMM_SHAPES = [  # e, c, d, f: the JAX sweep, ragged capacities, granite's decode and prefill
     (4, 256, 256, 128), (8, 128, 512, 256), (2, 128, 128, 128), (16, 128, 256, 128),
     (4, 1, 128, 64), (8, 50, 128, 64), (32, 8, 1024, 512), (32, 160, 512, 1024),
+    # the edges of the bf16 kernels' tiles: 128 x 128 prefill, 8 or 16 columns in decode
+    *[(8, c, 256, 128) for c in (1, 7, 9, 16, 17, 63, 65, 127, 129, 2560)],
 ]
 
 SSD_SHAPES = [  # b, s, h, p, n, the plain version's chunk: the JAX sweep, ragged S, mamba2
@@ -64,6 +73,36 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype):
         assert kernel.launches == before + 1
         ref = reference_attention(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernel_reads_fused_qkv_views(cuda, dtype):
+    """q, k and v as strided views of one [B, S, H + 2 KV, D] buffer."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for b, s, h, kv, d, causal, window in FUSED_SHAPES:
+        qkv = torch.randn(b, s, h + 2 * kv, d, generator=gen, device=cuda).to(dtype)
+        q, k, v = qkv.split([h, kv, kv], dim=2)
+        out = ops.flash_attention(q, k, v, causal=causal, window=window)
+        ref = reference_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+                                  window=window)
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_reads_strided_leading_dims(cuda, dtype):
+    """x and w as views of larger buffers: rows, columns and experts at other
+    strides, starting off the buffers' first element."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for e, c, d, f in [(8, 8, 256, 128), (8, 65, 256, 128), (32, 8, 1024, 512), (4, 200, 512, 1024)]:
+        x = torch.randn(e + 1, c + 6, d + 48, generator=gen, device=cuda).to(dtype)[1:, 3:3 + c, 24:24 + d]
+        w = (torch.randn(e + 1, d + 2, f + 32, generator=gen, device=cuda) / d**0.5).to(dtype)
+        w = w[1:, 1:1 + d, 16:16 + f]
+        out = gmm_ops.gmm(x, w)
+        ref = reference_grouped_matmul(x.contiguous(), w.contiguous())
+        tol = 5 * TOL[dtype]
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu

@@ -238,6 +238,30 @@ def test_one_shot_engine_matches_reference_greedy_streams(pair):
     np.testing.assert_array_equal(got, want)
 
 
+def test_engines_take_the_reference_parameter_order(pair):
+    """Both engines called positionally, as a caller of the JAX package
+    would: (model, params, n_slots, max_len, mesh) and (model, params,
+    max_len, mesh); generate (prompts, max_new_tokens, pad_id, temperature,
+    seed) and (prompts, max_new_tokens, temperature, eos_id)."""
+    mj, pj, mt, pt = pair
+    rng = np.random.default_rng(8)
+    prompts = _prompts(rng, mt.cfg.vocab, [5, 9, 13, 3])
+    budgets = [4, 6, 3, 5]
+    want = jax_serving.ContinuousBatchingEngine(mj, pj, 3, 48, None).generate(
+        prompts, budgets, 0.0, None)
+    got = ContinuousBatchingEngine(mt, pt, 3, 48, None).generate(prompts, budgets, 0.0, None)
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g, w)
+    static = np.stack(_prompts(rng, mt.cfg.vocab, [8, 8, 8]))
+    want = jax_serving.ServingEngine(mj, pj, 48, None).generate(static, 6, 0, 0.0, 0)
+    got = ServingEngine(mt, pt, 48, None).generate(static, 6, 0, 0.0, 0)
+    np.testing.assert_array_equal(got, want)
+    for make in (lambda: ContinuousBatchingEngine(mt, pt, 3, 48, object()),
+                 lambda: ServingEngine(mt, pt, 48, object())):
+        with pytest.raises(NotImplementedError, match="mesh"):
+            make()
+
+
 def test_moe_continuous_engine_matches_reference_greedy_streams(moe_pair):
     """MoE: prefill groups of several buckets and sizes, ragged decode with
     idle slots (their stale tokens route and take expert capacity in both)."""
