@@ -5,7 +5,8 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, the three kernels built
    from the sources in the checkout (one nvcc each, started together), with
-   ptxas's registers, spills and any compiler warning;
+   ptxas's registers, spills, any compiler warning and any note that it
+   serialised wgmma instructions;
 2. every kernel against its plain PyTorch version on the card.  Flash
    attention at the shapes of the kernel sweep, of both attention paths (every
    prefill group of 1, 2 or 4 rows at every bucket of 128 to 2048 tokens:
@@ -17,14 +18,19 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    capacities around its tiles (1 to 2560), on strided views, and at every
    granite expert shape of the served runs (gate/up and down at each
    capacity C), in fp32 and bf16.  The SSD scan at the shapes of the JAX
-   package's sweep, at ragged S and at every mamba2-1.3b shape of the
-   served runs (one prompt at each of its exact lengths, and the 4 x 512
-   batch), in fp32 and bf16.  Phase 4 fails if it launched a kernel at a
-   shape this phase did not check;
+   package's sweep, at ragged S, at the edges of the bf16 kernel's tiles (S
+   of 1 to 1000 around 64 and 128, P of 8 to 64, N of 16 to 128, a batch of
+   4, and a bf16 shape of its FMA route) and at every mamba2-1.3b shape of
+   the served runs (one prompt at each of its exact lengths, and the 4 x 512
+   batch), in fp32 and bf16, with the errors of y and of the final state
+   apart; at the served bf16 shapes the state must also be within 1e-4 of
+   the plain version relative to its largest value.  Phase 4 fails if it
+   launched a kernel at a shape this phase did not check;
 3. kernel times at the main-path shapes beside the plain version, one
    library call the port never calls (``scaled_dot_product_attention``,
    ``torch.bmm``; no single PyTorch call computes the SSD scan), the
    kernel-to-library ratio and the least time the card could take (bound);
+   the SSD scan at all nine served mamba2 shapes;
 4. the three main paths at full width (random weights from a seed, bf16),
    each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
@@ -33,7 +39,12 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    mamba2-1.3b (48 SSM layers, each prefill through the SSD scan, every
    prompt prefilled alone at its exact length).  The launch counters are
    set to 0 just before each path and read just after it, and must match
-   the path's layers, prefills and decode steps;
+   the path's layers, prefills and decode steps.  Then mamba2-1.3b's bf16
+   prefill of one 866-token prompt at full width, cut to 4 layers, through
+   the SSD kernel against the same model with the plain ``ssd_chunked`` in
+   every layer, within the port's whole-model bf16 bound (5e-2 + 2e-2
+   relative); and the wall and device busy time of that prefill at all 48
+   layers, with the SSD kernel's part;
 5. card against CPU: each model cut to 2 layers in fp32, prefill and 8
    ragged decode steps on both; greedy tokens equal, logits within 1e-3;
 6. a JSON line of the kernels, and as the last line
@@ -82,6 +93,12 @@ PEAK_BYTES = 3.35e12
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 GMM_TOL = {dt: 5 * t for dt, t in TOL.items()}  # as the JAX package's gmm sweep
 SSD_TOL = {dt: 20 * t for dt, t in TOL.items()}  # as the JAX package's SSD sweep
+# the bf16 SSD kernel's final state against the fp32 plain version, relative
+# to its largest value: two bf16 terms per fp32 factor give a few 1e-6, one
+# term about 2e-3 (tests/test_torch_ssd_scan.py emulates both)
+SSD_STATE_REL = 1e-4
+# whole-model bf16 logits (tests/test_torch_model.py's bound)
+BF16_LOGITS_ATOL, BF16_LOGITS_RTOL = 5e-2, 2e-2
 # card vs CPU: fp32 sums over d_ff = 8192 (internlm2), over 8 experts of
 # 512 (granite) or over the SSD scan's chunks (mamba2) in other orders
 FP32_LOGITS_BOUND = 1e-3
@@ -243,15 +260,17 @@ class SsdShape:
     def bound(self) -> tuple[float, str]:
         """Operations of the chunked schedule at the kernel's chunk Q: per
         chunk of L rows, C B^T over the lower triangle, L (L + 1) N, once for
-        all heads (bf16 inputs could take it exactly on the tensor cores, so
-        it counts at their peak there), and per head G u over the lower
-        triangle, L (L + 1) P, C S^T, 2 L N P (not in the first chunk,
-        where S = 0), and the state update, 2 L P N, all in fp32 on FMA."""
+        all heads; and per head G u over the lower triangle, L (L + 1) P,
+        C S^T, 2 L N P (not in the first chunk, where S = 0), and the state
+        update, 2 L P N.  Each product counts once (not once per bf16 term),
+        at the peak of the fastest unit that gives the accuracy phase 2
+        holds: the bf16 tensor cores for bf16 inputs (their fp32 factors
+        split into two bf16 terms), the fp32 FMA units for fp32."""
         rows = [min(ssd_kernel.CHUNK, self.s - t0) for t0 in range(0, self.s, ssd_kernel.CHUNK)]
         cb = self.b * sum(r * (r + 1) * self.n for r in rows)
         rest = self.b * self.h * sum(r * (r + 1) * self.p + 2 * r * self.n * self.p * (1 + (i > 0))
                                      for i, r in enumerate(rows))
-        t_ops = cb / PEAK_OPS[self.dtype] + rest / PEAK_OPS[torch.float32]
+        t_ops = (cb + rest) / PEAK_OPS[self.dtype]
         t_bytes = self.nbytes() / PEAK_BYTES
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -273,9 +292,11 @@ def phase_card_and_build() -> tuple[str, str]:
         ptxas = "; ".join(line.split("ptxas info    : ")[-1].strip()
                           for line in b.log.splitlines() if "Used " in line or "spill" in line)
         warnings = [line.strip() for line in b.log.splitlines() if "warning" in line.lower()]
+        serialised = [line.split("ptxas info    : ")[-1].strip() for line in b.log.splitlines()
+                      if "Potential Performance Loss" in line]
         log(f"phase 1 build: {name} built by nvcc in {b.seconds:.1f} s (ptxas: {ptxas}); "
-            f"{len(warnings)} compiler warnings")
-        for w in warnings:  # e.g. ptxas's "setmaxnreg ignored"
+            f"{len(warnings)} compiler warnings, {len(serialised)} wgmma serialisation notes")
+        for w in warnings + serialised:  # e.g. ptxas's "setmaxnreg ignored"
             log(f"phase 1 build: {name} warning: {w}")
     log(f"phase 1 build: all {len(built)} kernels in {time.perf_counter() - t0:.1f} s wall")
     return smi, kind
@@ -483,6 +504,40 @@ def main_ssd_shapes(dtype=torch.bfloat16) -> list[SsdShape]:
     return [ssm_shape(1, int(n), dtype) for n in lens] + [ssm_shape(4, 512, dtype)]
 
 
+def ssd_edges(dt):
+    """Shapes at the edges of the bf16 kernel's tiles (chunks of 64 rows, 32
+    columns of P, boxes of 64 columns of N): S of 1 to 1000 around 64 and
+    128, P of 8 to 64, N of 16 to 128, a batch of 4; and a bf16 shape of the
+    kernel's FMA route (P and N not multiples of 8)."""
+    shapes = ([SsdShape(1, s, 4, 64, 128, dt, 256) for s in (1, 63, 64, 65, 127, 128, 129, 1000)]
+              + [SsdShape(2, 130, 4, p, 64, dt, 64) for p in (8, 16, 32, 64)]
+              + [SsdShape(2, 130, 4, 32, n, dt, 64) for n in (16, 32, 64, 128)]
+              + [SsdShape(4, 200, 8, 64, 128, dt, 64), SsdShape(2, 100, 3, 12, 20, dt, 64)])
+    return list(dict.fromkeys(shapes))
+
+
+def _check_ssd(shape: SsdShape, out, ref, served: bool) -> float:
+    """The kernel's (y, final state) against the plain version's, each within
+    SSD_TOL (abs + rel); at a served bf16 shape the state also within
+    SSD_STATE_REL of its largest value.  Returns the larger abs error."""
+    tol = SSD_TOL[shape.dtype]
+    (y, h), (yr, hr) = out, ref
+    y_err = (y.float() - yr.float()).abs()
+    h_err = (h - hr).abs()
+    ok = bool((y_err <= tol + tol * yr.float().abs()).all()) and bool((h_err <= tol + tol * hr.abs()).all())
+    h_rel = (h_err.max() / hr.abs().max()).item()
+    strict = served and shape.dtype == torch.bfloat16
+    if strict:
+        ok = ok and h_rel <= SSD_STATE_REL
+    log(f"phase 2 check ssd_scan {shape} ({ssd_kernel.route(shape.dtype, shape.p, shape.n)}): "
+        f"y max_abs_err {y_err.max().item():.3e}, state max_abs_err {h_err.max().item():.3e}, "
+        f"state rel {h_rel:.3e} (tol {tol:g} abs + rel"
+        + (f"; state rel <= {SSD_STATE_REL:g}" if strict else "") + f") {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"ssd_scan disagrees with its plain version at {shape}")
+    return max(y_err.max().item(), h_err.max().item())
+
+
 def phase_check_ssd() -> tuple[float, set[SsdShape]]:
     """SSD scan against its plain version; returns the max error at the
     main-path (mamba2 bf16) shapes and every shape checked."""
@@ -495,11 +550,12 @@ def phase_check_ssd() -> tuple[float, set[SsdShape]]:
         ragged = [SsdShape(2, 77, 3, 16, 32, dt, 32), SsdShape(1, 1, 4, 64, 128, dt, 64),
                   SsdShape(3, 130, 2, 8, 16, dt, 64), SsdShape(1, 1000, 8, 64, 128, dt, 256)]
         card_vs_cpu = [ssm_shape(1, 100, dt), ssm_shape(1, 77, dt)]  # phase 5's prefills
-        for shape in sweep + ragged + card_vs_cpu + main_ssd_shapes(dt):
+        served = main_ssd_shapes(dt)
+        for shape in sweep + ragged + ssd_edges(dt) + card_vs_cpu + served:
             args = shape.inputs()
             out = ssd_ops.ssd(*args)  # (y, final state)
             torch.cuda.synchronize()
-            err = _check("ssd_scan", shape, out, ssd_chunked(*args, shape.chunk), SSD_TOL[dt])
+            err = _check_ssd(shape, out, ssd_chunked(*args, shape.chunk), shape in served)
             if shape in main:
                 main_err = max(main_err, err)
             checked.add(shape)
@@ -509,12 +565,10 @@ def phase_check_ssd() -> tuple[float, set[SsdShape]]:
 
 
 def phase_time_ssd() -> list[dict]:
-    """The SSD scan at mamba2's longest served prompt, the one-shot batch and
-    the shortest prompt, bf16, and one fp32 shape; inputs rotate through at
-    least 2.5x the L2 as in ``phase_time_gmm``."""
-    lens = traffic(get_config(SSM).vocab)[0]
-    shapes = [ssm_shape(1, int(lens.max())), ssm_shape(4, 512), ssm_shape(1, int(lens.min())),
-              ssm_shape(1, 100, torch.float32)]
+    """The SSD scan at all nine served mamba2 shapes (each prompt at its
+    exact length, and the one-shot batch), bf16, and one fp32 shape; inputs
+    rotate through at least 2.5x the L2 as in ``phase_time_gmm``."""
+    shapes = main_ssd_shapes() + [ssm_shape(1, 100, torch.float32)]
     rows = []
     for shape in shapes:
         n_sets = max(1, min(8, math.ceil(2.5 * L2_BYTES / shape.nbytes())))
@@ -673,6 +727,83 @@ def profile_decode(name: str, engine, prompts, steps: int = 12) -> None:
                     f"x{e.count // steps}" for e in top))
 
 
+def _prefill_logits(model, params, toks, ssd=None) -> torch.Tensor:
+    """Prefill logits in fp32, with ``ssd`` in place of ``ops.ssd`` in every
+    SSM layer when given."""
+    kernel_ssd = ssd_ops.ssd
+    ssd_ops.ssd = ssd or kernel_ssd
+    try:
+        return model.prefill(params, toks)[0].float()
+    finally:
+        ssd_ops.ssd = kernel_ssd
+
+
+def phase_ssm_prefill_vs_plain(seq: int = 866, layers: int = 4) -> None:
+    """mamba2-1.3b at full width in bf16 (random weights from seed 0), cut to
+    ``layers`` layers, the depth at which the port's tests hold whole-model
+    bf16 logits to 5e-2 + 2e-2 relative (the REDUCED config): one prefill of
+    ``seq`` tokens with the SSD kernel in every layer against the same model
+    with the plain ``ssd_chunked`` in its place, on the card, within that
+    bound.  The only check of the bf16 kernel inside the model (phase 5 runs
+    fp32)."""
+    cfg = dataclasses.replace(get_config(SSM), n_layers=layers)
+    model = build_model(cfg)
+    params = model.load(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    toks = torch.as_tensor(np.random.default_rng(2).integers(1, cfg.vocab, (1, seq)), device="cuda")
+    before = ssd_kernel.launches
+    lk = _prefill_logits(model, params, toks)
+    made = ssd_kernel.launches - before
+    lp = _prefill_logits(model, params, toks,
+                         lambda x, dt, a, b, c, *, chunk=256: ssd_chunked(x, dt, a, b, c, chunk))
+    if ssd_kernel.launches - before != made or made != layers:
+        raise SystemExit(f"the bf16 prefill check launched the SSD kernel {made} times")
+    gap = (lk - lp).abs()
+    ok = bool(torch.isfinite(lk).all()) and bool(
+        (gap <= BF16_LOGITS_ATOL + BF16_LOGITS_RTOL * lp.abs()).all())
+    same = torch.equal(lk.argmax(-1), lp.argmax(-1))
+    log(f"phase 4 check {cfg.name} bf16 full width, {layers} layers, prefill 1 x {seq}: SSD "
+        f"kernel ({made} launches) vs plain ssd_chunked: max logit gap {gap.max().item():.3e} "
+        f"(bound {BF16_LOGITS_ATOL:g} + {BF16_LOGITS_RTOL:g} relative), greedy token "
+        f"{'equal' if same else 'differs'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("mamba2's bf16 prefill through the SSD kernel is off its plain version")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def phase_prefill_profile(seq: int = 866, reps: int = 3) -> None:
+    """mamba2-1.3b at full width in bf16, one prompt of ``seq`` tokens: the
+    wall of a prefill (host clock, ends in a sync; mean of ``reps``), then
+    under torch.profiler its device busy time and the SSD kernel's part.
+    The prefill is host-bound, so the device time is what the SSD kernel
+    can move."""
+    cfg = get_config(SSM)
+    model = build_model(cfg)
+    params = model.load(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    toks = torch.as_tensor(np.random.default_rng(2).integers(1, cfg.vocab, (1, seq)), device="cuda")
+    model.prefill(params, toks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        model.prefill(params, toks)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            model.prefill(params, toks)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
+    ssd_ms = sum(e.self_device_time_total for e in events if "ssd_fwd" in e.key) / 1e3 / reps
+    log(f"phase 4 {cfg.name} prefill profile 1 x {seq}: wall {wall_ms:.2f} ms (host clock), device "
+        f"busy {busy_ms:.3f} ms, of which the SSD kernel {ssd_ms:.3f} ms "
+        f"({sum(e.count for e in events) / reps:.0f} kernels per prefill)")
+    del model, params
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -763,6 +894,8 @@ def main() -> int:
     ssd_err, ssd_checked = phase_check_ssd()
     fa_rows, gmm_rows, ssd_rows = phase_time_flash(), phase_time_gmm(), phase_time_ssd()
     paths = {arch: phase_serve(arch, fa_checked, gmm_checked, ssd_checked) for arch in ARCHS}
+    phase_ssm_prefill_vs_plain()
+    phase_prefill_profile()
     for arch in ARCHS:
         phase_card_vs_cpu(arch)
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))

@@ -116,18 +116,10 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// 2^x on the special-function unit, one instruction (subnormal results
-// flush to 0: a weight below 2^-126 of the row's largest adds nothing in fp32)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// exponentials are hopper::fast_exp2 (subnormal results flush to 0: a weight
+// below 2^-126 of the row's largest adds nothing in fp32)
+using hopper::fast_exp2;
+using hopper::pack_bf16;
 
 // ---------------------------------------------------------------- bf16
 constexpr int kBQ = 128;        // query rows per block: 64 per consumer warpgroup

@@ -78,10 +78,7 @@ struct Params {
 
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+using hopper::pack_bf16;
 
 __device__ __forceinline__ bf16* align1024(unsigned char* p) {
   return reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));

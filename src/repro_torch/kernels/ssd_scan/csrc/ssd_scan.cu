@@ -12,51 +12,100 @@
 //
 // Inputs x [B, S, H, P] and b/c [B, S, N] (one group for all heads) in
 // float32 or bfloat16, dt [B, S, H] and a [H] in float32; outputs y in x's
-// dtype and the final state [B, H, P, N] in float32.  All arithmetic is
-// fp32, as in the TPU kernel.
+// dtype and the final state [B, H, P, N] in float32.
+//
+// Two routes, chosen by the caller (kernel.py's ``route``) from the dtype and
+// the shape:
+// - ssd_fwd_tc, for bfloat16 x/b/c with P and N multiples of 8 (every shape
+//   a served model gives it): the products on the tensor cores (wgmma), the
+//   tiles brought by TMA.
+// - ssd_fwd_fma, for float32, and for bfloat16 with P or N not a multiple
+//   of 8 (TMA needs 16-byte strides): every product on the fp32 FMA units,
+//   the TPU kernel's arithmetic.  fp32 inputs stay on it because a product
+//   of fp32 operands on the tensor cores (TF32, or three bf16 terms) would
+//   not keep fp32's tolerance as cheaply as the bf16 split below keeps bf16's.
 //
 // What bounds it on this card.  Per (batch, head) a chunk of Q rows does
-// about 2 Q^2 N (C B^T) + Q^2 P (G u, lower triangle) + 2 Q N P (C S^T) +
-// 2 Q P N (state update) operations against 2 Q P elements of x and y.  At
-// mamba2-1.3b's shapes (H 64, P 64, N 128) that is some 60 fp32 operations
-// for every byte moved, well above the card's 20 (67 TFLOP/s over
-// 3.35 TB/s): the kernel is bound by operations, and by how fast fp32 FMAs
-// can be fed from shared memory.
+// 2 Q^2 N (C B^T, once for all heads) + Q^2 P (G u, lower triangle) +
+// 2 Q N P (C S^T) + 2 Q P N (state update) operations against 2 Q P
+// elements of x and y.  At mamba2-1.3b's shapes (H 64, P 64, N 128, bf16) a
+// call moves 17 MB for a prompt of 866 tokens (5.1 us at 3.35 TB/s) and
+// does 2.1 GFLOP (2.2 us at 989 TFLOP/s on the tensor cores): the bound is
+// set by bytes.  The kernel cannot reach it at a batch of one: a prompt of S
+// tokens is a chain of ceil(S / 64) chunks, each a few dependent products,
+// and there are only 128 such chains (64 heads x 2 slices of P) for 132
+// SMs.  What bounds it is the latency of one chunk's chain of products.
 //
-// What the design does about that.  The TPU kernel's chunk of 512 does not
-// carry over (G alone would be 1 MB of fp32 against 227 KB of shared
-// memory), and the result does not depend on the chunk, so this kernel takes
-// Q = 64.  One block per (P slice of 32 columns, head, batch) walks the
-// chunks in order, so the state never leaves the block: S^T lives in shared
-// memory.  Per chunk the block stages B and C (both transposed, and B row
-// by row) and u = x dt in shared memory as fp32, computes cum, G^T, y and
-// the new state as four small products, each thread owning 4 x 4 outputs
-// and reading two float4s for every 16 FMAs.  Tiles of G above the diagonal
-// are skipped, and so is the part of G u past the diagonal.  The mask is
-// applied in the exponent: exp is never taken of a positive difference.
-// At P 64 two blocks share a head (each recomputes C B^T), so a batch of one
-// gives 128 blocks for the 132 SMs.  It is a first, simple design on the FMA
-// units: no tensor cores (C B^T would be exact on bf16 ones), no cp.async,
-// one block per SM (149 KB of shared memory at N 128).
+// What the design does (ssd_fwd_tc).  One block per (32 columns of P, head,
+// batch) walks the chunks in order (so a batch of one still gives 128
+// blocks), with warpgroup 0 computing and warp 4 loading:
+// - The loader keeps the next chunk's C and B tiles [64 x N] and x tile
+//   [64 x 64] in flight with TMA into a ring of two stages (128-byte
+//   swizzle; columns past N or P and rows past S are zero-filled).  dt of
+//   one head lies at a stride of H floats, too narrow for a tensor map, so
+//   the loader reads it with plain loads one chunk ahead, takes the
+//   cumulative sum as a warp-shuffle scan, and leaves in the stage the
+//   scalars the consumers need: cum (in log2 units), dt, the rows' decay to
+//   the chunk's end times dt, and the chunk's decay.
+// - C B^T is a wgmma with both operands K-major in shared memory (recomputed
+//   per block: N / 16 steps of m64n64k16 a chunk).  The decay, the mask (in
+//   the exponent: exp is never taken of a positive difference) and dt are
+//   applied in registers with one ex2.approx and one multiply each, and G
+//   goes in as the register A operand of G x.
+// - The fp32 state lives in the warpgroup's accumulator registers across
+//   chunks, as S^T [N x 32] (M = N in one or two m64 tiles): S^T += B^T x~
+//   is a wgmma whose A operand is B's tile read in place as MN-major (the
+//   transpose bit).
+// - Between two chunks, with no wgmma in flight, the threads write what the
+//   next chunk's products read besides TMA's tiles: the state in two terms
+//   (for C S^T), x^T and x~^T = (x exp(cum_Q - cum) dt)^T (K-major B
+//   operands of 32 columns for G x and the state update), as 8 x 8 matrices
+//   through ldmatrix and stmatrix.trans, behind one async-proxy fence and
+//   one barrier; then the state decays by a multiply.  ptxas serialises
+//   every wgmma of the kernel if an accumulator is written, or a register
+//   that an earlier wgmma wrote is read, while a wgmma is in flight, or if
+//   a wgmma sits in a branch or a loop of unknown length: hence this place,
+//   and depth loops over all 64 NB columns of N (zeros past N).
+// - y is stored from registers, clipped at S and at the block's columns;
+//   the final state likewise, once.
+// About 113 KB of shared memory and 152 registers, so two blocks share an
+// SM where there are more blocks than SMs (the batch of 4).  What bounds it
+// now is the chain of one chunk in one warpgroup: four warps, one per
+// scheduler, pay the full latency of each dependent step (the products, the
+// exponentials of G, the writes between chunks); the tensor cores idle most
+// of a chunk.  Splitting a chunk between two consumer warpgroups (G and
+// G x in one, the state in the other) is the next step.
+//
+// Two terms keep fp32 accuracy on bf16 tensor cores.  x, B and C are bf16
+// and exact as they are; dt, the decays and the state are not.  Each fp32
+// factor is folded into one operand, which is split into hi = bf16(v) and
+// lo = bf16(v - hi) (about 16 bits of mantissa between them), and the
+// product is two wgmmas accumulating in fp32: C B^T (exact operands, one
+// term), G x (G split), C S^T (S split), B^T x~ (x~ split).  Emulated in
+// PyTorch at mamba2's widths (tests/test_torch_ssd_scan.py), the relative
+// error (max abs error / max abs value) against the fp32 ssd_chunked is a
+// few 1e-6 for y and for the state; one term (plain bf16 operands) gives
+// about 2e-3, which the fp32 state would carry into every decode step.
 //
 // Ragged S.  The TPU wrapper asserts that its chunk divides S; served
 // prompts have exact lengths.  Rows past S in the last chunk are loaded as
 // zeros with dt = 0: their decay is 1 and their u is 0, so the state passes
 // through unchanged, and their y rows are not stored.  Inputs are contiguous
-// (ops.py checks it).
+// and 16-byte aligned (ops.py checks it).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+#include <stdio.h>
+
+#include "../../common/csrc/hopper.cuh"
 
 namespace {
 
 constexpr int kQ = 64;          // rows of one chunk
 constexpr int kMaxPT = 32;      // columns of P per block
 constexpr int kMaxN = 128;      // largest state size the shared memory holds
-constexpr int kThreads = 256;
-constexpr int kPad = 4;         // row padding of the shared arrays, in floats
-constexpr int kLDQ = kQ + kPad;
 
 struct Params {
   const void* x;   // [B, S, H, P]
@@ -68,6 +117,11 @@ struct Params {
   float* state;    // [B, H, P, N]
   int B, S, H, P, N, pt;  // pt: columns of P per block
 };
+
+// ---------------------------------------------------------------- fp32 FMA route
+constexpr int kThreads = 256;
+constexpr int kPad = 4;         // row padding of the shared arrays, in floats
+constexpr int kLDQ = kQ + kPad;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -110,8 +164,14 @@ __host__ __device__ constexpr size_t smem_floats(int n, int pt) {
          + 3 * (size_t)kQ;           // la, cum, w
 }
 
+// One block per (P slice of 32 columns, head, batch) walks the chunks in
+// order with S^T in shared memory.  Per chunk it stages B and C (both
+// transposed, and B row by row) and u = x dt as fp32, computes cum, G^T, y
+// and the new state as four small products, each thread owning 4 x 4
+// outputs and reading two float4s for every 16 FMAs; tiles of G above the
+// diagonal are skipped.  149 KB of shared memory at N 128: one block per SM.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_fwd(const Params p) {
+__global__ void __launch_bounds__(kThreads) ssd_fwd_fma(const Params p) {
   extern __shared__ __align__(16) float smem[];
   const int N = p.N, pt = p.pt;
   const int ldn = N + kPad, ldp = pt + kPad;
@@ -240,24 +300,372 @@ __global__ void __launch_bounds__(kThreads) ssd_fwd(const Params p) {
   }
 }
 
+// ---------------------------------------------------------------- bf16 tensor-core route
+constexpr int kStages = 2;
+constexpr int kConsumers = 128;  // warpgroup 0
+constexpr int kTcThreads = 160;  // and the loader, warp 4
+constexpr int kBox = 64 * 64;    // elements of a [64][64] bf16 tile, 8 KB
+constexpr int kPBox = 32 * 64;   // elements of a [32][64] bf16 tile, 4 KB
+constexpr float kLog2e = 1.4426950408889634f;
+
+// What the loader leaves in a stage besides the tiles, per row of the chunk
+struct __align__(16) ChunkScalars {
+  float cum[kQ];  // inclusive cumsum of dt a, times log2(e)
+  float dt[kQ];   // dt: G_ij = (C B^T)_ij 2^(cum_i - cum_j) dt_j
+  float wx[kQ];   // exp(cum_Q - cum) dt: x~ = x wx, the rows' share of the new state
+  float decay;    // exp(cum_Q), the state's decay over the chunk
+};
+
+// Shared memory in bf16 elements from a 1024-byte boundary, every tile in
+// TMA's 128-byte swizzle.  Per stage: C and B as NB boxes [64 rows][64 of
+// N] each, x as [64 rows][64 columns of P from the block's first]; then
+// x^T [32 columns of P][64 rows]; then x~^T as [64][64 rows], its hi term
+// in rows 0..31 and its lo term in rows 32..63; then the state, NB boxes
+// [64][64 of N] of hi and lo rows alike.
+template <int NB>
+struct TcTiles {
+  static constexpr int STAGE = (2 * NB + 1) * kBox;
+  static constexpr int XT = kStages * STAGE;
+  static constexpr int XS = XT + kPBox;
+  static constexpr int SS = XS + kBox;
+  static constexpr size_t SMEM = 2 * (size_t)(SS + NB * kBox) + 1024;  // + alignment
+};
+
+using hopper::fast_exp2;
+using hopper::pack_bf16;
+
+// (v0, v1) as two bf16 pairs whose sum carries about 16 bits: hi = bf16(v),
+// lo = bf16(v - hi)
+__device__ __forceinline__ void split_pack(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<uint32_t*>(&h);
+  lo = *reinterpret_cast<uint32_t*>(&l);
+}
+
+// descriptor of the kk-th 16-deep step of a K-major operand: boxes of
+// ``rows`` rows by 64 of depth, one after another
+__device__ __forceinline__ uint64_t kmajor(const __nv_bfloat16* tile, int rows, int kk) {
+  return hopper::desc_sw128(tile + (kk / 4) * rows * 64 + (kk % 4) * 16, 16, 1024);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    ssd_fwd_tc(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tb,
+               const __grid_constant__ CUtensorMap tc, const Params p) {
+  using T = TcTiles<NB>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ ChunkScalars scal[kStages];
+  bf16* sm = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int p0 = blockIdx.x * p.pt, h = blockIdx.y, b = blockIdx.z;
+  const int n_chunks = (p.S + kQ - 1) / kQ;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 33);  // the loader's 32 lanes and its expect_tx
+      hopper::mbar_init(&empty[s], kConsumers / 32);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------ loader warp
+    const int lane = threadIdx.x - kConsumers;
+    if (lane == 0) {
+      hopper::tma_prefetch(&tx);
+      hopper::tma_prefetch(&tb);
+      hopper::tma_prefetch(&tc);
+    }
+    const float a2 = p.a[h] * kLog2e;
+    const float* dtg = p.dt + (long long)b * p.S * p.H + h;
+    float d0, d1;  // dt of rows lane and 32 + lane of the next chunk, 0 past S
+    auto load_dt = [&](int t0) {
+      d0 = t0 + lane < p.S ? dtg[(long long)(t0 + lane) * p.H] : 0.f;
+      d1 = t0 + 32 + lane < p.S ? dtg[(long long)(t0 + 32 + lane) * p.H] : 0.f;
+    };
+    load_dt(0);
+    for (int k = 0; k < n_chunks; ++k) {
+      const int s = k % kStages, t0 = k * kQ;
+      hopper::mbar_wait(&empty[s], ((k / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        bf16* st = sm + s * T::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * T::STAGE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_3d(st + c * kBox, &tc, &full[s], 64 * c, t0, b);
+          hopper::tma_load_3d(st + (NB + c) * kBox, &tb, &full[s], 64 * c, t0, b);
+        }
+        hopper::tma_load_4d(st + 2 * NB * kBox, &tx, &full[s], p0, h, t0, b);
+      }
+      // inclusive scan of dt a log2(e) over the chunk's 64 rows
+      float c0 = d0 * a2, c1 = d1 * a2;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u0 = __shfl_up_sync(0xffffffffu, c0, off);
+        const float u1 = __shfl_up_sync(0xffffffffu, c1, off);
+        if (lane >= off) {
+          c0 += u0;
+          c1 += u1;
+        }
+      }
+      c1 += __shfl_sync(0xffffffffu, c0, 31);
+      const float cq = __shfl_sync(0xffffffffu, c1, 31);
+      ChunkScalars& cs = scal[s];
+      cs.cum[lane] = c0;
+      cs.cum[32 + lane] = c1;
+      cs.dt[lane] = d0;
+      cs.dt[32 + lane] = d1;
+      cs.wx[lane] = exp2f(cq - c0) * d0;
+      cs.wx[32 + lane] = exp2f(cq - c1) * d1;
+      if (lane == 0) cs.decay = exp2f(cq);
+      hopper::mbar_arrive(&full[s]);
+      if (k + 1 < n_chunks) load_dt(t0 + kQ);
+    }
+  } else {
+    // ------------------------------------------------ consumer warpgroup
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
+    const int r0 = 16 * warp + g;    // this lane's accumulator rows: r0 and r0 + 8
+    bf16* const xt = sm + T::XT;
+    bf16* const xs2 = sm + T::XS;  // x~^T: hi rows, then lo rows
+    bf16* const ss = sm + T::SS;   // the state: per box, hi rows, then lo rows
+    bf16* const yg = static_cast<bf16*>(p.y);
+
+    float cb[32], ya[16], yi[16], st[NB][16];
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) st[m][i] = 0.f;
+    uint32_t gh[4][4], gl[4][4];
+
+    // What chunk k's products read from shared memory besides TMA's tiles,
+    // written by the threads as 8 x 8 matrices through stmatrix.trans (and
+    // ldmatrix) between two chunks, when no wgmma is in flight (registers
+    // that a wgmma wrote may not be read while another is in flight without
+    // ptxas inserting a wait), behind one fence and one barrier; then the
+    // state's decay over chunk k.
+    auto prepare = [&](int k) {
+      const int s = k % kStages;
+      const bf16* xs = sm + s * T::STAGE + 2 * NB * kBox;
+      hopper::mbar_wait(&full[s], (k / kStages) & 1);
+      // x's rows 16w..16w+15 (warp w), loaded first: the stores below keep
+      // their order with loads from shared memory
+      uint32_t xr[2][4];
+      float w[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int j0 = 16 * warp + 8 * i;
+        hopper::ldmatrix_x4(xr[i], xs + hopper::sw128_offset(j0 + (lane & 7), 8 * (lane >> 3)));
+        w[i] = scal[s].wx[j0 + lane / 4];  // this lane's row of every matrix
+      }
+      // the state after chunk k - 1 (zeros before the first) in two terms
+      // for C S^T: the accumulator's blocks (rows n, columns p) land as [p][n]
+#pragma unroll
+      for (int m = 0; m < NB; ++m)
+#pragma unroll
+        for (int jj = 0; jj < 4; jj += 2) {
+          uint32_t hr[4], lr[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            split_pack(st[m][4 * jj + 2 * q], st[m][4 * jj + 2 * q + 1], hr[q], lr[q]);
+          const int o = m * kBox + hopper::sw128_offset(8 * (jj + (lane >> 4)) + (lane & 7),
+                                                         16 * warp + 8 * ((lane >> 3) & 1));
+          hopper::stmatrix_x4_trans(ss + o, hr);
+          hopper::stmatrix_x4_trans(ss + kPBox + o, lr);
+        }
+      // x^T (exact) and x~^T = (x wx)^T in two terms, for the 32 columns of P
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        uint32_t hr[4], lr[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float2 v =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xr[i][q]));
+          split_pack(v.x * w[i], v.y * w[i], hr[q], lr[q]);
+        }
+        const int o = hopper::sw128_offset(lane, 16 * warp + 8 * i);  // row p = lane
+        hopper::stmatrix_x4_trans(xt + o, xr[i]);
+        hopper::stmatrix_x4_trans(xs2 + o, hr);
+        hopper::stmatrix_x4_trans(xs2 + kPBox + o, lr);
+      }
+      const float decay = scal[s].decay;
+#pragma unroll
+      for (int m = 0; m < NB; ++m)
+#pragma unroll
+        for (int i = 0; i < 16; ++i) st[m][i] *= decay;
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(1, kConsumers);
+    };
+
+    prepare(0);
+    for (int k = 0; k < n_chunks; ++k) {
+      const int s = k % kStages, t0 = k * kQ;
+      const bf16* cs = sm + s * T::STAGE;
+      const bf16* bs = cs + NB * kBox;
+      const ChunkScalars& sc = scal[s];
+
+      // C B^T, over all 64 NB columns of N (those past N are zeros)
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk)
+        hopper::wgmma_ss_n64<0, 0>(cb, kmajor(cs, 64, kk), kmajor(bs, 64, kk), kk > 0);
+      hopper::wgmma_commit();
+      const float cr0 = sc.cum[r0], cr1 = sc.cum[r0 + 8];
+      float2 cc[8], dc[8];  // G's column terms, loaded before the wgmmas order the loads
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        cc[jj] = *reinterpret_cast<const float2*>(&sc.cum[8 * jj + 2 * tg]);
+        dc[jj] = *reinterpret_cast<const float2*>(&sc.dt[8 * jj + 2 * tg]);
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(cb);
+
+      // C S^T of the state after the previous chunk, and S^T <- decay S^T +
+      // B^T x~, with B's tile as the MN-major A operand ([rows][N] read as
+      // [N][rows])
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk) {
+        const uint64_t dc = kmajor(cs, 64, kk);
+        const bf16* sk = ss + (kk / 4) * kBox + (kk % 4) * 16;
+        hopper::wgmma_ss_n32<0, 0>(yi, dc, hopper::desc_sw128(sk, 16, 1024), kk > 0);
+        hopper::wgmma_ss_n32<0, 0>(yi, dc, hopper::desc_sw128(sk + kPBox, 16, 1024), 1);
+      }
+#pragma unroll
+      for (int m = 0; m < NB; ++m) {
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t da = hopper::desc_sw128(bs + m * kBox + kk * 16 * 64, 2 * kBox, 1024);
+          hopper::wgmma_ss_n32<1, 0>(st[m], da, hopper::desc_sw128(xs2 + 16 * kk, 16, 1024), 1);
+          hopper::wgmma_ss_n32<1, 0>(st[m], da,
+                                     hopper::desc_sw128(xs2 + kPBox + 16 * kk, 16, 1024), 1);
+        }
+      }
+
+      // G_ij = (C B^T)_ij exp(cum_i - cum_j) dt_j for j <= i, in two terms,
+      // as the A fragments of G x (k-step kk takes columns 16kk..16kk+15)
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * jj + 2 * tg;
+        const float g00 = cb[4 * jj + 0] * dc[jj].x * fast_exp2(j <= r0 ? cr0 - cc[jj].x : -INFINITY);
+        const float g01 = cb[4 * jj + 1] * dc[jj].y * fast_exp2(j + 1 <= r0 ? cr0 - cc[jj].y : -INFINITY);
+        const float g10 = cb[4 * jj + 2] * dc[jj].x * fast_exp2(j <= r0 + 8 ? cr1 - cc[jj].x : -INFINITY);
+        const float g11 = cb[4 * jj + 3] * dc[jj].y * fast_exp2(j + 1 <= r0 + 8 ? cr1 - cc[jj].y : -INFINITY);
+        split_pack(g00, g01, gh[jj / 2][(jj % 2) * 2], gl[jj / 2][(jj % 2) * 2]);
+        split_pack(g10, g11, gh[jj / 2][(jj % 2) * 2 + 1], gl[jj / 2][(jj % 2) * 2 + 1]);
+      }
+
+      // y_intra = G x
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dx = hopper::desc_sw128(xt + 16 * kk, 16, 1024);
+        hopper::wgmma_rs_n32<0>(ya, gh[kk], dx, kk > 0);
+        hopper::wgmma_rs_n32<0>(ya, gl[kk], dx, 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(ya);
+      hopper::fence_operands(yi);
+#pragma unroll
+      for (int m = 0; m < NB; ++m) hopper::fence_operands(st[m]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::fence_operands(gh[kk]);
+        hopper::fence_operands(gl[kk]);
+      }
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[s]);  // the stage is read
+
+      // y = G x + exp(cum) (C S^T), rows past S and columns past the block's
+      // not stored
+      bf16* yrow = yg + (((long long)b * p.S + t0 + r0) * p.H + h) * p.P + p0;
+      const long long row8 = 8ll * p.H * p.P;  // from row r0 to row r0 + 8
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (t0 + r0 + 8 * r < p.S) {
+          const float e = fast_exp2(r ? cr1 : cr0);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int col = 8 * jj + 2 * tg;
+            if (col < p.pt)
+              *reinterpret_cast<uint32_t*>(yrow + r * row8 + col) =
+                  pack_bf16(fmaf(e, yi[4 * jj + 2 * r], ya[4 * jj + 2 * r]),
+                            fmaf(e, yi[4 * jj + 2 * r + 1], ya[4 * jj + 2 * r + 1]));
+          }
+        }
+      }
+      if (k + 1 < n_chunks) prepare(k + 1);
+    }
+
+    // the final state [P, N] of this block's columns
+    float* sg = p.state + (((long long)b * p.H + h) * p.P + p0) * p.N;
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int n = 64 * m + r0 + 8 * ((e >> 1) & 1), q = 8 * (e / 4) + 2 * tg + (e & 1);
+        if (n < p.N && q < p.pt) sg[(long long)q * p.N + n] = st[m][e];
+      }
+  }
+}
+
+// ---------------------------------------------------------------- launch
+constexpr int kTmaError = -1000;  // kTmaError - CUresult: a tensor map the driver refused
+
 template <typename T>
-int launch(const Params& p, cudaStream_t stream) {
+int launch_fma(const Params& p, cudaStream_t stream) {
   const size_t bytes = smem_floats(p.N, p.pt) * sizeof(float);
-  cudaError_t err =
-      cudaFuncSetAttribute(ssd_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  ssd_fwd<T><<<dim3(p.P / p.pt, p.H, p.B), kThreads, bytes, stream>>>(p);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(ssd_fwd_fma<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  ssd_fwd_fma<T><<<dim3(p.P / p.pt, p.H, p.B), kThreads, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int NB>
+int launch_tc(const Params& p, cudaStream_t stream) {
+  CUtensorMap tx, tb, tc;
+  // x as (P, H, S, B) in boxes of 64 columns of one head by 64 rows; b and c
+  // as (N, S, B) in boxes of 64 by 64 rows
+  const long long x_dims[4] = {p.P, p.H, p.S, p.B};
+  const long long x_strides[3] = {p.P, (long long)p.H * p.P, (long long)p.S * p.H * p.P};
+  const int x_box[4] = {64, 1, kQ, 1};
+  const long long bc_dims[3] = {p.N, p.S, p.B};
+  const long long bc_strides[2] = {p.N, (long long)p.S * p.N};
+  const int bc_box[3] = {64, kQ, 1};
+  int rc = hopper::encode_bf16(&tx, p.x, 4, x_dims, x_strides, x_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tb, p.b, 3, bc_dims, bc_strides, bc_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tc, p.c, 3, bc_dims, bc_strides, bc_box);
+  if (rc != 0) return kTmaError - rc;
+  // all of the SM's shared memory, so that two blocks fit on one
+  cudaError_t attr = cudaFuncSetAttribute(ssd_fwd_tc<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)TcTiles<NB>::SMEM);
+  if (attr == cudaSuccess)
+    attr = cudaFuncSetAttribute(ssd_fwd_tc<NB>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  if (attr != cudaSuccess) return (int)attr;
+  ssd_fwd_tc<NB><<<dim3(p.P / p.pt, p.H, p.B), kTcThreads, TcTiles<NB>::SMEM, stream>>>(
+      tx, tb, tc, p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype (of x, b, c and y): 0 float32, 1 bfloat16.  All tensors contiguous.
-// Returns the CUDA error of the launch (0 on success), -1 for a dtype this
-// library was not built for, -2 for a shape the kernel does not take.
-extern "C" int ssd_scan_fwd(int dtype, const void* x, const void* dt, const void* a,
-                            const void* b, const void* c, void* y, void* state, int B, int S,
-                            int H, int P, int N, void* stream) {
+// dtype (of x, b, c and y): 0 float32, 1 bfloat16.  tensor_cores: 1 for the
+// tensor-core kernel (bfloat16, P and N multiples of 8), 0 for the FMA one.
+// All tensors contiguous and 16-byte aligned.  Returns the CUDA error of the
+// launch (0 on success), -1 for a dtype this library was not built for, -2
+// for a shape the chosen kernel does not take, or -1000 - CUresult for a
+// tensor map the driver refused.
+extern "C" int ssd_scan_fwd(int dtype, int tensor_cores, const void* x, const void* dt,
+                            const void* a, const void* b, const void* c, void* y, void* state,
+                            int B, int S, int H, int P, int N, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   if (B < 1 || S < 1 || H < 1 || B > 65535 || H > 65535 || N < 4 || N > kMaxN || N % 4 ||
       P < 4 || P % 4 || (P > kMaxPT && P % kMaxPT))
@@ -266,11 +674,20 @@ extern "C" int ssd_scan_fwd(int dtype, const void* x, const void* dt, const void
                  static_cast<float*>(state), B, S, H, P, N, P > kMaxPT ? kMaxPT : P};
   if (P / p.pt > 65535) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? launch<__nv_bfloat16>(p, st) : launch<float>(p, st);
+  if (tensor_cores) {
+    if (dtype != 1 || P % 8 || N % 8) return -2;
+    return N > 64 ? launch_tc<2>(p, st) : launch_tc<1>(p, st);
+  }
+  return dtype == 1 ? launch_fma<__nv_bfloat16>(p, st) : launch_fma<float>(p, st);
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {
+  static thread_local char msg[96];
   if (code == -1) return "dtype not built";
-  if (code == -2) return "shape outside the kernel's limits";
+  if (code == -2) return "shape outside the chosen kernel's limits";
+  if (code <= kTmaError) {
+    snprintf(msg, sizeof msg, "tensor map refused by the driver (CUresult %d)", kTmaError - code);
+    return msg;
+  }
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -1,7 +1,8 @@
 """ctypes binding of the hand-written CUDA SSD chunked scan
 (``csrc/ssd_scan.cu``), the Hopper counterpart of the JAX package's Pallas
-``_ssd_kernel``.  The library is built at first use; ``launches`` counts the
-launches since it was last set to 0."""
+``_ssd_kernel``.  The library holds two kernels, and ``route`` says which one
+a launch takes.  It is built at first use; ``launches`` counts the launches
+since it was last set to 0."""
 
 from __future__ import annotations
 
@@ -23,11 +24,19 @@ launches = 0
 _built: build.Built | None = None
 
 
+def route(dtype: torch.dtype, p: int, n: int) -> str:
+    """The kernel of the library a launch at head dim ``p`` and state size
+    ``n`` takes: "wgmma" (tensor cores, tiles by TMA) for bfloat16 with P and
+    N multiples of 8, whose rows TMA can address; "fma" (fp32 FMA units) for
+    float32 and for the other bfloat16 shapes."""
+    return "wgmma" if dtype == torch.bfloat16 and p % 8 == 0 and n % 8 == 0 else "fma"
+
+
 def bind(built: build.Built) -> build.Built:
     """Declare the C interface of a built library and keep it for launches."""
     global _built
     fn = built.lib.ssd_scan_fwd
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     built.lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     built.lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -51,9 +60,10 @@ def launch(x, dt, a, b, c, y, state) -> None:
     n = b.shape[-1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssd_scan_fwd(DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(),
-                              b.data_ptr(), c.data_ptr(), y.data_ptr(), state.data_ptr(),
-                              bs, s, h, p, n, stream)
+        rc = lib.ssd_scan_fwd(DTYPES[x.dtype], int(route(x.dtype, p, n) == "wgmma"),
+                              x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+                              c.data_ptr(), y.data_ptr(), state.data_ptr(), bs, s, h, p, n,
+                              stream)
     if rc != 0:
         msg = lib.ssd_scan_error_string(rc).decode()
         raise RuntimeError(f"ssd_scan kernel launch failed ({rc}): {msg}")

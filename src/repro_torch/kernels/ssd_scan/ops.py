@@ -4,9 +4,11 @@ On a CPU tensor ``ssd`` computes the plain PyTorch version (``ref.py``) in
 chunks of ``chunk`` rows.  On a CUDA tensor it launches the hand-written
 kernel (``csrc/ssd_scan.cu``), which takes chunks of its own size
 (``kernel.CHUNK``; the result does not depend on the chunk), or raises:
-there is no fallback.  Forward only; the backward (the JAX package's custom
-VJP recomputes through the sequential ``reference_ssd``) comes with the
-train path.
+there is no fallback.  The library dispatches by dtype (``kernel.route``):
+bfloat16 x/b/c run on the tensor cores with the fp32 factors split into two
+bf16 terms, float32 on the FMA units, both hand-written.  Forward only; the
+backward (the JAX package's custom VJP recomputes through the sequential
+``reference_ssd``) comes with the train path.
 """
 
 from __future__ import annotations

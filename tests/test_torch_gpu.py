@@ -49,6 +49,13 @@ SSD_SHAPES = [  # b, s, h, p, n, the plain version's chunk: the JAX sweep, ragge
     (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 128, 16),
     (2, 77, 3, 16, 32, 32), (1, 1, 2, 32, 16, 256),
     (1, 300, 64, 64, 128, 512), (2, 512, 64, 64, 128, 512),
+    # the edges of the bf16 kernel's tiles (64-row chunks, 32 columns of P,
+    # 64-column boxes of N), and a bf16 shape of the FMA route (P, N not
+    # multiples of 8)
+    *[(1, s, 4, 64, 128, 256) for s in (1, 63, 64, 65, 127, 128, 129, 1000)],
+    *[(2, 130, 4, p, 64, 64) for p in (8, 16, 32, 64)],
+    *[(2, 130, 4, 32, n, 64) for n in (16, 32, 64, 128)],
+    (4, 200, 8, 64, 128, 64), (2, 100, 3, 12, 20, 64),
 ]
 
 
@@ -192,6 +199,47 @@ def test_ssd_kernel_matches_plain_version(cuda, dtype):
         for yr, hr in wants:
             torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
             torch.testing.assert_close(hf, hr, atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s", [(1, 866), (1, 114), (4, 512)])
+def test_ssd_bf16_kernel_keeps_the_state_fp32_accurate(cuda, b, s):
+    """At mamba2-1.3b's widths the tensor-core route's final state is within
+    1e-4 of the fp32 plain version relative to its largest value (two bf16
+    terms per fp32 factor; one term would give about 2e-3)."""
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    x = torch.randn(b, s, 64, 64, generator=gen, device=cuda).bfloat16()
+    dt = torch.rand(b, s, 64, generator=gen, device=cuda) * 0.2 + 0.001
+    a = -(torch.rand(64, generator=gen, device=cuda) * 3.5 + 0.5)
+    bb, cc = (torch.randn(b, s, 128, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    assert ssd_kernel.route(x.dtype, 64, 128) == "wgmma"
+    _, hf = ssd_ops.ssd(x, dt, a, bb, cc)
+    _, hr = ssd_chunked(x, dt, a, bb, cc, 256)
+    assert ((hf - hr).abs().max() / hr.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_takes_zero_tiny_and_negative_dt(cuda, dtype):
+    """Both routes compute the plain version's function for any dt: rows of
+    dt = 0 (as past a ragged S), dt far below bf16's resolution, and dt < 0,
+    with finite results."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    b, s, h, p, n = 2, 200, 4, 64, 128
+    x = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
+    dt = torch.rand(b, s, h, generator=gen, device=cuda) * 0.2 + 0.001
+    dt[:, ::7] = 0.0
+    dt[:, 3::11] = 1e-30
+    dt[:, 5::13] = -0.01
+    a = -(torch.rand(h, generator=gen, device=cuda) * 3.5 + 0.5)
+    bb, cc = (torch.randn(b, s, n, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    assert ssd_kernel.route(dtype, p, n) == ("wgmma" if dtype == torch.bfloat16 else "fma")
+    y, hf = ssd_ops.ssd(x, dt, a, bb, cc)
+    yr, hr = ssd_chunked(x, dt, a, bb, cc, 64)
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(hf).all())
+    tol = 20 * TOL[dtype]
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(hf, hr, atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu

@@ -7,7 +7,10 @@ chunk divides S), against the sequential oracle alone; with an initial state
 against the JAX ``ssd_chunked``.  Inputs come from seeded numpy generators.
 
 The CUDA kernel itself cannot run without a card; ``chip_smoke.py`` and
-``tests/test_torch_gpu.py`` hold it against this plain version on one."""
+``tests/test_torch_gpu.py`` hold it against this plain version on one.  Its
+bf16 arithmetic (fp32 factors split into two bf16 terms for the tensor
+cores) is emulated here in PyTorch and held against the fp32 plain version
+at mamba2-1.3b's widths."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +20,7 @@ import torch
 from repro.kernels.ssd_scan.kernel import ssd_scan as jax_ssd_scan
 from repro.kernels.ssd_scan.ref import reference_ssd as jax_reference_ssd
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
-from repro_torch.kernels.ssd_scan import ops
+from repro_torch.kernels.ssd_scan import kernel, ops
 from repro_torch.kernels.ssd_scan.ref import reference_ssd, ssd_chunked
 
 TOL = {"float32": 20 * 2e-5, "bfloat16": 20 * 2e-2}
@@ -148,3 +151,69 @@ def test_wrapper_checks_reject_what_the_kernel_does_not_take():
         ops._check(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, b, c)
     with pytest.raises(ValueError):
         ops.ssd(*(t.to("meta") for t in mk()))
+
+
+def _terms(v, n):
+    """v as the kernel feeds it to bf16 tensor cores: hi = bf16(v) and, for
+    two terms, lo = bf16(v - hi); the terms' values in fp32."""
+    hi = v.to(torch.bfloat16).float()
+    return (hi,) if n == 1 else (hi, (v - hi).to(torch.bfloat16).float())
+
+
+def _tensor_core_ssd(x, dt, a, b, c, n_terms, chunk=64):
+    """The CUDA kernel's bf16 route, emulated: x, b, c hold bf16 values (in
+    fp32); each fp32 factor is folded into one operand of a product, which
+    goes in as ``n_terms`` bf16 terms, and the products sum in fp32 (as
+    wgmma's fp32 accumulators do).  C B^T takes its exact operands as they
+    are.  Returns y in fp32 (before its bf16 store) and the final state."""
+    bs, s, h, p = x.shape
+    xh, dth = x.permute(0, 2, 1, 3), dt.permute(0, 2, 1)  # [B,H,S,P], [B,H,S]
+    state = torch.zeros(bs, h, p, b.shape[-1])
+    ys = []
+    for t0 in range(0, s, chunk):
+        sl = slice(t0, min(t0 + chunk, s))
+        q = sl.stop - t0
+        d = dth[..., sl]  # [B,H,Q]
+        cum = torch.cumsum(d * a[None, :, None], -1)
+        bc, cc, xc = b[:, sl], c[:, sl], xh[:, :, sl]
+        mask = torch.ones(q, q, dtype=torch.bool).tril()
+        diff = torch.where(mask, cum[..., :, None] - cum[..., None, :], float("-inf"))
+        g = (cc @ bc.transpose(1, 2))[:, None] * torch.exp(diff) * d[..., None, :]
+        y = sum(t @ xc for t in _terms(g, n_terms))
+        y = y + torch.exp(cum)[..., None] * sum(cc[:, None] @ t.transpose(-1, -2)
+                                                for t in _terms(state, n_terms))
+        xw = xc * (torch.exp(cum[..., -1:] - cum) * d)[..., None]
+        state = torch.exp(cum[..., -1])[..., None, None] * state + sum(
+            t.transpose(-1, -2) @ bc[:, None] for t in _terms(xw, n_terms))
+        ys.append(y)
+    return torch.cat(ys, dim=2).permute(0, 2, 1, 3), state
+
+
+@pytest.mark.parametrize("s", [866, 512])
+def test_two_bf16_terms_keep_fp32_accuracy(s):
+    """The bf16 tensor-core route's arithmetic at mamba2-1.3b's widths (P 64,
+    N 128; 4 heads) and served lengths: with two terms, y and the final state
+    are within 1e-4 of the fp32 plain version, relative to their largest
+    value; with one term (plain bf16 operands) the state is not, and that
+    state is carried into every decode step."""
+    x, dt, a, b, c = (torch.from_numpy(v).float() for v in _inputs(1, s, 4, 64, 128, seed=s))
+    x, b, c = (t.bfloat16().float() for t in (x, b, c))  # the served dtype's values
+    y_ref, h_ref = ssd_chunked(x, dt, a, b, c, chunk=256)
+
+    def rel(got, want):
+        return ((got - want).abs().max() / want.abs().max()).item()
+
+    y2, h2 = _tensor_core_ssd(x, dt, a, b, c, n_terms=2)
+    assert rel(y2, y_ref) <= 1e-4 and rel(h2, h_ref) <= 1e-4
+    _, h1 = _tensor_core_ssd(x, dt, a, b, c, n_terms=1)
+    assert rel(h1, h_ref) > 1e-4
+
+
+def test_route_takes_tensor_cores_for_bf16_rows_tma_can_address():
+    """bfloat16 with P and N multiples of 8 (16-byte rows for TMA) takes the
+    tensor-core kernel; float32 and the other bfloat16 shapes the FMA one."""
+    assert kernel.route(torch.bfloat16, 64, 128) == "wgmma"
+    assert kernel.route(torch.bfloat16, 8, 16) == "wgmma"
+    assert kernel.route(torch.float32, 64, 128) == "fma"
+    assert kernel.route(torch.bfloat16, 12, 128) == "fma"
+    assert kernel.route(torch.bfloat16, 64, 20) == "fma"
