@@ -47,7 +47,20 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    layers, with the SSD kernel's part;
 5. card against CPU: each model cut to 2 layers in fp32, prefill and 8
    ragged decode steps on both; greedy tokens equal, logits within 1e-3;
-6. a JSON line of the kernels, and as the last line
+6. the train path: flash attention's dq, dk and dv (kernel forward,
+   recomputed plain backward) against autograd through the plain version on
+   the card, at the train shape, a windowed shape and in fp32; the grouped
+   matmul and the SSD scan refuse a call that needs a gradient; the kernel's
+   forward and the plain backward timed beside SDPA's forward and backward,
+   each with its bound; internlm2-1.8b at full width (bf16, random weights
+   from seed 0) trained 8 steps through ``Trainer`` on ``SyntheticLM``
+   batches (B 8, S 256, seed 0), with flash attention launched twice per
+   layer and step (forward and remat recompute), a finite loss that falls,
+   a finite non-zero gradient for every parameter, step wall, tokens/s, peak
+   memory and one profiled step; then the same model cut to 2 layers in fp32
+   trained 3 steps on the card and on the CPU, losses within 1e-4 relative
+   and params within 1e-4;
+7. a JSON line of the kernels, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
@@ -72,6 +85,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import reference_attention  # noqa: E402
@@ -83,7 +97,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine  # noqa: E402
+from repro_torch.runtime.trainer import Trainer, value_and_grads  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its operations over the peak of their type and its bytes over
@@ -109,6 +126,23 @@ MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
 MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
 N_SLOTS, NEW_TOKENS = 4, 32
 L2_BYTES = 50e6  # inputs of a timed call rotate through copies of at least 2.5x this
+# training: the launcher's batch, length and warmup rule, 8 steps.  Its
+# default lr of 3e-3 (the JAX launcher's, sized for REDUCED configs) makes
+# the full-width loss rise within 8 steps; at 1e-3 it falls (PERF.md
+# section 6)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 8, 1e-3
+# the card-vs-CPU train run: 2 layers of full width in fp32, at AdamW's
+# default lr.  An AdamW step moves an element by up to lr whatever its
+# gradient's size, so where a gradient is near 0 the rounding of the two
+# devices can flip its step: at 1e-3 the params drifted 1.1e-4 apart (104 of
+# 505 M elements over 1e-5) while the losses agreed within 1e-7 (PERF.md
+# section 6)
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS, TRAIN_CPU_LR = 2, 128, 3, 3e-4
+# relative on the losses and on each gradient leaf's largest value; max abs
+# on the params
+TRAIN_CPU_TOL = 1e-4
+# flash dq/dk/dv against autograd through the plain version
+FLASH_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
 def log(msg: str) -> None:
@@ -309,6 +343,11 @@ def main_shape(rows: int, bucket: int, arch: str = DENSE) -> Shape:
                  window=cfg.sliding_window)
 
 
+def train_shape(dtype=torch.bfloat16, b: int = TRAIN_BATCH, s: int = TRAIN_SEQ) -> Shape:
+    """The flash kernel's shape in internlm2-1.8b's train forward."""
+    return dataclasses.replace(main_shape(b, s), dtype=dtype)
+
+
 def expert_shapes(c: int, dtype=torch.bfloat16) -> list[GmmShape]:
     """granite's three grouped matmuls at capacity ``c``: gate and up share
     one shape, then down."""
@@ -325,13 +364,13 @@ def main_capacities() -> list[int]:
                   | {capacity(cfg, g * b) for g in MAIN_ROWS for b in MAIN_BUCKETS})
 
 
-def _check(name: str, shape, out, ref, tol: float) -> float:
+def _check(name: str, shape, out, ref, tol: float, phase: int = 2) -> float:
     """``out`` against ``ref`` (a tensor each, or tuples of them)."""
     pairs = list(zip(out, ref)) if isinstance(out, tuple) else [(out, ref)]
     errs = [(o.float() - r.float()).abs() for o, r in pairs]
     ok = all(bool((e <= tol + tol * r.float().abs()).all()) for e, (_, r) in zip(errs, pairs))
     err = max(e.max().item() for e in errs)
-    log(f"phase 2 check {name} {shape}: max_abs_err {err:.3e} "
+    log(f"phase {phase} check {name} {shape}: max_abs_err {err:.3e} "
         f"(tol {tol:g} abs + rel) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version at {shape}")
@@ -343,6 +382,7 @@ def phase_check_flash() -> tuple[float, set[Shape]]:
     main-path shapes and the main-path shapes checked."""
     main = [main_shape(b, s, arch) for arch in (DENSE, MOE)
             for b in MAIN_ROWS for s in MAIN_BUCKETS]
+    main += [train_shape(), train_shape(torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)]
     other = [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
              Shape(1, 1000, 16, 8, 128, torch.bfloat16), Shape(2, 1000, 16, 8, 128, torch.float32),
              Shape(2, 77, 16, 8, 64, torch.float32)]
@@ -617,7 +657,7 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     t0 = time.perf_counter()
     params = model.load(model.init(torch.Generator(device="cuda").manual_seed(0)))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"phase 4 init: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
         f"{cfg.compute_dtype} on {model.device} in {time.perf_counter() - t0:.1f} s")
 
@@ -804,17 +844,6 @@ def phase_prefill_profile(seq: int = 866, reps: int = 3) -> None:
     torch.cuda.empty_cache()
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _greedy_run(model, params, toks, lens, capacity, steps):
     """Prefill right-padded prompts in one batch -- or, for a stack with SSM
     layers, whose state would run through the padding, each row alone at its
@@ -866,6 +895,251 @@ def phase_card_vs_cpu(arch: str, steps: int = 8) -> None:
         raise SystemExit("card and CPU disagree")
 
 
+def _flash_grads(shape: Shape, q, k, v, cot, plain: bool):
+    """dq, dk, dv of ``sum(attention(q, k, v) * cot)``: through the port's
+    autograd function (kernel forward, recomputed plain backward), or with
+    ``plain`` through autograd of the plain version."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    attend = reference_attention if plain else fa_ops.flash_attention
+    out = attend(*leaves, causal=shape.causal, window=shape.window)
+    return torch.autograd.grad(out, leaves, cot)
+
+
+def phase_check_flash_grads() -> None:
+    """Flash attention's gradients on the card against autograd through the
+    plain version: the train shape, a windowed shape (window < S) and fp32."""
+    shapes = [train_shape(), Shape(2, 512, 16, 8, 128, torch.bfloat16, window=128),
+              train_shape(torch.float32)]
+    for shape in shapes:
+        q, k, v = shape.inputs(seed=3)
+        cot = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(4),
+                          device="cuda").to(shape.dtype)
+        before = fa_kernel.launches
+        got = _flash_grads(shape, q, k, v, cot, plain=False)
+        want = _flash_grads(shape, q, k, v, cot, plain=True)
+        torch.cuda.synchronize()
+        if fa_kernel.launches != before + 1 or any(g.dtype != shape.dtype for g in got):
+            raise SystemExit(f"flash_attention backward at {shape}: {fa_kernel.launches - before} "
+                             f"launches, dtypes {[g.dtype for g in got]}")
+        _check("flash_attention dq/dk/dv", shape, tuple(got), tuple(want),
+               FLASH_GRAD_TOL[shape.dtype], phase=6)
+
+
+def phase_check_grad_guards() -> None:
+    """The grouped matmul (and the expert FFN over it) and the SSD scan have
+    no backward on the card yet: a call that needs a gradient must raise, not
+    return an output without one; without grad they run."""
+    gx, gw = GmmShape(8, 64, 256, 128, torch.bfloat16).inputs()
+    sargs = list(SsdShape(1, 128, 4, 64, 128, torch.bfloat16).inputs())
+    ffn = {n: torch.randn(8, 256, 256, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+           for n in ("w_gate", "w_up", "w_down")}
+    calls = {"moe_gmm gmm": lambda: gmm_ops.gmm(gx.requires_grad_(), gw),
+             "moe_gmm expert_ffn": lambda: gmm_ops.expert_ffn(ffn, gx.detach()),
+             "ssd_scan ssd": lambda: ssd_ops.ssd(sargs[0].requires_grad_(), *sargs[1:])}
+    before = _launches()
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            log(f"phase 6 check {name} under grad on the card: raises NotImplementedError "
+                f"({str(e)[:60]}...) ok")
+        else:
+            raise SystemExit(f"{name} returned an output without a gradient under grad")
+    with torch.no_grad():
+        gmm_ops.gmm(gx, gw), ssd_ops.ssd(*sargs)
+    if _launches()["moe_gmm"] != before["moe_gmm"] + 1 or \
+            _launches()["ssd_scan"] != before["ssd_scan"] + 1:
+        raise SystemExit("the guarded kernels launched under grad, or not without it")
+
+
+def phase_time_flash_backward() -> None:
+    """At the train shape: the kernel's forward beside SDPA's, and the port's
+    backward (the plain version recomputed and differentiated) beside
+    SDPA's backward, each with its bound.  The backward's bound counts five
+    products over the attended pairs (the scores again, dV, dP, dQ, dK) and
+    q, k, v, dO read and dq, dk, dv written once."""
+    shape = train_shape()
+    q, k, v = (t.detach().requires_grad_() for t in shape.inputs(seed=1))
+    cot = torch.randn(q.shape, device="cuda", dtype=shape.dtype)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                  enable_gqa=True)
+    fwd = lambda: fa_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    with torch.no_grad():
+        ms, lib_ms = cuda_ms(fwd, iters=20), cuda_ms(sdpa, iters=20)
+    out, out_s = fwd(), sdpa()
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), cot, retain_graph=True),
+                     iters=10)
+    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out_s, (q, k, v), cot.transpose(1, 2),
+                                                     retain_graph=True), iters=10)
+    bound_ms, bound_by = shape.bound()
+    elem = 2 if shape.dtype == torch.bfloat16 else 4
+    t_ops = 10.0 * shape.b * shape.h * shape.d * shape.attended_pairs() / PEAK_OPS[shape.dtype]
+    t_bytes = shape.b * shape.s * shape.d * (3 * shape.h + 4 * shape.kv) * elem / PEAK_BYTES
+    bwd_bound = max(t_ops, t_bytes) * 1e3
+    log(f"phase 6 time flash_attention {shape} forward: kernel {ms:.4f} ms, library (sdpa) "
+        f"{lib_ms:.4f} ms, kernel/library {ms / lib_ms:.2f}, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"phase 6 time flash_attention {shape} backward: plain (recompute + autograd) "
+        f"{bwd_ms:.4f} ms, library (sdpa backward) {lib_bwd_ms:.4f} ms, plain/library "
+        f"{bwd_ms / lib_bwd_ms:.2f}, bound {bwd_bound:.4f} ms "
+        f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+
+
+KERNEL_CLASSES = (("flash_attention", ("flash_fwd",)), ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+                  ("elementwise", ("elementwise",)), ("reduction", ("reduce",)))
+
+
+def _kernel_class(name: str) -> str:
+    low = name.lower()
+    return next((c for c, keys in KERNEL_CLASSES if any(k in low for k in keys)), "other")
+
+
+def profile_train_step(model, params, opt, opt_cfg, batch) -> str:
+    """One train step under torch.profiler, as ``Trainer.step`` runs it
+    (``value_and_grads``, then ``adamw_update``), with CUDA events around the
+    update: the step's wall, its device busy time and share, the device time
+    by kernel class and the update's span on the device."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        grads, _ = value_and_grads(model, params, batch)
+        start.record()
+        adamw_update(params, grads, opt, opt_cfg)
+        end.record()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms == 0:
+        return "the profiler saw no device time (not measured)"
+    by_class = {}
+    for e in events:
+        c = _kernel_class(e.key)
+        by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    return (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% "
+            f"(idle {100 - 100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} kernels; "
+            f"adamw_update spans {start.elapsed_time(end):.1f} ms on the device; device ms by "
+            "kernel: " + ", ".join(f"{c} {ms:.1f}" for c, ms in
+                                   sorted(by_class.items(), key=lambda kv: -kv[1])))
+
+
+def _train_opt(steps: int, lr: float) -> AdamWConfig:
+    """The train launcher's optimizer for a run of ``steps`` steps."""
+    return AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
+
+
+def phase_train(flash_checked: set[Shape]) -> dict:
+    """internlm2-1.8b at full width trained ``TRAIN_STEPS`` steps through
+    ``Trainer``; returns the launches the run made by kernel.  Fails unless
+    flash attention ran twice per attention layer and step (forward and
+    remat recompute) at a shape phase 2 checked, the loss is finite and
+    falls, and every parameter gets a finite, non-zero gradient."""
+    cfg = get_config(DENSE)
+    model = build_model(cfg)
+    trainer = Trainer(model, _train_opt(TRAIN_STEPS, TRAIN_LR))
+    t0 = time.perf_counter()
+    params, opt = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"phase 6 init: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params (fp32 "
+        f"master, {cfg.compute_dtype} compute) on {model.device} in {time.perf_counter() - t0:.1f} s")
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batches = [pipe.global_batch_arrays(i) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.reset_peak_memory_stats()
+    for mod in KERNELS.values():
+        mod.launches = 0
+    walls, losses, gnorms = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = trainer.step(params, opt, batches[i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = _launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    want = {"flash_attention": 2 * layer_kinds(cfg)[0] * TRAIN_STEPS, "moe_gmm": 0, "ssd_scan": 0}
+    if launches != want:
+        raise SystemExit(f"{cfg.name} training: launches {launches}, want {want}")
+    if train_shape() not in flash_checked:
+        raise SystemExit(f"training launched flash_attention at {train_shape()}, unchecked")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise SystemExit(f"{cfg.name} training: loss not finite or not falling: {losses}")
+    grads, _ = value_and_grads(model, params, batches[0])
+    leaves = tree_leaves(grads)
+    bad = sum(not (bool(torch.isfinite(g).all()) and bool((g != 0).any())) for g in leaves)
+    if bad:
+        raise SystemExit(f"{bad} of {len(leaves)} parameter leaves got a zero or non-finite "
+                         "gradient")
+    del grads, leaves
+    median = float(np.median(walls))
+    log(f"phase 6 train {cfg.name} full width, B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} steps: "
+        f"loss " + " ".join(f"{x:.4f}" for x in losses) + " (finite, falling) ok; gnorm "
+        + " ".join(f"{x:.3f}" for x in gnorms))
+    log(f"phase 6 train {cfg.name}: step wall median {1e3 * median:.1f} ms (min "
+        f"{1e3 * min(walls):.1f}, max {1e3 * max(walls):.1f}; host clock, ends in a sync), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / median:.0f} tokens/s, max_memory_allocated {peak_gb:.2f} GiB; "
+        f"launches {launches} ({launches['flash_attention'] // TRAIN_STEPS} flash per step); "
+        f"every one of the {len(tree_leaves(params))} parameter leaves has a finite, non-zero "
+        f"gradient ok")
+    log(f"phase 6 train {cfg.name} step profile: "
+        + profile_train_step(model, params, opt, trainer.opt_cfg, batches[TRAIN_STEPS]))
+    del params, opt, trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_card_vs_cpu() -> None:
+    """internlm2-1.8b cut to 2 layers of full width, in fp32, from the same
+    params on the card and on the CPU: the gradients of the first batch, each
+    leaf within 1e-4 of its largest value; then ``TRAIN_CPU_STEPS`` Trainer
+    steps on the same batches, losses within 1e-4 relative and params within
+    1e-4."""
+    cfg = dataclasses.replace(get_config(DENSE), n_layers=2, compute_dtype="float32")
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ, global_batch=TRAIN_CPU_BATCH,
+                       seed=0)
+    batches = [pipe.global_batch_arrays(i) for i in range(TRAIN_CPU_STEPS)]
+    init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        trainer = Trainer(model, _train_opt(TRAIN_STEPS, TRAIN_CPU_LR))
+        params = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(), init)
+        opt = adamw_init(params, trainer.opt_cfg)
+        before = fa_kernel.launches
+        t0 = time.perf_counter()
+        grads = [g.cpu() for g in tree_leaves(value_and_grads(model, params, batches[0])[0])]
+        losses = []
+        for batch in batches:
+            params, opt, m = trainer.step(params, opt, batch)
+            losses.append(float(m["loss"]))
+        runs[dev] = (grads, losses, [t.detach().cpu() for t in tree_leaves(params)],
+                     fa_kernel.launches - before, time.perf_counter() - t0)
+    (g_gpu, l_gpu, p_gpu, n_gpu, s_gpu), (g_cpu, l_cpu, p_cpu, n_cpu, s_cpu) = \
+        runs["cuda"], runs["cpu"]
+    g_rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(g_gpu, g_cpu))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    gaps = [(a - b).abs() for a, b in zip(p_gpu, p_cpu)]
+    p_gap = max(g.max().item() for g in gaps)
+    over = sum(int((g > 1e-5).sum()) for g in gaps)
+    want_launches = 2 * layer_kinds(cfg)[0] * (TRAIN_CPU_STEPS + 1)  # + the gradient pass
+    ok = (g_rel <= TRAIN_CPU_TOL and loss_rel <= TRAIN_CPU_TOL and p_gap <= TRAIN_CPU_TOL
+          and n_gpu == want_launches)
+    log(f"phase 6 train card vs cpu ({cfg.name} 2 layers fp32, B{TRAIN_CPU_BATCH} "
+        f"S{TRAIN_CPU_SEQ}, lr {TRAIN_CPU_LR:g}): gradients of batch 0 within {g_rel:.3e} of "
+        f"each leaf's largest value; {TRAIN_CPU_STEPS} steps, losses card "
+        + " ".join(f"{x:.6f}" for x in l_gpu) + " cpu " + " ".join(f"{x:.6f}" for x in l_cpu)
+        + f", max loss gap {loss_rel:.3e} relative, max param gap {p_gap:.3e} ({over} of "
+        f"{sum(g.numel() for g in gaps)} elements over 1e-5); bound {TRAIN_CPU_TOL:g}; card "
+        f"flash launches {n_gpu}, cpu {n_cpu}; {s_gpu:.1f} s card, {s_cpu:.1f} s cpu "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("training on the card and on the CPU disagree")
+
+
 def _kernel_entry(name, mod, launches, err, rep) -> dict:
     return {
         "name": name,
@@ -898,6 +1172,11 @@ def main() -> int:
     phase_prefill_profile()
     for arch in ARCHS:
         phase_card_vs_cpu(arch)
+    phase_check_flash_grads()
+    phase_check_grad_guards()
+    phase_time_flash_backward()
+    paths["train"] = phase_train(fa_checked)
+    phase_train_card_vs_cpu()
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)
     gmm_rep = next(r for r in gmm_rows if r["shape"] == str(expert_shapes(decode_c)[0]))

@@ -14,14 +14,9 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .tree import tree_map
 
 __all__ = ["from_jax_params", "to_jax_params"]
-
-
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _period(cfg: ModelConfig, n_pattern: int) -> tuple[int, int]:
@@ -40,7 +35,7 @@ def from_jax_params(cfg: ModelConfig, tree: dict) -> dict:
     for i in range(cfg.n_layers):
         rep, j = divmod(i, p)
         block = tree["decoder"][j]
-        layers.append(_map(lambda a: to_t(np.asarray(a)[rep] if r > 1 else a), block))
+        layers.append(tree_map(lambda a: to_t(np.asarray(a)[rep] if r > 1 else a), block))
     out = {k: to_t(v) for k, v in tree.items() if k != "decoder"}
     out["layers"] = layers
     return out
@@ -55,15 +50,9 @@ def to_jax_params(cfg: ModelConfig, params: dict) -> dict:
     for j in range(p):
         rows = [params["layers"][rep * p + j] for rep in range(r)]
         if r > 1:
-            pattern.append(_map_many(lambda *ts: np.stack([to_np(t) for t in ts]), rows))
+            pattern.append(tree_map(lambda *ts: np.stack([to_np(t) for t in ts]), *rows))
         else:
-            pattern.append(_map(to_np, rows[0]))
+            pattern.append(tree_map(to_np, rows[0]))
     out = {k: to_np(v) for k, v in params.items() if k != "layers"}
     out["decoder"] = tuple(pattern)
     return out
-
-
-def _map_many(fn, trees):
-    if isinstance(trees[0], dict):
-        return {k: _map_many(fn, [t[k] for t in trees]) for k in trees[0]}
-    return fn(*trees)

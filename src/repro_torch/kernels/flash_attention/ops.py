@@ -1,9 +1,13 @@
-"""Public flash attention wrapper.
+"""Public flash attention wrapper, differentiable.
 
-On a CPU tensor it computes the plain PyTorch version (``ref.py``).  On a
-CUDA tensor it launches the hand-written kernel (``csrc/flash_attention.cu``)
-or raises: there is no fallback.  Forward only; the backward kernel is later
-work, as it is in the JAX package.
+The counterpart of the JAX package's ``_flash_attention`` custom VJP
+(``kernels/flash_attention/ops.py``).  The forward runs the hand-written
+kernel (``csrc/flash_attention.cu``) on a CUDA tensor, or raises: there is no
+fallback; on a CPU tensor it computes the plain PyTorch version
+(``ref.py``).  It saves q, k and v.  The backward recomputes the plain
+version from them and differentiates it, as the JAX package's backward does
+through its ``reference_attention``: the dense S x S scores are built at
+grad time, in fp32.  A backward kernel is later work, there as here.
 """
 
 from __future__ import annotations
@@ -41,6 +45,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name} rows must be 16-byte aligned (strides {t.stride()})")
 
 
+def _forward(q, k, v, causal: bool, window: int) -> torch.Tensor:
+    if q.device.type == "cpu":
+        return reference_attention(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
+    _check(q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    kernel.launch(q, k, v, out, causal=causal, window=window, scale=q.shape[-1] ** -0.5)
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return _forward(q, k, v, causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = reference_attention(*leaves, causal=ctx.causal, window=ctx.window)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, S, H, D]
     k: torch.Tensor,  # [B, Skv, KV, D]
@@ -50,12 +82,6 @@ def flash_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """Causal / sliding-window GQA attention, scale ``D ** -0.5``; output
-    [B, S, H, D] in ``q.dtype``.  ``window <= 0`` means no window."""
-    if q.device.type == "cpu":
-        return reference_attention(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda, not {q.device}")
-    _check(q, k, v)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    kernel.launch(q, k, v, out, causal=causal, window=window, scale=q.shape[-1] ** -0.5)
-    return out
+    [B, S, H, D] in ``q.dtype``.  ``window <= 0`` means no window.
+    Differentiable in q, k and v; dq, dk and dv come back in their dtypes."""
+    return _FlashAttention.apply(q, k, v, causal, window)

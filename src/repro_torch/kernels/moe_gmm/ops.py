@@ -2,9 +2,11 @@
 
 On a CPU tensor they compute the plain PyTorch version (``ref.py``).  On a
 CUDA tensor ``gmm`` launches the hand-written kernel (``csrc/moe_gmm.cu``)
-or raises: there is no fallback.  Forward only; the backward (two grouped
-matmuls through the same kernel, as in the JAX package's custom VJP) comes
-with the train path.
+or raises: there is no fallback.  Forward only on the card: there a call
+that would need a gradient raises ``NotImplementedError``, since the
+kernel's output would carry none (the backward, two grouped matmuls
+through the same kernel as in the JAX package's custom VJP, is ROADMAP B3).
+The CPU path stays the differentiable plain version.
 """
 
 from __future__ import annotations
@@ -49,6 +51,10 @@ def gmm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return reference_grouped_matmul(x, w)
     if x.device.type != "cuda":
         raise ValueError(f"gmm runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise NotImplementedError(
+            "gmm has no backward on the card yet (ROADMAP B3): call it under "
+            "torch.no_grad(), or on CPU tensors for the differentiable plain version")
     _check(x, w)
     out = torch.empty((x.shape[0], x.shape[1], w.shape[2]), dtype=x.dtype, device=x.device)
     kernel.launch(x, w, out)

@@ -6,9 +6,12 @@ kernel (``csrc/ssd_scan.cu``), which takes chunks of its own size
 (``kernel.CHUNK``; the result does not depend on the chunk), or raises:
 there is no fallback.  The library dispatches by dtype (``kernel.route``):
 bfloat16 x/b/c run on the tensor cores with the fp32 factors split into two
-bf16 terms, float32 on the FMA units, both hand-written.  Forward only; the
-backward (the JAX package's custom VJP recomputes through the sequential
-``reference_ssd``) comes with the train path.
+bf16 terms, float32 on the FMA units, both hand-written.  Forward only on
+the card: there a call that would need a gradient raises
+``NotImplementedError``, since the kernel's outputs would carry none (the
+backward, which the JAX package's custom VJP recomputes through the
+sequential ``reference_ssd``, is ROADMAP B4).  The CPU path stays the
+differentiable plain version.
 """
 
 from __future__ import annotations
@@ -59,6 +62,10 @@ def ssd(x, dt, a, b, c, *, chunk: int = 256):
         return ssd_chunked(x, dt, a, b, c, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
+        raise NotImplementedError(
+            "ssd has no backward on the card yet (ROADMAP B4): call it under "
+            "torch.no_grad(), or on CPU tensors for the differentiable plain version")
     _check(x, dt, a, b, c)
     bs, _, h, p = x.shape
     y = torch.empty_like(x)

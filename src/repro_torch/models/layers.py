@@ -23,6 +23,7 @@ __all__ = [
     "swiglu",
     "mlp_init",
     "mlp_apply",
+    "cross_entropy_loss",
 ]
 
 
@@ -90,3 +91,17 @@ def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     dt = x.dtype
     h = swiglu(x @ params["w_gate"].to(dt), x @ params["w_up"].to(dt))
     return h @ params["w_down"].to(dt)
+
+
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       mask: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy over the positions ``mask`` keeps, in
+    fp32: logsumexp minus the gold logit, masked, over ``max(mask.sum(), 1)``.
+    The gold logit is gathered; the JAX package contracts a one-hot instead
+    (for vocab-sharded logits), which gives the same value in fp32 and would
+    cost another [B, S, V] tensor here."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)

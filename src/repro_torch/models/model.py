@@ -19,7 +19,9 @@ casts the fp32 weights on every call (``.astype(compute)``) and gets the
 same values, so the served numbers do not change.  1-D leaves (norm scales,
 biases, the SSM's ``a_log``/``dt_bias``/``d_skip``) stay in fp32: the
 reference reads them in fp32, or casts them itself.  The engines load their
-params this way.
+params this way.  ``train_loss`` takes the fp32 master params as ``init``
+makes them and casts on every call, as the reference does, so that the
+gradients reach the fp32 leaves.
 
 Encoder-decoder, multimodal frontends, MLA and hybrid attention/SSM stacks
 wait for later slices and raise ``NotImplementedError``.
@@ -31,9 +33,10 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..tree import tree_map
 from . import transformer as tf
 from .attention import cache_length
-from .layers import dense_init, embed_init, rms_norm, zeros_init
+from .layers import cross_entropy_loss, dense_init, embed_init, rms_norm, zeros_init
 
 __all__ = ["Model", "build_model"]
 
@@ -42,18 +45,11 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 class Model:
-    """Entry points of the served model: ``init``, ``load``, ``init_cache``,
-    ``prefill``, ``mask_prompt_cache``, ``prepare_decode_caches`` and
-    ``decode_step``.  Runs on ``device`` (``cuda`` unless asked otherwise)."""
+    """Entry points of the model: ``init``, ``load``, ``train_loss``,
+    ``init_cache``, ``prefill``, ``mask_prompt_cache``,
+    ``prepare_decode_caches`` and ``decode_step``.  Runs on ``device``
+    (``cuda`` unless asked otherwise)."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
         unsupported = [
@@ -95,12 +91,44 @@ class Model:
         """Params on the model's device, matrices in the compute dtype -- the
         one cast of the weights -- and 1-D leaves in fp32.  Tensors already in
         place are returned as they are."""
-        return _map(lambda t: t.to(device=self.device, dtype=self.compute_dtype if t.dim() > 1
+        return tree_map(lambda t: t.to(device=self.device, dtype=self.compute_dtype if t.dim() > 1
                                    else torch.float32), params)
 
     # ---------------- caches ----------------
     def init_cache(self, batch: int, seq_len: int) -> dict:
         return tf.init_stack_cache(self.cfg, batch, seq_len, self.compute_dtype, self.device)
+
+    # ---------------- training ----------------
+    def train_loss(self, params: dict, batch: dict):
+        """Mean next-token cross entropy of ``batch`` (``tokens`` and
+        ``targets`` [B, S], an optional ``mask`` [B, S]; tensors or numpy
+        arrays) under the fp32 master ``params``; returns (loss,
+        {"loss", "aux_loss"}).  Dense stacks only: an MoE stack needs the
+        grouped matmul's backward and its load-balancing loss (ROADMAP B3),
+        an SSM stack the SSD scan's backward (ROADMAP B4)."""
+        cfg = self.cfg
+        if any(cfg.layer_is_moe(i) for i in range(cfg.n_layers)):
+            raise NotImplementedError(
+                f"{cfg.name}: MoE training is not ported yet (ROADMAP B3: the grouped "
+                "matmul's backward and the MoE load-balancing loss)")
+        if not all(cfg.layer_is_attention(i) for i in range(cfg.n_layers)):
+            raise NotImplementedError(
+                f"{cfg.name}: SSM training is not ported yet (ROADMAP B4: the SSD scan's "
+                "backward)")
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        targets = torch.as_tensor(batch["targets"], device=self.device)
+        b, s = tokens.shape
+        # rows gathered, then cast: the values of the reference's cast-then-gather
+        x = params["embed"][tokens].to(self.compute_dtype)
+        positions = torch.arange(s, device=self.device).expand(b, s)
+        x, _ = tf.stack_apply(params["layers"], x, cfg, positions=positions)
+        logits = self._logits(params, x)
+        mask = torch.ones((b, s), dtype=torch.float32, device=self.device)
+        if "mask" in batch:
+            mask = mask * torch.as_tensor(batch["mask"], device=self.device)
+        loss = cross_entropy_loss(logits, targets, mask)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return loss, {"loss": loss, "aux_loss": aux}
 
     # ---------------- serving ----------------
     def _logits(self, params, x):

@@ -11,7 +11,11 @@ load-balancing loss is dropped: the stack serves, and the reference's
 prefill and decode drop it too.  The JAX stack scans over scan-stacked
 parameters; here the layers are a Python list (one param dict per layer)
 run in a loop.  There is no mesh, so the sharding constraints of the JAX
-stack have no counterpart.
+stack have no counterpart.  In training (grad mode on, no cache, no
+``update_cache``) each block runs under ``torch.utils.checkpoint`` when
+``cfg.remat`` is set, the counterpart of the JAX stack's ``jax.checkpoint``
+over the scanned block: its activations are recomputed in the backward
+pass, so attention's forward runs twice a layer per step.
 
 Cache layout, which the serving pool indexes: one flat dict whose every
 leaf has batch on dim 1, each kind stacked over the layers of that kind
@@ -25,6 +29,7 @@ within its kind, so decode writes into the stacked tensors in place.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn_mod
@@ -114,7 +119,12 @@ def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positi
     its slice in place and the same dict comes back; with ``update_cache``
     (prefill) the new entries of every layer are stacked into a new dict."""
     emitted = {"attn": [], "ssm": []}
+    remat = cfg.remat and torch.is_grad_enabled() and caches is None and not update_cache
     for i, (layer, (kind, k)) in enumerate(zip(layers, _kind_index(cfg))):
+        if remat:
+            x = checkpoint(block_apply, layer, x, cfg, i, positions=positions,
+                           use_reentrant=False)[0]
+            continue
         layer_cache = None if caches is None else {n: caches[n][k] for n in CACHE_KEYS[kind]}
         x, nc = block_apply(layer, x, cfg, i, positions=positions, cache=layer_cache,
                             update_cache=update_cache, ragged=ragged)

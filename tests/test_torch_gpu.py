@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels.flash_attention import kernel, ops
 from repro_torch.kernels.flash_attention.ref import reference_attention
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
@@ -20,6 +21,9 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ref import reference_ssd, ssd_chunked
 from repro_torch.models import build_model
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.runtime.trainer import Trainer
+from repro_torch.tree import tree_leaves, tree_map
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 SHAPES = [  # b, s, h, kv, d, causal, window
@@ -80,6 +84,75 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype):
         assert kernel.launches == before + 1
         ref = reference_attention(q, k, v, causal=causal, window=window)
         torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (2, 256, 16, 8, 128, True, 0)),
+                                         (torch.float32, (1, 200, 4, 2, 64, True, 64))])
+def test_flash_gradients_on_card_match_cpu(cuda, dtype, shape):
+    """dq, dk and dv through the kernel's forward and the recomputed plain
+    backward on the card against the same on the CPU, in q's dtypes."""
+    b, s, h, kv, d, causal, window = shape
+    rng = np.random.default_rng(3)
+    host = [torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32)).to(dtype)
+            for n in (h, kv, kv)]
+    cot = torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32)).to(dtype)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_() for t in host]
+        before = kernel.launches
+        out = ops.flash_attention(*leaves, causal=causal, window=window)
+        grads[str(dev)] = torch.autograd.grad(out, leaves, cot.to(dev))
+        assert kernel.launches == before + (dev == cuda)
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert g_card.dtype == dtype
+        torch.testing.assert_close(g_card.cpu().float(), g_cpu.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_gmm_and_ssd_refuse_gradients_on_card(cuda):
+    """No backward kernel yet (ROADMAP B3, B4): a call that would need a
+    gradient raises rather than returning an output without one."""
+    x = torch.randn(4, 16, 64, device=cuda, requires_grad=True)
+    w = torch.randn(4, 64, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match="B3"):
+        gmm_ops.gmm(x, w)
+    ffn = {n: torch.randn(4, 64, 64, device=cuda, requires_grad=True)
+           for n in ("w_gate", "w_up", "w_down")}
+    with pytest.raises(NotImplementedError, match="B3"):
+        gmm_ops.expert_ffn(ffn, x.detach())
+    sx, dt, a, sb, sc = (torch.randn(1, 64, 2, 16, device=cuda, requires_grad=True),
+                         torch.rand(1, 64, 2, device=cuda) * 0.1 + 0.01,
+                         -torch.rand(2, device=cuda) - 0.5,
+                         torch.randn(1, 64, 16, device=cuda), torch.randn(1, 64, 16, device=cuda))
+    with pytest.raises(NotImplementedError, match="B4"):
+        ssd_ops.ssd(sx, dt, a, sb, sc)
+    with torch.no_grad():  # forward only: the kernels run
+        assert gmm_ops.gmm(x, w).shape == (4, 16, 32)
+        assert ssd_ops.ssd(sx, dt, a, sb, sc)[0].shape == sx.shape
+
+
+@pytest.mark.gpu
+def test_train_steps_on_card_match_cpu(cuda):
+    """fp32 REDUCED internlm2, two Trainer steps from the same params on the
+    card (flash kernel forward) and on the CPU: losses within 1e-4."""
+    cfg = dataclasses.replace(get_config("internlm2-1.8b", reduced=True), compute_dtype="float32")
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", cuda):
+        trainer = Trainer(build_model(cfg, device=dev), AdamWConfig(lr=1e-3, warmup_steps=2))
+        params = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(), init)
+        opt = adamw_init(params, trainer.opt_cfg)
+        before = kernel.launches
+        losses[str(dev)] = []
+        for i in range(2):
+            params, opt, m = trainer.step(params, opt, pipe.global_batch_arrays(i))
+            losses[str(dev)].append(float(m["loss"]))
+        assert kernel.launches - before == (4 * cfg.n_layers if dev == cuda else 0)
+        assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
 @pytest.mark.gpu

@@ -16,7 +16,7 @@ import torch
 import repro_torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import get_config
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -29,7 +29,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "repro_torch.runtime.serving" in mods and "repro_torch.launch.serve" in mods
+    assert {"repro_torch.runtime.serving", "repro_torch.launch.serve",
+            "repro_torch.launch.train", "repro_torch.optim.adamw",
+            "repro_torch.runtime.trainer", "repro_torch.data.pipeline"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -74,5 +76,8 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         build_model(cfg, device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1"])
+    train.main(["--reduced", "--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "8"])
     assert resolve_device("cpu").type == "cpu"
     assert build_model(cfg, device="cpu").device.type == "cpu"
