@@ -13,24 +13,29 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    internlm2-1.8b at head_dim 128, granite-moe-1b-a400m at head_dim 64) and
    of h2o-danube-1.8b, at a ragged length, and at the edges of the bf16
    kernel's tiles (S of 1, 127, 129 and 1025, windows below one tile, GQA
-   groups of 1 to 8, every head dim, q/k/v as views of a fused buffer).  The
-   grouped matmul at the shapes of the JAX package's sweep, at ragged
-   capacities around its tiles (1 to 2560), on strided views, and at every
-   granite expert shape of the served runs (gate/up and down at each
-   capacity C), in fp32 and bf16.  The SSD scan at the shapes of the JAX
+   groups of 1 to 8, every head dim, q/k/v as views of a fused buffer), and
+   at the train shapes of internlm2-1.8b and granite-moe-1b-a400m.  The
+   grouped matmul, its forward and both backward products (dx = g w^T and
+   dw = x^T g, the transposed operand read in place), at the shapes of the
+   JAX package's sweep, at ragged capacities around its tiles (1 to 2560),
+   on strided views, at every granite expert shape of the served runs
+   (gate/up and down at each capacity C; forward) and of the train runs (C
+   640 in bf16, C 80 in fp32; all three), in fp32 and bf16.  The SSD scan at the shapes of the JAX
    package's sweep, at ragged S, at the edges of the bf16 kernel's tiles (S
    of 1 to 1000 around 64 and 128, P of 8 to 64, N of 16 to 128, a batch of
    4, and a bf16 shape of its FMA route) and at every mamba2-1.3b shape of
    the served runs (one prompt at each of its exact lengths, and the 4 x 512
    batch), in fp32 and bf16, with the errors of y and of the final state
    apart; at the served bf16 shapes the state must also be within 1e-4 of
-   the plain version relative to its largest value.  Phase 4 fails if it
-   launched a kernel at a shape this phase did not check;
+   the plain version relative to its largest value.  Phases 4 and 6 fail if
+   they launched a kernel at a shape this phase did not check;
 3. kernel times at the main-path shapes beside the plain version, one
    library call the port never calls (``scaled_dot_product_attention``,
-   ``torch.bmm``; no single PyTorch call computes the SSD scan), the
-   kernel-to-library ratio and the least time the card could take (bound);
-   the SSD scan at all nine served mamba2 shapes;
+   ``torch.bmm``, on the same transposed views for the backward products;
+   no single PyTorch call computes the SSD scan), the kernel-to-library
+   ratio and the least time the card could take (bound); the grouped
+   matmul's dx and dw at granite's train shapes; the SSD scan at all nine
+   served mamba2 shapes;
 4. the three main paths at full width (random weights from a seed, bf16),
    each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
@@ -50,16 +55,22 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 6. the train path: flash attention's dq, dk and dv (kernel forward,
    recomputed plain backward) against autograd through the plain version on
    the card, at the train shape, a windowed shape and in fp32; the grouped
-   matmul and the SSD scan refuse a call that needs a gradient; the kernel's
-   forward and the plain backward timed beside SDPA's forward and backward,
-   each with its bound; internlm2-1.8b at full width (bf16, random weights
-   from seed 0) trained 8 steps through ``Trainer`` on ``SyntheticLM``
-   batches (B 8, S 256, seed 0), with flash attention launched twice per
-   layer and step (forward and remat recompute), a finite loss that falls,
-   a finite non-zero gradient for every parameter, step wall, tokens/s, peak
-   memory and one profiled step; then the same model cut to 2 layers in fp32
-   trained 3 steps on the card and on the CPU, losses within 1e-4 relative
-   and params within 1e-4;
+   matmul's and the expert FFN's gradients (every product through the
+   kernel, the transposed operands read in place) against autograd through
+   the plain versions, in bf16 and fp32; the SSD scan refuses a call that
+   needs a gradient; flash's forward and the plain backward timed beside
+   SDPA's forward and backward, each with its bound; then internlm2-1.8b and
+   granite-moe-1b-a400m at full width (bf16 compute, fp32 master weights,
+   random weights from seed 0) each trained 8 steps through ``Trainer`` on
+   ``SyntheticLM`` batches (B 8, S 256, seed 0): flash attention launched
+   twice per attention layer and step (forward and remat recompute), the
+   grouped matmul 12 times per MoE layer and step (3 forward, 3 recompute, 3
+   dx and 3 dw), a finite loss that falls, the MoE load-balancing loss, a
+   finite non-zero gradient for every parameter, step wall, tokens/s, peak
+   memory and one profiled step; for granite two gradient passes of one
+   batch that are bit-identical; then each model cut to 2 layers in fp32
+   trained 3 steps on the card and on the CPU, gradients within 1e-4 of each
+   leaf's largest value, losses within 1e-4 relative and params within 1e-4;
 7. a JSON line of the kernels, and as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -91,7 +102,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import reference_attention  # noqa: E402
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
-from repro_torch.kernels.moe_gmm.ref import reference_grouped_matmul  # noqa: E402
+from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
+    reference_expert_ffn, reference_grouped_matmul)
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
@@ -143,6 +155,11 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS, TRAIN_CPU_LR = 2, 128, 3, 3e-4
 TRAIN_CPU_TOL = 1e-4
 # flash dq/dk/dv against autograd through the plain version
 FLASH_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the expert FFN's gradients against autograd through its plain version: the
+# JAX package's 2e-3 in fp32 (tests/test_kernels.py), the grouped matmul's
+# bf16 tolerance in bf16 (the two round silu(gate) * up to bf16 alike)
+FFN_GRAD_TOL = {torch.bfloat16: GMM_TOL[torch.bfloat16], torch.float32: 2e-3}
+GMM_LAYOUTS = ("fwd", "dx", "dw")  # a layer's forward product and its two backward ones
 
 
 def log(msg: str) -> None:
@@ -225,19 +242,26 @@ class Shape:
 
 @dataclasses.dataclass(frozen=True)
 class GmmShape:
-    """A grouped matmul call: x [E, C, D] x w [E, D, F]; ``strided`` takes x
-    and w as views of larger buffers (rows, columns and experts at other
-    strides, starting off the buffers' first element)."""
+    """A grouped matmul call of a layer whose forward is x [E, C, D] x w [E,
+    D, F]: that forward (``layout`` "fwd"), or one of its backward products
+    with g [E, C, F]: "dx" is g w^T [E, C, D], "dw" is x^T g [E, D, F], the
+    transposed operand a view of the stored tensor, as the autograd function
+    passes it.  ``strided`` stores x, w and g as views of larger buffers
+    (rows, columns and experts at other strides, starting off the buffers'
+    first element).  Each layout does 2 E C D F operations and moves the
+    same three tensors (two read, one written)."""
     e: int
     c: int
     d: int
     f: int
     dtype: torch.dtype
     strided: bool = False
+    layout: str = "fwd"
 
     def __str__(self):
         return (f"{_dt(self.dtype)} E{self.e} C{self.c} D{self.d} F{self.f}"
-                + (" strided" if self.strided else ""))
+                + (" strided" if self.strided else "")
+                + ("" if self.layout == "fwd" else f" {self.layout}"))
 
     def nbytes(self) -> int:
         elem = 2 if self.dtype == torch.bfloat16 else 4
@@ -245,14 +269,20 @@ class GmmShape:
                 + self.e * self.c * self.f) * elem
 
     def inputs(self, seed: int = 0):
+        """The call's two operands, in the order ``gmm`` takes them."""
         gen = torch.Generator(device="cuda").manual_seed(seed)
         pad = 3 if self.strided else 0  # rows, and 8 x as many columns, around each view
-        x = torch.randn(self.e + pad, self.c + 2 * pad, self.d + 16 * pad, generator=gen,
-                        device="cuda").to(self.dtype)[pad:, pad:pad + self.c, 8 * pad:8 * pad + self.d]
-        w = torch.randn(self.e + pad, self.d + pad, self.f + 16 * pad, generator=gen,
-                        device="cuda") / self.d**0.5
-        w = w.to(self.dtype)[pad:, pad:pad + self.d, 8 * pad:8 * pad + self.f]
-        return x, w
+
+        def stored(rows, cols, scale=1.0):
+            t = torch.randn(self.e + pad, rows + 2 * pad, cols + 16 * pad, generator=gen,
+                            device="cuda") * scale
+            return t.to(self.dtype)[pad:, pad:pad + rows, 8 * pad:8 * pad + cols]
+
+        if self.layout == "fwd":
+            return stored(self.c, self.d), stored(self.d, self.f, self.d**-0.5)
+        if self.layout == "dx":
+            return stored(self.c, self.f), stored(self.d, self.f, self.d**-0.5).transpose(1, 2)
+        return stored(self.c, self.d).transpose(1, 2), stored(self.c, self.f)
 
     def bound(self) -> tuple[float, str]:
         ops = 2.0 * self.e * self.c * self.d * self.f
@@ -343,9 +373,10 @@ def main_shape(rows: int, bucket: int, arch: str = DENSE) -> Shape:
                  window=cfg.sliding_window)
 
 
-def train_shape(dtype=torch.bfloat16, b: int = TRAIN_BATCH, s: int = TRAIN_SEQ) -> Shape:
-    """The flash kernel's shape in internlm2-1.8b's train forward."""
-    return dataclasses.replace(main_shape(b, s), dtype=dtype)
+def train_shape(dtype=torch.bfloat16, b: int = TRAIN_BATCH, s: int = TRAIN_SEQ,
+                arch: str = DENSE) -> Shape:
+    """The flash kernel's shape in ``arch``'s train forward."""
+    return dataclasses.replace(main_shape(b, s, arch), dtype=dtype)
 
 
 def expert_shapes(c: int, dtype=torch.bfloat16) -> list[GmmShape]:
@@ -354,6 +385,15 @@ def expert_shapes(c: int, dtype=torch.bfloat16) -> list[GmmShape]:
     cfg = get_config(MOE)
     e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert_ff
     return [GmmShape(e, c, d, f, dtype), GmmShape(e, c, f, d, dtype)]
+
+
+def train_gmm_shapes(dtype=torch.bfloat16, b: int = TRAIN_BATCH,
+                     s: int = TRAIN_SEQ) -> list[GmmShape]:
+    """Every grouped matmul of a granite train step on b x s tokens: each
+    expert shape's forward, dx and dw (C = 640 at B 8 S 256)."""
+    c = capacity(get_config(MOE), b * s)
+    return [dataclasses.replace(sh, layout=lay) for sh in expert_shapes(c, dtype)
+            for lay in GMM_LAYOUTS]
 
 
 def main_capacities() -> list[int]:
@@ -382,7 +422,9 @@ def phase_check_flash() -> tuple[float, set[Shape]]:
     main-path shapes and the main-path shapes checked."""
     main = [main_shape(b, s, arch) for arch in (DENSE, MOE)
             for b in MAIN_ROWS for s in MAIN_BUCKETS]
-    main += [train_shape(), train_shape(torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)]
+    main += [train_shape(dt, b, s, arch) for arch in (DENSE, MOE)
+             for dt, b, s in ((torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ),
+                              (torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))]
     other = [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
              Shape(1, 1000, 16, 8, 128, torch.bfloat16), Shape(2, 1000, 16, 8, 128, torch.float32),
              Shape(2, 77, 16, 8, 64, torch.float32)]
@@ -423,9 +465,11 @@ def sweep_of(dt):
 
 
 def phase_check_gmm() -> tuple[float, set[GmmShape]]:
-    """Grouped matmul against its plain version; returns the max error at
-    the main-path (granite bf16) shapes and every shape checked."""
-    main = [s for c in main_capacities() for s in expert_shapes(c)]
+    """Grouped matmul against its plain version, its forward and both
+    backward products (the sweep, ragged C and strided views in every
+    layout); returns the max error at the main-path (granite bf16) shapes
+    and every shape checked."""
+    main = [s for c in main_capacities() for s in expert_shapes(c)] + train_gmm_shapes()
     checked = set()
     main_err = 0.0
     for dt in (torch.float32, torch.bfloat16):
@@ -437,7 +481,11 @@ def phase_check_gmm() -> tuple[float, set[GmmShape]]:
             + [GmmShape(32, 8, 1024, 512, dt, strided=True),
                GmmShape(32, 200, 512, 1024, dt, strided=True)]
         granite = [s for c in main_capacities() for s in expert_shapes(c, dt)]
-        for shape in sweep + ragged + strided + granite:
+        backward = [dataclasses.replace(s, layout=lay) for s in sweep + ragged + strided
+                    for lay in GMM_LAYOUTS[1:]]
+        train = (train_gmm_shapes() if dt == torch.bfloat16
+                 else train_gmm_shapes(dt, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))
+        for shape in dict.fromkeys(sweep + ragged + strided + granite + backward + train):
             x, w = shape.inputs()
             out = gmm_ops.gmm(x, w)
             torch.cuda.synchronize()
@@ -494,11 +542,14 @@ def _rotating(fn, sets):
 
 
 def phase_time_gmm() -> list[dict]:
-    """The grouped matmul at granite's shapes.  Each timed call reads inputs
-    that the previous calls did not (copies rotate through at least 2.5x the
-    50 MB L2), as in serving, where 72 calls a step stream 2.4 GB of weights."""
+    """The grouped matmul at granite's served shapes, and its dx and dw at
+    the train shapes (C 640; the library call ``torch.bmm`` on the same
+    transposed views).  Each timed call reads inputs that the previous calls
+    did not (copies rotate through at least 2.5x the 50 MB L2), as in
+    serving, where 72 calls a step stream 2.4 GB of weights."""
     rows = []
     shapes = [s for c in main_capacities() for s in expert_shapes(c)]
+    shapes += [s for s in train_gmm_shapes() if s.layout != "fwd"]
     shapes += expert_shapes(capacity(get_config(MOE), 2 * 128), torch.float32)[:1]
     for shape in shapes:
         n_sets = max(1, min(8, math.ceil(2.5 * L2_BYTES / shape.nbytes())))
@@ -925,31 +976,80 @@ def phase_check_flash_grads() -> None:
                FLASH_GRAD_TOL[shape.dtype], phase=6)
 
 
-def phase_check_grad_guards() -> None:
-    """The grouped matmul (and the expert FFN over it) and the SSD scan have
-    no backward on the card yet: a call that needs a gradient must raise, not
-    return an output without one; without grad they run."""
-    gx, gw = GmmShape(8, 64, 256, 128, torch.bfloat16).inputs()
+def _grads(fn, inputs, cot):
+    """Gradients of ``sum(fn(*inputs) * cot)`` with respect to every input."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, cot)
+
+
+def _ffn(params_fn):
+    """An expert FFN as a function of (buckets, w_gate, w_up, w_down)."""
+    return lambda bk, wg, wu, wd: params_fn({"w_gate": wg, "w_up": wu, "w_down": wd}, bk)
+
+
+def phase_check_gmm_grads() -> None:
+    """The grouped matmul's and the expert FFN's gradients on the card, every
+    product through the kernel, against autograd through their plain versions
+    on the same inputs: at granite's train shapes in bf16 (C 640) and its
+    card-vs-CPU ones in fp32 (C 80).  The backward's launches must get the
+    transposed operands as they are, views of the stored tensors (dx's w^T,
+    dw's x^T), never contiguous copies."""
+    seen = []  # (a contiguous, b contiguous) of every launch
+    launch = gmm_kernel.launch
+    gmm_kernel.launch = lambda a, b, out: seen.append(
+        (a.is_contiguous(), b.is_contiguous())) or launch(a, b, out)
+    try:
+        for dt, b, s in ((torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ),
+                         (torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)):
+            gen = torch.Generator(device="cuda").manual_seed(6)
+            for shape in expert_shapes(capacity(get_config(MOE), b * s), dt):
+                x, w = shape.inputs(seed=5)
+                cot = torch.randn(shape.e, shape.c, shape.f, generator=gen, device="cuda").to(dt)
+                seen.clear()
+                got = _grads(gmm_ops.gmm, (x, w), cot)
+                torch.cuda.synchronize()
+                if seen != [(True, True), (True, False), (False, True)]:
+                    raise SystemExit(f"gmm at {shape}: launches (a, b contiguous) {seen}, want "
+                                     "the forward, then dx with w^T and dw with x^T in place")
+                want = _grads(reference_grouped_matmul, (x, w), cot)
+                _check("moe_gmm gmm dx/dw", f"{shape} (3 launches, transposes in place)",
+                       tuple(got), tuple(want), GMM_TOL[dt], phase=6)
+            up = expert_shapes(capacity(get_config(MOE), b * s), dt)[0]
+            e, c, d, f = up.e, up.c, up.d, up.f
+            ffn_inputs = [torch.randn(e, c, d, generator=gen, device="cuda").to(dt)] + [
+                (torch.randn(e, i, o, generator=gen, device="cuda") * i**-0.5).to(dt)
+                for i, o in ((d, f), (d, f), (f, d))]
+            cot = torch.randn(e, c, d, generator=gen, device="cuda").to(dt)
+            seen.clear()
+            got = _grads(_ffn(gmm_ops.expert_ffn), ffn_inputs, cot)
+            torch.cuda.synchronize()
+            if len(seen) != 9:
+                raise SystemExit(f"expert_ffn launched the kernel {len(seen)} times, want 9")
+            want = _grads(_ffn(reference_expert_ffn), ffn_inputs, cot)
+            _check("moe_gmm expert_ffn d(buckets, w_gate, w_up, w_down)",
+                   f"{_dt(dt)} E{e} C{c} D{d} F{f} (9 launches)", tuple(got), tuple(want),
+                   FFN_GRAD_TOL[dt], phase=6)
+    finally:
+        gmm_kernel.launch = launch
+
+
+def phase_check_ssd_guard() -> None:
+    """The SSD scan has no backward on the card yet (ROADMAP B4): a call that
+    needs a gradient must raise, not return an output without one; without
+    grad it runs."""
     sargs = list(SsdShape(1, 128, 4, 64, 128, torch.bfloat16).inputs())
-    ffn = {n: torch.randn(8, 256, 256, device="cuda", dtype=torch.bfloat16, requires_grad=True)
-           for n in ("w_gate", "w_up", "w_down")}
-    calls = {"moe_gmm gmm": lambda: gmm_ops.gmm(gx.requires_grad_(), gw),
-             "moe_gmm expert_ffn": lambda: gmm_ops.expert_ffn(ffn, gx.detach()),
-             "ssd_scan ssd": lambda: ssd_ops.ssd(sargs[0].requires_grad_(), *sargs[1:])}
-    before = _launches()
-    for name, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as e:
-            log(f"phase 6 check {name} under grad on the card: raises NotImplementedError "
-                f"({str(e)[:60]}...) ok")
-        else:
-            raise SystemExit(f"{name} returned an output without a gradient under grad")
+    before = ssd_kernel.launches
+    try:
+        ssd_ops.ssd(sargs[0].requires_grad_(), *sargs[1:])
+    except NotImplementedError as e:
+        log(f"phase 6 check ssd_scan ssd under grad on the card: raises NotImplementedError "
+            f"({str(e)[:60]}...) ok")
+    else:
+        raise SystemExit("ssd returned an output without a gradient under grad")
     with torch.no_grad():
-        gmm_ops.gmm(gx, gw), ssd_ops.ssd(*sargs)
-    if _launches()["moe_gmm"] != before["moe_gmm"] + 1 or \
-            _launches()["ssd_scan"] != before["ssd_scan"] + 1:
-        raise SystemExit("the guarded kernels launched under grad, or not without it")
+        ssd_ops.ssd(*sargs)
+    if ssd_kernel.launches != before + 1:
+        raise SystemExit("the guarded SSD kernel launched under grad, or not without it")
 
 
 def phase_time_flash_backward() -> None:
@@ -985,7 +1085,8 @@ def phase_time_flash_backward() -> None:
         f"({'operations' if t_ops >= t_bytes else 'bytes'})")
 
 
-KERNEL_CLASSES = (("flash_attention", ("flash_fwd",)), ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
+KERNEL_CLASSES = (("flash_attention", ("flash_fwd",)), ("moe_gmm", ("gmm_bf16", "gmm_f32")),
+                  ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
                   ("elementwise", ("elementwise",)), ("reduction", ("reduce",)))
 
 
@@ -1019,11 +1120,14 @@ def profile_train_step(model, params, opt, opt_cfg, batch) -> str:
     for e in events:
         c = _kernel_class(e.key)
         by_class[c] = by_class.get(c, 0.0) + e.self_device_time_total / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     return (f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms = {100 * busy_ms / wall_ms:.1f}% "
             f"(idle {100 - 100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in events)} kernels; "
             f"adamw_update spans {start.elapsed_time(end):.1f} ms on the device; device ms by "
-            "kernel: " + ", ".join(f"{c} {ms:.1f}" for c, ms in
-                                   sorted(by_class.items(), key=lambda kv: -kv[1])))
+            "kernel: " + ", ".join(f"{c} {ms:.1f} ({100 * ms / busy_ms:.1f}%)" for c, ms in
+                                   sorted(by_class.items(), key=lambda kv: -kv[1]))
+            + "; top kernels: " + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.1f} ms "
+                                            f"x{e.count}" for e in top))
 
 
 def _train_opt(steps: int, lr: float) -> AdamWConfig:
@@ -1031,13 +1135,26 @@ def _train_opt(steps: int, lr: float) -> AdamWConfig:
     return AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5), total_steps=steps)
 
 
-def phase_train(flash_checked: set[Shape]) -> dict:
-    """internlm2-1.8b at full width trained ``TRAIN_STEPS`` steps through
+def train_launches(cfg, passes: int) -> dict:
+    """Launches of ``passes`` gradient passes (one per train step): with
+    remat, flash attention twice per attention layer (forward and
+    recompute); the grouped matmul 12 times per MoE layer (three products
+    forward, three recomputed, and the dx and dw of each)."""
+    n_attn, n_moe, _ = layer_kinds(cfg)
+    fwd = 2 if cfg.remat else 1
+    return {"flash_attention": fwd * n_attn * passes, "moe_gmm": (3 * fwd + 6) * n_moe * passes,
+            "ssd_scan": 0}
+
+
+def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]) -> dict:
+    """``arch`` at full width trained ``TRAIN_STEPS`` steps through
     ``Trainer``; returns the launches the run made by kernel.  Fails unless
-    flash attention ran twice per attention layer and step (forward and
-    remat recompute) at a shape phase 2 checked, the loss is finite and
-    falls, and every parameter gets a finite, non-zero gradient."""
-    cfg = get_config(DENSE)
+    every kernel ran as often as ``train_launches`` says, at shapes phase 2
+    checked, the loss is finite and falls, and every parameter gets a
+    finite, non-zero gradient; for an MoE model also unless its
+    load-balancing loss is finite and positive and two gradient passes of
+    one batch are bit-identical."""
+    cfg = get_config(arch)
     model = build_model(cfg)
     trainer = Trainer(model, _train_opt(TRAIN_STEPS, TRAIN_LR))
     t0 = time.perf_counter()
@@ -1048,6 +1165,11 @@ def phase_train(flash_checked: set[Shape]) -> dict:
         f"master, {cfg.compute_dtype} compute) on {model.device} in {time.perf_counter() - t0:.1f} s")
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
     batches = [pipe.global_batch_arrays(i) for i in range(TRAIN_STEPS + 1)]
+    moe = layer_kinds(cfg)[1] > 0
+    if moe:
+        with torch.no_grad():
+            aux0 = float(model.train_loss(params, batches[0])[1]["aux_loss"])
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for mod in KERNELS.values():
         mod.launches = 0
@@ -1061,30 +1183,49 @@ def phase_train(flash_checked: set[Shape]) -> dict:
         gnorms.append(float(m["grad_norm"]))
     launches = _launches()
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    want = {"flash_attention": 2 * layer_kinds(cfg)[0] * TRAIN_STEPS, "moe_gmm": 0, "ssd_scan": 0}
+    want = train_launches(cfg, TRAIN_STEPS)
     if launches != want:
         raise SystemExit(f"{cfg.name} training: launches {launches}, want {want}")
-    if train_shape() not in flash_checked:
-        raise SystemExit(f"training launched flash_attention at {train_shape()}, unchecked")
+    if train_shape(arch=arch) not in flash_checked:
+        raise SystemExit(f"training launched flash_attention at {train_shape(arch=arch)}, "
+                         "unchecked")
+    if moe and not set(train_gmm_shapes()) <= gmm_checked:
+        raise SystemExit("training launched moe_gmm at shapes phase 2 did not check: "
+                         + ", ".join(map(str, set(train_gmm_shapes()) - gmm_checked)))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"{cfg.name} training: loss not finite or not falling: {losses}")
     grads, _ = value_and_grads(model, params, batches[0])
-    leaves = tree_leaves(grads)
-    bad = sum(not (bool(torch.isfinite(g).all()) and bool((g != 0).any())) for g in leaves)
+    n_leaves = len(tree_leaves(grads))
+    bad = sum(not (bool(torch.isfinite(g).all()) and bool((g != 0).any()))
+              for g in tree_leaves(grads))
     if bad:
-        raise SystemExit(f"{bad} of {len(leaves)} parameter leaves got a zero or non-finite "
+        raise SystemExit(f"{bad} of {n_leaves} parameter leaves got a zero or non-finite "
                          "gradient")
-    del grads, leaves
     median = float(np.median(walls))
     log(f"phase 6 train {cfg.name} full width, B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} steps: "
         f"loss " + " ".join(f"{x:.4f}" for x in losses) + " (finite, falling) ok; gnorm "
         + " ".join(f"{x:.3f}" for x in gnorms))
+    if moe:
+        # the same batch again: the backward's gathers and products must
+        # repeat bit for bit (models/moe.py)
+        again, _ = value_and_grads(model, params, batches[0])
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(again)))
+        del again
+        with torch.no_grad():
+            aux = float(model.train_loss(params, batches[0])[1]["aux_loss"])
+        log(f"phase 6 train {cfg.name}: load-balancing loss (summed over {layer_kinds(cfg)[1]} "
+            f"MoE layers, batch 0) {aux0:.6f} at init, {aux:.6f} after {TRAIN_STEPS} steps; two "
+            f"gradient passes of batch 0 {'bit-identical' if same else 'DIFFER'} "
+            f"{'ok' if same and math.isfinite(aux) and aux > 0 else 'FAIL'}")
+        if not (same and math.isfinite(aux) and aux > 0):
+            raise SystemExit(f"{cfg.name}: gradients not deterministic, or a bad aux loss {aux}")
+    del grads
+    per_step = {k: n // TRAIN_STEPS for k, n in launches.items() if n}
     log(f"phase 6 train {cfg.name}: step wall median {1e3 * median:.1f} ms (min "
         f"{1e3 * min(walls):.1f}, max {1e3 * max(walls):.1f}; host clock, ends in a sync), "
         f"{TRAIN_BATCH * TRAIN_SEQ / median:.0f} tokens/s, max_memory_allocated {peak_gb:.2f} GiB; "
-        f"launches {launches} ({launches['flash_attention'] // TRAIN_STEPS} flash per step); "
-        f"every one of the {len(tree_leaves(params))} parameter leaves has a finite, non-zero "
-        f"gradient ok")
+        f"launches {launches} ({per_step} per step); every one of the {n_leaves} parameter "
+        f"leaves has a finite, non-zero gradient ok")
     log(f"phase 6 train {cfg.name} step profile: "
         + profile_train_step(model, params, opt, trainer.opt_cfg, batches[TRAIN_STEPS]))
     del params, opt, trainer, model
@@ -1092,13 +1233,13 @@ def phase_train(flash_checked: set[Shape]) -> dict:
     return launches
 
 
-def phase_train_card_vs_cpu() -> None:
-    """internlm2-1.8b cut to 2 layers of full width, in fp32, from the same
-    params on the card and on the CPU: the gradients of the first batch, each
-    leaf within 1e-4 of its largest value; then ``TRAIN_CPU_STEPS`` Trainer
-    steps on the same batches, losses within 1e-4 relative and params within
+def phase_train_card_vs_cpu(arch: str) -> None:
+    """``arch`` cut to 2 layers of full width, in fp32, from the same params
+    on the card and on the CPU: the gradients of the first batch, each leaf
+    within 1e-4 of its largest value; then ``TRAIN_CPU_STEPS`` Trainer steps
+    on the same batches, losses within 1e-4 relative and params within
     1e-4."""
-    cfg = dataclasses.replace(get_config(DENSE), n_layers=2, compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32")
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ, global_batch=TRAIN_CPU_BATCH,
                        seed=0)
     batches = [pipe.global_batch_arrays(i) for i in range(TRAIN_CPU_STEPS)]
@@ -1109,15 +1250,16 @@ def phase_train_card_vs_cpu() -> None:
         trainer = Trainer(model, _train_opt(TRAIN_STEPS, TRAIN_CPU_LR))
         params = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(), init)
         opt = adamw_init(params, trainer.opt_cfg)
-        before = fa_kernel.launches
+        before = _launches()
         t0 = time.perf_counter()
         grads = [g.cpu() for g in tree_leaves(value_and_grads(model, params, batches[0])[0])]
         losses = []
         for batch in batches:
             params, opt, m = trainer.step(params, opt, batch)
             losses.append(float(m["loss"]))
-        runs[dev] = (grads, losses, [t.detach().cpu() for t in tree_leaves(params)],
-                     fa_kernel.launches - before, time.perf_counter() - t0)
+        made = {k: n - before[k] for k, n in _launches().items()}
+        runs[dev] = (grads, losses, [t.detach().cpu() for t in tree_leaves(params)], made,
+                     time.perf_counter() - t0)
     (g_gpu, l_gpu, p_gpu, n_gpu, s_gpu), (g_cpu, l_cpu, p_cpu, n_cpu, s_cpu) = \
         runs["cuda"], runs["cpu"]
     g_rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(g_gpu, g_cpu))
@@ -1125,7 +1267,7 @@ def phase_train_card_vs_cpu() -> None:
     gaps = [(a - b).abs() for a, b in zip(p_gpu, p_cpu)]
     p_gap = max(g.max().item() for g in gaps)
     over = sum(int((g > 1e-5).sum()) for g in gaps)
-    want_launches = 2 * layer_kinds(cfg)[0] * (TRAIN_CPU_STEPS + 1)  # + the gradient pass
+    want_launches = train_launches(cfg, TRAIN_CPU_STEPS + 1)  # + the gradient pass
     ok = (g_rel <= TRAIN_CPU_TOL and loss_rel <= TRAIN_CPU_TOL and p_gap <= TRAIN_CPU_TOL
           and n_gpu == want_launches)
     log(f"phase 6 train card vs cpu ({cfg.name} 2 layers fp32, B{TRAIN_CPU_BATCH} "
@@ -1134,8 +1276,8 @@ def phase_train_card_vs_cpu() -> None:
         + " ".join(f"{x:.6f}" for x in l_gpu) + " cpu " + " ".join(f"{x:.6f}" for x in l_cpu)
         + f", max loss gap {loss_rel:.3e} relative, max param gap {p_gap:.3e} ({over} of "
         f"{sum(g.numel() for g in gaps)} elements over 1e-5); bound {TRAIN_CPU_TOL:g}; card "
-        f"flash launches {n_gpu}, cpu {n_cpu}; {s_gpu:.1f} s card, {s_cpu:.1f} s cpu "
-        f"{'ok' if ok else 'FAIL'}")
+        f"launches {n_gpu} (want {want_launches}), cpu {n_cpu}; {s_gpu:.1f} s card, "
+        f"{s_cpu:.1f} s cpu {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("training on the card and on the CPU disagree")
 
@@ -1173,10 +1315,13 @@ def main() -> int:
     for arch in ARCHS:
         phase_card_vs_cpu(arch)
     phase_check_flash_grads()
-    phase_check_grad_guards()
+    phase_check_gmm_grads()
+    phase_check_ssd_guard()
     phase_time_flash_backward()
-    paths["train"] = phase_train(fa_checked)
-    phase_train_card_vs_cpu()
+    for arch in (DENSE, MOE):
+        paths[f"train {arch}"] = phase_train(arch, fa_checked, gmm_checked)
+    for arch in (DENSE, MOE):
+        phase_train_card_vs_cpu(arch)
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)
     gmm_rep = next(r for r in gmm_rows if r["shape"] == str(expert_shapes(decode_c)[0]))

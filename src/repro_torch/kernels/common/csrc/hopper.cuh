@@ -426,9 +426,15 @@ inline EncodeTiled encode_tiled_fn() {
 // A bf16 tensor map of ``rank`` dims (innermost first, the innermost
 // contiguous), ``strides`` in elements for dims 1.., boxes of ``box`` with
 // the 128-byte swizzle (box[0] * 2 <= 128); coordinates out of bounds read
-// zeros.
+// zeros.  The encoder needs a context current on the calling thread, which
+// a thread that has launched nothing yet lacks (PyTorch runs a backward
+// pass on a thread of its own), so the current device's is made current
+// first.
 inline int encode_bf16(CUtensorMap* map, const void* base, int rank, const long long* dims,
                        const long long* strides, const int* box) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess)
+    return (int)CUDA_ERROR_INVALID_CONTEXT;
   const EncodeTiled fn = encode_tiled_fn();
   if (fn == nullptr) return (int)CUDA_ERROR_NOT_FOUND;
   cuuint64_t gdim[5], gstride[4];

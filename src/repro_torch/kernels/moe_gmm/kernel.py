@@ -1,7 +1,8 @@
 """ctypes binding of the hand-written CUDA grouped expert matmul
 (``csrc/moe_gmm.cu``), the Hopper counterpart of the JAX package's Pallas
-``_gmm_kernel``.  The library is built at first use; ``launches`` counts the
-launches since it was last set to 0."""
+``_gmm_kernel``: the forward product and both backward ones, each operand
+read through its strides.  The library is built at first use; ``launches``
+counts the launches since it was last set to 0."""
 
 from __future__ import annotations
 
@@ -23,9 +24,9 @@ _built: build.Built | None = None
 def bind(built: build.Built) -> build.Built:
     """Declare the C interface of a built library and keep it for launches."""
     global _built
-    fn = built.lib.moe_gmm_fwd
+    fn = built.lib.moe_gmm
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 6
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 8
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -40,19 +41,20 @@ def load() -> build.Built:
     return _built if _built is not None else bind(build.build("moe_gmm", SOURCE))
 
 
-def launch(x, w, out) -> None:
-    """Launch the kernel on the current stream: x [E, C, D], w [E, D, F],
-    out [E, C, F], all on one CUDA device and already checked by
-    ``ops.gmm``.  Raises if the launch is refused."""
+def launch(a, b, out) -> None:
+    """Launch the kernel on the current stream: out [E, M, N] = a [E, M, K]
+    @ b [E, K, N], all on one CUDA device and already checked by ``ops``
+    (of each operand's last two dims one is contiguous; out is contiguous in
+    N).  Raises if the launch is refused."""
     global launches
     lib = load().lib
-    e, c, d = x.shape
-    f = w.shape[2]
-    strides = [t.stride(i) for t in (x, w, out) for i in (0, 1)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.moe_gmm_fwd(DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                             *strides, e, c, d, f, stream)
+    e, m, k = a.shape
+    n = b.shape[2]
+    strides = [*a.stride(), *b.stride(), out.stride(0), out.stride(1)]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.moe_gmm(DTYPES[a.dtype], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                         *strides, e, m, k, n, stream)
     if rc != 0:
         msg = lib.moe_gmm_error_string(rc).decode()
         raise RuntimeError(f"moe_gmm kernel launch failed ({rc}): {msg}")

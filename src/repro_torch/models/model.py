@@ -103,14 +103,13 @@ class Model:
         """Mean next-token cross entropy of ``batch`` (``tokens`` and
         ``targets`` [B, S], an optional ``mask`` [B, S]; tensors or numpy
         arrays) under the fp32 master ``params``; returns (loss,
-        {"loss", "aux_loss"}).  Dense stacks only: an MoE stack needs the
-        grouped matmul's backward and its load-balancing loss (ROADMAP B3),
-        an SSM stack the SSD scan's backward (ROADMAP B4)."""
+        {"loss", "aux_loss"}).  ``aux_loss`` is the MoE layers'
+        load-balancing loss summed over the layers (0 without them); for an
+        MoE config the returned loss adds ``0.01 * aux_loss`` to the cross
+        entropy, which ``metrics["loss"]`` holds alone, as in the reference.
+        Dense and MoE stacks: an SSM stack needs the SSD scan's backward
+        (ROADMAP B4)."""
         cfg = self.cfg
-        if any(cfg.layer_is_moe(i) for i in range(cfg.n_layers)):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE training is not ported yet (ROADMAP B3: the grouped "
-                "matmul's backward and the MoE load-balancing loss)")
         if not all(cfg.layer_is_attention(i) for i in range(cfg.n_layers)):
             raise NotImplementedError(
                 f"{cfg.name}: SSM training is not ported yet (ROADMAP B4: the SSD scan's "
@@ -121,14 +120,16 @@ class Model:
         # rows gathered, then cast: the values of the reference's cast-then-gather
         x = params["embed"][tokens].to(self.compute_dtype)
         positions = torch.arange(s, device=self.device).expand(b, s)
-        x, _ = tf.stack_apply(params["layers"], x, cfg, positions=positions)
+        x, _, aux = tf.stack_apply(params["layers"], x, cfg, positions=positions)
         logits = self._logits(params, x)
         mask = torch.ones((b, s), dtype=torch.float32, device=self.device)
         if "mask" in batch:
             mask = mask * torch.as_tensor(batch["mask"], device=self.device)
         loss = cross_entropy_loss(logits, targets, mask)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        return loss, {"loss": loss, "aux_loss": aux}
+        metrics = {"loss": loss, "aux_loss": aux}
+        if cfg.moe is not None:
+            loss = loss + 0.01 * aux
+        return loss, metrics
 
     # ---------------- serving ----------------
     def _logits(self, params, x):
@@ -145,8 +146,8 @@ class Model:
         b, s = tokens.shape
         x = params["embed"].to(self.compute_dtype)[tokens]
         positions = torch.arange(s, device=self.device).expand(b, s)
-        x, caches = tf.stack_apply(params["layers"], x, self.cfg, positions=positions,
-                                   update_cache=True)
+        x, caches, _ = tf.stack_apply(params["layers"], x, self.cfg, positions=positions,
+                                      update_cache=True)
         if last_pos is None:
             x_last = x[:, -1:]
         else:
@@ -203,8 +204,8 @@ class Model:
         tokens = tokens.to(self.device)
         x = params["embed"].to(self.compute_dtype)[tokens]
         positions = pos.to(self.device)[:, None]
-        x, caches = tf.stack_apply(params["layers"], x, self.cfg, positions=positions,
-                                   caches=caches, ragged=ragged)
+        x, caches, _ = tf.stack_apply(params["layers"], x, self.cfg, positions=positions,
+                                      caches=caches, ragged=ragged)
         return self._logits(params, x), caches
 
 

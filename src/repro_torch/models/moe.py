@@ -12,7 +12,16 @@ slots and the same capacity drops.  Capacity counts every token of the call,
 so right-pad positions of a prefill group and the idle slots of a decode
 step route and take capacity, as in the reference.  Nothing here uses
 atomics or a scatter with repeated indices into values that are read, so a
-run on the card repeats bit for bit.
+run on the card repeats bit for bit.  That holds for the backward too: the
+two gathers' gradients (a token fills up to k bucket rows; dropped
+assignments all read row 0) accumulate through ``index_put_`` with
+``accumulate=True``, which PyTorch runs on CUDA by sorting the indices,
+deterministically, and the grouped matmul's backward is two more products
+of the kernel, which sums in a fixed order.
+
+The load-balancing loss is the reference's Switch loss, differentiable
+through the router's probabilities (the top expert's one-hot is constant);
+the model adds 0.01 of it, summed over the layers, to the training loss.
 """
 
 from __future__ import annotations

@@ -6,16 +6,19 @@ mixer -> residual -> norm -> FFN -> residual.  The mixer is GQA attention on
 the layers ``cfg.layer_is_attention(i)`` names and the Mamba-2 SSM elsewhere
 (``mixer_kind``); the FFN is the MoE layer on the layers
 ``cfg.layer_is_moe(i)`` names, the dense SwiGLU elsewhere, and none where
-``d_ff`` is 0 (mamba2 is norm -> SSM mixer -> residual only).  The MoE
-load-balancing loss is dropped: the stack serves, and the reference's
-prefill and decode drop it too.  The JAX stack scans over scan-stacked
-parameters; here the layers are a Python list (one param dict per layer)
-run in a loop.  There is no mesh, so the sharding constraints of the JAX
+``d_ff`` is 0 (mamba2 is norm -> SSM mixer -> residual only).  Each MoE
+layer's load-balancing loss comes back beside x, summed over the layers in
+fp32 by ``stack_apply``, as the reference's stack returns it: training adds
+it to the loss, prefill and decode ignore it.  The JAX stack scans over
+scan-stacked parameters; here the layers are a Python list (one param dict
+per layer) run in a loop.  There is no mesh, so the sharding constraints of the JAX
 stack have no counterpart.  In training (grad mode on, no cache, no
 ``update_cache``) each block runs under ``torch.utils.checkpoint`` when
 ``cfg.remat`` is set, the counterpart of the JAX stack's ``jax.checkpoint``
 over the scanned block: its activations are recomputed in the backward
-pass, so attention's forward runs twice a layer per step.
+pass, so attention's forward and the MoE layer's three grouped matmuls run
+twice a layer per step.  The recompute routes exactly as the forward did:
+routing depends only on the block's inputs.
 
 Cache layout, which the serving pool indexes: one flat dict whose every
 leaf has batch on dim 1, each kind stacked over the layers of that kind
@@ -74,7 +77,8 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, i: int, dtype=torch.float
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *, positions,
                 cache: dict | None = None, update_cache: bool = False, ragged: bool = False):
-    """Layer ``i``; returns (x, cache)."""
+    """Layer ``i``; returns (x, cache, aux): aux is the MoE layer's
+    load-balancing loss (fp32), None on a layer without MoE."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     if mixer_kind(cfg, i) == "attn":
         out, new_cache = attn_mod.attention_apply(
@@ -85,13 +89,15 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *, posi
         out, new_cache = ssm_mod.ssm_apply(params["mixer"], h, cfg, cache=cache,
                                            update_cache=update_cache)
     x = x + out
+    aux = None
     if "ffn" in params:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         if cfg.layer_is_moe(i):
-            x = x + moe_mod.moe_apply(params["ffn"], h, cfg)[0]
+            out, aux = moe_mod.moe_apply(params["ffn"], h, cfg)
+            x = x + out
         else:
             x = x + mlp_apply(params["ffn"], h)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> list[dict]:
@@ -115,24 +121,31 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfl
 
 def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positions,
                 caches: dict | None = None, update_cache: bool = False, ragged: bool = False):
-    """Returns (x, caches).  With ``caches`` (decode) each layer writes into
-    its slice in place and the same dict comes back; with ``update_cache``
-    (prefill) the new entries of every layer are stacked into a new dict."""
+    """Returns (x, caches, aux).  With ``caches`` (decode) each layer writes
+    into its slice in place and the same dict comes back; with
+    ``update_cache`` (prefill) the new entries of every layer are stacked
+    into a new dict.  aux is the MoE layers' load-balancing losses summed in
+    fp32, 0 for a stack without MoE layers."""
     emitted = {"attn": [], "ssm": []}
+    auxes = []
     remat = cfg.remat and torch.is_grad_enabled() and caches is None and not update_cache
     for i, (layer, (kind, k)) in enumerate(zip(layers, _kind_index(cfg))):
         if remat:
-            x = checkpoint(block_apply, layer, x, cfg, i, positions=positions,
-                           use_reentrant=False)[0]
-            continue
-        layer_cache = None if caches is None else {n: caches[n][k] for n in CACHE_KEYS[kind]}
-        x, nc = block_apply(layer, x, cfg, i, positions=positions, cache=layer_cache,
-                            update_cache=update_cache, ragged=ragged)
-        if caches is None and update_cache:
-            emitted[kind].append(nc)
+            x, _, aux = checkpoint(block_apply, layer, x, cfg, i, positions=positions,
+                                   use_reentrant=False)
+        else:
+            layer_cache = None if caches is None else {n: caches[n][k] for n in CACHE_KEYS[kind]}
+            x, nc, aux = block_apply(layer, x, cfg, i, positions=positions, cache=layer_cache,
+                                     update_cache=update_cache, ragged=ragged)
+            if caches is None and update_cache:
+                emitted[kind].append(nc)
+        if aux is not None:
+            auxes.append(aux)
+    aux = (torch.stack(auxes).sum() if auxes
+           else torch.zeros((), dtype=torch.float32, device=x.device))
     if caches is not None:
-        return x, caches
+        return x, caches, aux
     if update_cache:
         return x, {n: torch.stack([c[n] for c in cs])
-                   for kind, cs in emitted.items() if cs for n in CACHE_KEYS[kind]}
-    return x, None
+                   for kind, cs in emitted.items() if cs for n in CACHE_KEYS[kind]}, aux
+    return x, None, aux

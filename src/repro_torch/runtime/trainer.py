@@ -5,9 +5,10 @@ Counterpart of the single-device branch of the JAX package's
 ``Trainer``).  The step is ``Model.train_loss`` -> gradients of the fp32
 master params -> ``adamw_update``; with ``microbatches`` m > 1 the batch is
 split into m equal slices, the gradients are seeded from slice 0, summed
-and divided by m, and the loss is the mean of the slices' losses.  There is
-no jit: the step updates the params and the optimizer state in place (where
-the JAX ``Trainer.jitted_step`` donates their buffers) and returns them.
+and divided by m, and the loss is the mean of the slices' cross
+entropies.  There is no jit: the step updates the params and the optimizer
+state in place (where the JAX ``Trainer.jitted_step`` donates their
+buffers) and returns them.
 
 A mesh or a ``ParallelConfig`` (sharded state, the hierarchical and
 compressed gradient sync) waits for the multi-device work (ROADMAP A11) and
@@ -29,7 +30,11 @@ __all__ = ["Trainer", "make_train_step", "value_and_grads"]
 
 def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1):
     """(gradients mirroring ``params``, {"loss"}) of ``model.train_loss``,
-    accumulated over ``microbatches`` equal slices of the batch."""
+    accumulated over ``microbatches`` equal slices of the batch.  The
+    gradients are those of the loss that is minimised (for an MoE config the
+    cross entropy plus 0.01 x the load-balancing loss); "loss" is the cross
+    entropy alone, as the reference reports it.  Each slice routes its own
+    tokens, so an MoE layer's capacity follows the slice's size."""
     leaves = tree_leaves(params)
     batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
     b = batch["tokens"].shape[0]
@@ -39,9 +44,9 @@ def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1):
 
     def micro(i):
         sl = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        loss, _ = model.train_loss(params, sl)
+        loss, metrics = model.train_loss(params, sl)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        return list(grads), loss.detach()
+        return list(grads), metrics["loss"].detach()
 
     grads, loss = micro(0)
     for i in range(1, microbatches):

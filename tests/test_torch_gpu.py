@@ -111,26 +111,106 @@ def test_flash_gradients_on_card_match_cpu(cuda, dtype, shape):
 
 
 @pytest.mark.gpu
-def test_gmm_and_ssd_refuse_gradients_on_card(cuda):
-    """No backward kernel yet (ROADMAP B3, B4): a call that would need a
+def test_ssd_refuses_gradients_on_card(cuda):
+    """No backward kernel yet (ROADMAP B4): a call that would need a
     gradient raises rather than returning an output without one."""
-    x = torch.randn(4, 16, 64, device=cuda, requires_grad=True)
-    w = torch.randn(4, 64, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="B3"):
-        gmm_ops.gmm(x, w)
-    ffn = {n: torch.randn(4, 64, 64, device=cuda, requires_grad=True)
-           for n in ("w_gate", "w_up", "w_down")}
-    with pytest.raises(NotImplementedError, match="B3"):
-        gmm_ops.expert_ffn(ffn, x.detach())
     sx, dt, a, sb, sc = (torch.randn(1, 64, 2, 16, device=cuda, requires_grad=True),
                          torch.rand(1, 64, 2, device=cuda) * 0.1 + 0.01,
                          -torch.rand(2, device=cuda) - 0.5,
                          torch.randn(1, 64, 16, device=cuda), torch.randn(1, 64, 16, device=cuda))
     with pytest.raises(NotImplementedError, match="B4"):
         ssd_ops.ssd(sx, dt, a, sb, sc)
-    with torch.no_grad():  # forward only: the kernels run
-        assert gmm_ops.gmm(x, w).shape == (4, 16, 32)
+    with torch.no_grad():  # forward only: the kernel runs
         assert ssd_ops.ssd(sx, dt, a, sb, sc)[0].shape == sx.shape
+
+
+def _record_launches(monkeypatch):
+    """(a contiguous, b contiguous) of every grouped matmul launch from now on."""
+    seen = []
+    launch = gmm_kernel.launch
+    monkeypatch.setattr(gmm_kernel, "launch", lambda a, b, out: seen.append(
+        (a.is_contiguous(), b.is_contiguous())) or launch(a, b, out))
+    return seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_gradients_on_card_match_cpu(cuda, dtype, monkeypatch):
+    """dx and dw of ``gmm`` and every gradient of ``expert_ffn`` on the card
+    (each product through the kernel) against the same autograd function on
+    the CPU (each product the plain version); the backward's transposed
+    operands reach the kernel as views, not copies."""
+    rng = np.random.default_rng(4)
+    e, c, d, f = 8, 72, 256, 128
+    host = {"x": rng.normal(size=(e, c, d)), "w": rng.normal(size=(e, d, f)) / np.sqrt(d),
+            "cot": rng.normal(size=(e, c, f)), "w_gate": rng.normal(size=(e, d, f)) / np.sqrt(d),
+            "w_up": rng.normal(size=(e, d, f)) / np.sqrt(d),
+            "w_down": rng.normal(size=(e, f, d)) / np.sqrt(f), "cot2": rng.normal(size=(e, c, d))}
+    host = {k: torch.from_numpy(v.astype(np.float32)).to(dtype) for k, v in host.items()}
+    seen = _record_launches(monkeypatch)
+    grads = {}
+    for dev in ("cpu", cuda):
+        t = {k: v.to(dev).requires_grad_() for k, v in host.items()}
+        seen.clear()
+        g_gmm = torch.autograd.grad(gmm_ops.gmm(t["x"], t["w"]), (t["x"], t["w"]), t["cot"])
+        ffn = {k: t[k] for k in ("w_gate", "w_up", "w_down")}
+        out = gmm_ops.expert_ffn(ffn, t["x"])
+        g_ffn = torch.autograd.grad(out, (t["x"], *ffn.values()), t["cot2"])
+        grads[str(dev)] = g_gmm + g_ffn
+        if dev == cuda:
+            assert seen[:3] == [(True, True), (True, False), (False, True)]
+            assert len(seen) == 3 + 9
+    tol = 2e-4 if dtype == torch.float32 else 5 * TOL[dtype]
+    for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
+        assert g_card.dtype == dtype
+        torch.testing.assert_close(g_card.cpu().float(), g_cpu.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gmm_kernel_backward_layouts_match_plain_version(cuda, dtype):
+    """The backward's two products, dx = g w^T and dw = x^T g, with the
+    transposed operand a view (and on views of larger buffers), against the
+    plain version; the forward's tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    tol = 5 * TOL[dtype]
+    for e, c, d, f in GMM_SHAPES + [(32, 640, 1024, 512), (32, 640, 512, 1024)]:
+        for pad in (0, 2):
+            def stored(rows, cols, scale=1.0):
+                t = torch.randn(e + pad, rows + pad, cols + 8 * pad, generator=gen, device=cuda)
+                return (t * scale).to(dtype)[pad:, pad:, 8 * pad:]
+            x, w, g = stored(c, d), stored(d, f, d**-0.5), stored(c, f)
+            for a, b in ((g, w.transpose(1, 2)), (x.transpose(1, 2), g)):
+                before = gmm_kernel.launches
+                out = gmm_ops.gmm(a, b)
+                torch.cuda.synchronize()
+                assert gmm_kernel.launches == before + 1
+                ref = reference_grouped_matmul(a, b)
+                torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+def test_moe_train_steps_on_card_match_cpu(cuda):
+    """fp32 REDUCED granite-moe, two Trainer steps from the same params on
+    the card (flash and grouped matmul kernels, forward and backward) and
+    on the CPU: losses within 1e-4."""
+    cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", reduced=True),
+                              compute_dtype="float32")
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=4)
+    init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", cuda):
+        trainer = Trainer(build_model(cfg, device=dev), AdamWConfig(lr=1e-3, warmup_steps=2))
+        params = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(), init)
+        opt = adamw_init(params, trainer.opt_cfg)
+        before = gmm_kernel.launches
+        losses[str(dev)] = []
+        for i in range(2):
+            params, opt, m = trainer.step(params, opt, pipe.global_batch_arrays(i))
+            losses[str(dev)].append(float(m["loss"]))
+        assert gmm_kernel.launches - before == (2 * 12 * cfg.n_layers if dev == cuda else 0)
+        assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
 @pytest.mark.gpu

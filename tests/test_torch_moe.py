@@ -1,7 +1,8 @@
 """The port's MoE layer against the JAX package's single-device path:
 routing (ties included), dispatch slots (capacity drops included) and
 ``moe_local`` against the JAX ``moe_local`` under both its expert paths
-(XLA einsums, and the Pallas grouped matmul in interpret mode).
+(XLA einsums, and the Pallas grouped matmul in interpret mode), and its
+gradients, the load-balancing loss's included, against ``jax.grad`` of it.
 
 Weights are made by the JAX package; inputs come from a seeded numpy
 generator.  Experts and slots must be equal exactly; outputs agree within
@@ -9,7 +10,8 @@ generator.  Experts and slots must be equal exactly; outputs agree within
 the two frameworks sum the same products in different orders) and, in bf16,
 within 2e-2 of the outputs' largest magnitude (the two frameworks round the
 SwiGLU product, of magnitude up to ~30 here, at different places, and the
-down projection sums those roundings)."""
+down projection sums those roundings).  Gradients agree within 1e-4 of each
+leaf's largest magnitude, as ``tests/test_torch_train.py`` holds them."""
 
 import dataclasses
 
@@ -110,6 +112,65 @@ def test_moe_local_matches_reference(impl, capacity_factor):
     np.testing.assert_array_equal(zero_rows, np.asarray(jnp.all(want == 0.0, axis=-1)))
     if capacity_factor != 1.25:  # 8.0 never binds, 0.25 always does
         assert zero_rows.any() == (capacity_factor == 0.25)
+
+
+def _leaf_close(got, want, rel=1e-4):
+    """``got`` within ``rel`` of ``want``'s largest magnitude."""
+    want = np.asarray(want, np.float32)
+    scale = float(np.abs(want).max())
+    assert scale > 0
+    np.testing.assert_allclose(got.detach().numpy(), want, atol=rel * scale, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("capacity_factor", [8.0, 1.25, 0.25])
+def test_moe_local_grads_match_reference(impl, capacity_factor):
+    """Gradients of ``sum(out * cot) + aux`` with respect to the router, the
+    three expert weights and the tokens, through both of the JAX package's
+    expert paths (the Pallas path's backward runs its kernel in interpret
+    mode); each leaf within 1e-4 of its largest value."""
+    cfg_j, cfg_t = _cfgs(capacity_factor=capacity_factor)
+    pj, pt = _params(cfg_j)
+    xj, xt = _x()
+    cot = np.random.default_rng(6).normal(size=(T, D)).astype(np.float32)
+
+    def loss_j(p, x):
+        out, aux = jax_moe.moe_local(p, x, cfg_j, impl=impl)
+        return jnp.sum(out * cot) + aux
+
+    want_p, want_x = jax.grad(loss_j, argnums=(0, 1))(pj, xj)
+    leaves = {k: v.clone().requires_grad_() for k, v in pt.items()}
+    x = xt.clone().requires_grad_()
+    out, aux = moe.moe_local(leaves, x, cfg_t)
+    got = torch.autograd.grad((out * torch.from_numpy(cot)).sum() + aux,
+                              [*leaves.values(), x])
+    for name, g in zip(leaves, got):
+        _leaf_close(g, want_p[name])
+    _leaf_close(got[-1], want_x)
+
+
+def test_aux_loss_gradient_reaches_the_router():
+    """The load-balancing loss alone: equal to the reference's, and its
+    gradient (through the router's probabilities; the top expert's one-hot
+    is constant) equal to ``jax.grad`` of the reference's, for the router
+    and the tokens, and zero for the expert weights."""
+    cfg_j, cfg_t = _cfgs(capacity_factor=1.25)
+    pj, pt = _params(cfg_j)
+    xj, xt = _x()
+    aux_j, (g_router, g_x) = jax.value_and_grad(
+        lambda r, x: jax_moe.moe_local({**pj, "router": r}, x, cfg_j)[1], argnums=(0, 1))(
+        pj["router"], xj)
+    leaves = {k: v.clone().requires_grad_() for k, v in pt.items()}
+    x = xt.clone().requires_grad_()
+    _, aux = moe.moe_local(leaves, x, cfg_t)
+    np.testing.assert_allclose(float(aux.detach()), float(aux_j), rtol=1e-5)
+    got = torch.autograd.grad(aux, [*leaves.values(), x], allow_unused=True,
+                              materialize_grads=True)
+    grads = dict(zip(leaves, got))
+    _leaf_close(grads["router"], g_router)
+    _leaf_close(got[-1], g_x)
+    for name in ("w_gate", "w_up", "w_down"):
+        assert not grads[name].any()
 
 
 def test_moe_local_bf16_matches_reference():

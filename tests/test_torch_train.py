@@ -1,7 +1,8 @@
 """The port's train path against the JAX package's: the loss, AdamW and its
 schedule, the synthetic data, the flash attention backward, ``train_loss``
-and its gradients, block remat, microbatching, the ``Trainer`` and the
-launcher, on the REDUCED configs in fp32 on the CPU.
+and its gradients (dense and MoE stacks, the MoE load-balancing loss
+included), block remat, microbatching, the ``Trainer`` and the launcher, on
+the REDUCED configs in fp32 on the CPU.
 
 Weights are made by the JAX package and cross the bridge; gradients cross
 back with ``to_jax_params``; inputs come from seeded numpy generators.
@@ -31,6 +32,7 @@ from repro_torch.bridge import from_jax_params, to_jax_params
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.launch import train as train_launcher
 from repro_torch.models import build_model
 from repro_torch.models.layers import cross_entropy_loss
@@ -39,6 +41,7 @@ from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.runtime.trainer import Trainer, value_and_grads
 
 DENSE = ["internlm2-1.8b", "h2o-danube-1.8b", "qwen3-32b"]
+MOE = ["granite-moe-1b-a400m", "olmoe-1b-7b"]
 B, S = 2, 96  # S > the h2o-danube REDUCED window of 64
 
 
@@ -182,15 +185,8 @@ def _jax_value_and_grad(arch):
     return float(loss), float(metrics["aux_loss"]), jax.tree.map(np.asarray, grads)
 
 
-@pytest.mark.parametrize("arch", DENSE)
-def test_train_loss_and_grads_match_jax(arch):
-    mj, pj, mt = make_pair(arch)
-    want_loss, want_aux, want_grads = _jax_value_and_grad(arch)
-    params = port_params(mt, pj)
-    loss, metrics = mt.train_loss(params, batch_of(mt.cfg.vocab))
-    assert float(metrics["aux_loss"]) == want_aux == 0.0
-    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=2e-5)
-    grads = torch.autograd.grad(loss, tree_leaves(params))
+def _assert_grads_match(mt, params, grads, want_grads):
+    """Every gradient leaf within 1e-4 of the reference leaf's largest value."""
     it = iter(grads)
     got = to_jax_params(mt.cfg, tree_map(lambda _: next(it), params))
     flat_w, flat_g = jax.tree.leaves(want_grads), jax.tree.leaves(got)
@@ -200,6 +196,36 @@ def test_train_loss_and_grads_match_jax(arch):
         scale = float(np.abs(w).max())
         assert scale > 0
         np.testing.assert_allclose(g, w, atol=1e-4 * scale, rtol=0)
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_train_loss_and_grads_match_jax(arch):
+    mj, pj, mt = make_pair(arch)
+    want_loss, want_aux, want_grads = _jax_value_and_grad(arch)
+    params = port_params(mt, pj)
+    loss, metrics = mt.train_loss(params, batch_of(mt.cfg.vocab))
+    assert float(metrics["aux_loss"]) == want_aux == 0.0
+    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=2e-5)
+    _assert_grads_match(mt, params, torch.autograd.grad(loss, tree_leaves(params)), want_grads)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_train_loss_and_grads_match_jax(arch):
+    """MoE stacks: the loss is the cross entropy plus 0.01 x the
+    load-balancing loss summed over the layers, ``metrics["aux_loss"]``
+    equals the reference's, and every gradient (the router's through both
+    the gate weights and the aux loss, the experts' through the grouped
+    matmul's backward) matches ``jax.value_and_grad``."""
+    mj, pj, mt = make_pair(arch)
+    want_loss, want_aux, want_grads = _jax_value_and_grad(arch)
+    params = port_params(mt, pj)
+    loss, metrics = mt.train_loss(params, batch_of(mt.cfg.vocab))
+    aux = float(metrics["aux_loss"].detach())
+    assert aux > 0
+    np.testing.assert_allclose(aux, want_aux, rtol=1e-5)
+    torch.testing.assert_close(loss, metrics["loss"] + 0.01 * metrics["aux_loss"], rtol=0, atol=0)
+    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=2e-5)
+    _assert_grads_match(mt, params, torch.autograd.grad(loss, tree_leaves(params)), want_grads)
 
 
 def test_remat_changes_no_gradient_and_recomputes_attention(monkeypatch):
@@ -223,12 +249,69 @@ def test_remat_changes_no_gradient_and_recomputes_attention(monkeypatch):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def _count_gmm(monkeypatch):
+    """A list that grows by one at every ``gmm`` call (forward products)."""
+    calls = []
+    gmm = gmm_ops.gmm
+    monkeypatch.setattr(gmm_ops, "gmm", lambda x, w: calls.append(1) or gmm(x, w))
+    return calls
+
+
 @pytest.mark.parametrize("arch,name", [("granite-moe-1b-a400m", "MoE"), ("mamba2-1.3b", "SSM")])
 def test_train_loss_refuses_moe_and_ssm_stacks(arch, name):
+    """SSM stacks still refuse (ROADMAP B4: the SSD scan's backward); MoE
+    stacks train since the grouped matmul got its backward: a finite loss
+    with a positive load-balancing loss, and a finite gradient that reaches
+    every leaf."""
     model = build_model(get_config(arch, reduced=True), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=f"{name} training"):
-        model.train_loss(params, batch_of(model.cfg.vocab, s=16))
+    if name == "SSM":
+        with pytest.raises(NotImplementedError, match=f"{name} training"):
+            model.train_loss(params, batch_of(model.cfg.vocab, s=16))
+        return
+    params = tree_map(lambda t: t.requires_grad_(), params)
+    loss, metrics = model.train_loss(params, batch_of(model.cfg.vocab, s=16))
+    assert bool(torch.isfinite(loss)) and float(metrics["aux_loss"].detach()) > 0
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    assert all(bool(torch.isfinite(g).all()) and bool(g.any()) for g in grads)
+
+
+def test_moe_remat_changes_no_gradient_and_recomputes_the_experts(monkeypatch):
+    """granite with block remat on and off: equal loss and gradients; with
+    it, the three grouped matmuls of each layer run twice (forward, then the
+    recompute), which routes the same tokens to the same buckets."""
+    calls = _count_gmm(monkeypatch)
+    out = {}
+    for remat in (False, True):
+        _, pj, mt = make_pair("granite-moe-1b-a400m", remat=remat)
+        params = port_params(mt, pj)
+        calls.clear()
+        loss, _ = mt.train_loss(params, batch_of(mt.cfg.vocab))
+        grads = torch.autograd.grad(loss, tree_leaves(params))
+        out[remat] = (loss, grads, len(calls))
+    n = mt.cfg.n_layers
+    assert (out[False][2], out[True][2]) == (3 * n, 6 * n)
+    torch.testing.assert_close(out[True][0], out[False][0], rtol=0, atol=0)
+    for a, b in zip(out[True][1], out[False][1]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_moe_microbatches_route_each_slice_alone():
+    """With microbatches each slice routes its own tokens, at the capacity
+    of its own size, as the reference's microbatch scan does: the step's
+    gradients are the mean of the slices' own, and its loss the mean of
+    their cross entropies."""
+    _, pj, mt = make_pair("granite-moe-1b-a400m")
+    batch = batch_of(mt.cfg.vocab, b=4, s=32, seed=2)
+    params = port_params(mt, pj)
+    grads, metrics = value_and_grads(mt, params, batch, microbatches=2)
+    halves = [value_and_grads(mt, params, {k: v[i:i + 2] for k, v in batch.items()})
+              for i in (0, 2)]
+    for g, a, b in zip(tree_leaves(grads), tree_leaves(halves[0][0]), tree_leaves(halves[1][0])):
+        torch.testing.assert_close(g, (a + b) / 2, rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(float(metrics["loss"]),
+                               (float(halves[0][1]["loss"]) + float(halves[1][1]["loss"])) / 2,
+                               rtol=1e-6)
 
 
 # ---------------------------------------------------------------- trainer
@@ -272,6 +355,40 @@ def test_trainer_loss_curve_matches_jax():
     assert got[-1] < got[0]
 
 
+def test_moe_trainer_loss_curve_matches_jax():
+    """granite-moe over five steps: both trainers report the cross entropy
+    (the minimised loss adds 0.01 x the load-balancing loss).  The port's
+    Trainer takes each step from the reference Trainer's params and
+    optimizer state.  Left to run alone, the two trajectories part: a
+    gradient element near 1e-7, what remains of larger terms that cancel,
+    can differ by a third between the frameworks' roundings, and AdamW moves
+    every weight by about lr whatever its gradient's size, so one step puts
+    weights 1.7e-4 apart; four steps later a routing decision near a tie
+    flips and the losses part by 3.5e-4 (the dense curve, smooth in its
+    weights, stays within 1e-6).  Each step's loss, gradient norm and update
+    are the port's own."""
+    mj, pj, mt = make_pair("granite-moe-1b-a400m")
+    kw = dict(lr=3e-3, warmup_steps=2, total_steps=20)
+    step_j = JaxTrainer(mj, jax_adamw.AdamWConfig(**kw)).jitted_step(donate=False)
+    trainer = Trainer(mt, adamw.AdamWConfig(**kw))
+    pipe = SyntheticLM(vocab=mt.cfg.vocab, seq_len=64, global_batch=4, seed=0)
+    params_j, opt_j = pj, jax_adamw.adamw_init(pj, jax_adamw.AdamWConfig(**kw))
+    want, got = [], []
+    for i in range(5):
+        batch = pipe.global_batch_arrays(i)
+        params_t = port_params(mt, jax.tree.map(np.asarray, params_j))
+        opt_t = {"step": int(opt_j["step"]), "m": from_jax_params(mt.cfg, opt_j["m"]),
+                 "v": from_jax_params(mt.cfg, opt_j["v"])}
+        params_j, opt_j, mj_ = step_j(params_j, opt_j,
+                                      {k: jnp.asarray(v) for k, v in batch.items()})
+        params_t, opt_t, mt_ = trainer.step(params_t, opt_t, batch)
+        want.append((float(mj_["loss"]), float(mj_["grad_norm"])))
+        got.append((float(mt_["loss"]), float(mt_["grad_norm"])))
+        assert opt_t["step"] == int(opt_j["step"]) == i + 1
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    assert got[-1][0] < got[0][0]
+
+
 def test_trainer_refuses_a_mesh_and_a_parallel_config():
     _, _, mt = make_pair("internlm2-1.8b")
     with pytest.raises(NotImplementedError, match="A11"):
@@ -287,3 +404,13 @@ def test_train_launcher_runs_on_cpu(capsys):
     lines = [l for l in out.splitlines() if l.startswith("step ")]
     assert len(lines) == 3 and all("loss" in l and "gnorm" in l and "lr" in l for l in lines)
     assert "tokens/s" in out and "not measured (cpu)" in out
+
+
+def test_train_launcher_trains_moe_on_cpu(capsys):
+    train_launcher.main(["--arch", "granite-moe-1b-a400m", "--reduced", "--device", "cpu",
+                         "--steps", "3", "--batch", "2", "--seq", "32", "--log-every", "1",
+                         "--microbatches", "2"])
+    out = capsys.readouterr().out
+    lines = [l for l in out.splitlines() if l.startswith("step ")]
+    assert out.startswith("arch=granite-moe-1b-a400m") and len(lines) == 3
+    assert all(np.isfinite(float(l.split()[3])) for l in lines)
