@@ -3,8 +3,9 @@
 of a checkout: ``python3 chip_smoke.py``).  It imports only ``repro_torch``,
 torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 
-1. card and build: the card's name and power limit, the three kernels built
-   from the sources in the checkout (one nvcc each, started together), with
+1. card and build: the card's name and power limit, the three kernel
+   libraries (the SSD scan's with its backward) built from the sources in
+   the checkout (one nvcc each, started together), with
    ptxas's registers, spills, any compiler warning and any note that it
    serialised wgmma instructions;
 2. every kernel against its plain PyTorch version on the card.  Flash
@@ -25,17 +26,25 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    of 1 to 1000 around 64 and 128, P of 8 to 64, N of 16 to 128, a batch of
    4, and a bf16 shape of its FMA route) and at every mamba2-1.3b shape of
    the served runs (one prompt at each of its exact lengths, and the 4 x 512
-   batch), in fp32 and bf16, with the errors of y and of the final state
-   apart; at the served bf16 shapes the state must also be within 1e-4 of
-   the plain version relative to its largest value.  Phases 4 and 6 fail if
-   they launched a kernel at a shape this phase did not check;
+   batch), and at mamba2's two train shapes, in fp32 and bf16, with the
+   errors of y and of the final state apart; at the served bf16 shapes the
+   state must also be within 1e-4 of the plain version relative to its
+   largest value.  The SSD backward (dx, ddt, da, db, dc) against autograd
+   through the plain ``ssd_chunked``, each gradient within 5e-4 (fp32) or
+   2e-2 (bf16) of its largest value: at mamba2's train shapes (bf16 B 8 x S
+   256, fp32 B 2 x S 128), at a ragged S with the final state's cotangent,
+   with rows of dt = 0, tiny and negative, and at the JAX package's
+   gradient-test shape.  Phases 4 and 6 fail if they launched a kernel at a
+   shape this phase did not check;
 3. kernel times at the main-path shapes beside the plain version, one
    library call the port never calls (``scaled_dot_product_attention``,
    ``torch.bmm``, on the same transposed views for the backward products;
    no single PyTorch call computes the SSD scan), the kernel-to-library
    ratio and the least time the card could take (bound); the grouped
    matmul's dx and dw at granite's train shapes; the SSD scan at all nine
-   served mamba2 shapes;
+   served mamba2 shapes; the SSD backward at mamba2's train shape, beside
+   the plain backward (autograd through ``ssd_chunked``) and its bound at
+   the peak of the inputs' type;
 4. the three main paths at full width (random weights from a seed, bf16),
    each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
@@ -57,21 +66,23 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    the card, at the train shape, a windowed shape and in fp32; the grouped
    matmul's and the expert FFN's gradients (every product through the
    kernel, the transposed operands read in place) against autograd through
-   the plain versions, in bf16 and fp32; the SSD scan refuses a call that
-   needs a gradient; flash's forward and the plain backward timed beside
-   SDPA's forward and backward, each with its bound; then internlm2-1.8b and
-   granite-moe-1b-a400m at full width (bf16 compute, fp32 master weights,
-   random weights from seed 0) each trained 8 steps through ``Trainer`` on
-   ``SyntheticLM`` batches (B 8, S 256, seed 0): flash attention launched
-   twice per attention layer and step (forward and remat recompute), the
-   grouped matmul 12 times per MoE layer and step (3 forward, 3 recompute, 3
-   dx and 3 dw), a finite loss that falls, the MoE load-balancing loss, a
-   finite non-zero gradient for every parameter, step wall, tokens/s, peak
-   memory and one profiled step; for granite two gradient passes of one
-   batch that are bit-identical; then each model cut to 2 layers in fp32
-   trained 3 steps on the card and on the CPU, gradients within 1e-4 of each
-   leaf's largest value, losses within 1e-4 relative and params within 1e-4;
-7. a JSON line of the kernels, and as the last line
+   the plain versions, in bf16 and fp32; flash's forward and the plain
+   backward timed beside SDPA's forward and backward, each with its bound;
+   then internlm2-1.8b, granite-moe-1b-a400m and mamba2-1.3b at full width
+   (bf16 compute, fp32 master weights, random weights from seed 0) each
+   trained 8 steps through ``Trainer`` on ``SyntheticLM`` batches (B 8, S
+   256, seed 0): flash attention launched twice per attention layer and
+   step (forward and remat recompute), the grouped matmul 12 times per MoE
+   layer and step (3 forward, 3 recompute, 3 dx and 3 dw), the SSD scan
+   twice per SSM layer and step and its backward once, a finite loss that
+   falls, the MoE load-balancing loss, a finite non-zero gradient for every
+   parameter, step wall, tokens/s, peak memory and one profiled step; for
+   granite and mamba2 two gradient passes of one batch that are
+   bit-identical; then each model cut to 2 layers in fp32 trained 3 steps on
+   the card and on the CPU, gradients within 1e-4 of each leaf's largest
+   value, losses within 1e-4 relative and params within 1e-4;
+7. a JSON line of the kernels (the SSD backward beside the three forward
+   kernels), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
@@ -134,6 +145,10 @@ FP32_LOGITS_BOUND = 1e-3
 DENSE, MOE, SSM = "internlm2-1.8b", "granite-moe-1b-a400m", "mamba2-1.3b"
 ARCHS = (DENSE, MOE, SSM)
 KERNELS = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel, "ssd_scan": ssd_kernel}
+# launch counters by kernel: the SSD backward is a kernel of the SSD library
+# with a counter of its own
+COUNTERS = {"flash_attention": (fa_kernel, "launches"), "moe_gmm": (gmm_kernel, "launches"),
+            "ssd_scan": (ssd_kernel, "launches"), "ssd_scan_bwd": (ssd_kernel, "bwd_launches")}
 MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
 MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
 N_SLOTS, NEW_TOKENS = 4, 32
@@ -155,6 +170,11 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS, TRAIN_CPU_LR = 2, 128, 3, 3e-4
 TRAIN_CPU_TOL = 1e-4
 # flash dq/dk/dv against autograd through the plain version
 FLASH_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the SSD backward's dx, ddt, da, db, dc against autograd through the plain
+# ssd_chunked, each relative to its largest value: the JAX package's 5e-4 in
+# fp32 (tests/test_kernels.py::test_ssd_grads), the per-kernel bf16 one in
+# bf16 (dx, db and dc come back in bf16)
+SSD_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-4}
 # the expert FFN's gradients against autograd through its plain version: the
 # JAX package's 2e-3 in fp32 (tests/test_kernels.py), the grouped matmul's
 # bf16 tolerance in bf16 (the two round silu(gate) * up to bf16 alike)
@@ -301,9 +321,11 @@ class SsdShape:
     n: int
     dtype: torch.dtype
     chunk: int = dataclasses.field(default=512, compare=False)
+    edges: bool = False  # rows of dt = 0, far below 1 and < 0
 
     def __str__(self):
-        return f"{_dt(self.dtype)} B{self.b} S{self.s} H{self.h} P{self.p} N{self.n}"
+        return (f"{_dt(self.dtype)} B{self.b} S{self.s} H{self.h} P{self.p} N{self.n}"
+                + (" dt-edges" if self.edges else ""))
 
     def nbytes(self) -> int:
         """x and y in their dtype, b and c read once, dt, a and the fp32 state."""
@@ -316,10 +338,22 @@ class SsdShape:
         gen = torch.Generator(device="cuda").manual_seed(seed)
         x = torch.randn(self.b, self.s, self.h, self.p, generator=gen, device="cuda")
         dt = torch.rand(self.b, self.s, self.h, generator=gen, device="cuda") * 0.199 + 0.001
+        if self.edges:  # as test_torch_gpu.py::test_ssd_kernel_takes_zero_tiny_and_negative_dt
+            dt[:, ::7] = 0.0
+            dt[:, 3::11] = 1e-30
+            dt[:, 5::13] = -0.01
         a = -(torch.rand(self.h, generator=gen, device="cuda") * 3.5 + 0.5)
         bc = [torch.randn(self.b, self.s, self.n, generator=gen, device="cuda").to(self.dtype)
               for _ in range(2)]
         return x.to(self.dtype), dt, a, *bc
+
+    def bwd_nbytes(self) -> int:
+        """The backward's inputs x, dy, b, c, dt, a and outputs dx, db, dc,
+        ddt, da, each once (the final state's cotangent is none in
+        training)."""
+        elem = 2 if self.dtype == torch.bfloat16 else 4
+        return (elem * (3 * self.b * self.s * self.h * self.p + 4 * self.b * self.s * self.n)
+                + 4 * (2 * self.b * self.s * self.h + 2 * self.h))
 
     def bound(self) -> tuple[float, str]:
         """Operations of the chunked schedule at the kernel's chunk Q: per
@@ -336,6 +370,27 @@ class SsdShape:
                                      for i, r in enumerate(rows))
         t_ops = (cb + rest) / PEAK_OPS[self.dtype]
         t_bytes = self.nbytes() / PEAK_BYTES
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+    def bwd_bound(self) -> tuple[float, str]:
+        """The backward's least time: its products at the peak of the
+        inputs' type, as ``bound`` (the bf16 tensor cores meet phase 2's
+        bf16 gradient tolerance; the kernel itself computes on the fp32 FMA
+        units for both dtypes), and its bytes, ``bwd_nbytes``.  Per head the
+        forward walk's state updates over every chunk but the last and the
+        backward walk's over every chunk but the first, 2 L P N each; per
+        chunk C B^T (once for all heads), and per head dy u^T and the
+        (C B^T) L term of du over the lower triangle, L (L + 1) P each, the
+        state terms of du, dB and dC, 2 L N P each, and the (dy u^T) L terms
+        of dB and dC over the lower triangle, L (L + 1) N each; and the sums
+        of dB and dC over the heads, 2 B S H N."""
+        rows = [min(ssd_kernel.CHUNK, self.s - t0) for t0 in range(0, self.s, ssd_kernel.CHUNK)]
+        cb = self.b * sum(r * (r + 1) * self.n for r in rows)
+        walks = 2 * self.p * self.n * (sum(rows[:-1]) + sum(rows[1:]))
+        chunk = sum(2 * r * (r + 1) * self.p + 6 * r * self.n * self.p
+                    + 2 * r * (r + 1) * self.n for r in rows)
+        ops = cb + self.b * self.h * (walks + chunk) + 2 * self.b * self.s * self.h * self.n
+        t_ops, t_bytes = ops / PEAK_OPS[self.dtype], self.bwd_nbytes() / PEAK_BYTES
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -595,6 +650,13 @@ def main_ssd_shapes(dtype=torch.bfloat16) -> list[SsdShape]:
     return [ssm_shape(1, int(n), dtype) for n in lens] + [ssm_shape(4, 512, dtype)]
 
 
+def train_ssd_shapes() -> list[SsdShape]:
+    """The SSD scan's shapes on mamba2's train paths: the full-width run
+    (bf16 B 8 x S 256) and the card-vs-CPU run (fp32 B 2 x S 128)."""
+    return [ssm_shape(TRAIN_BATCH, TRAIN_SEQ),
+            ssm_shape(TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, torch.float32)]
+
+
 def ssd_edges(dt):
     """Shapes at the edges of the bf16 kernel's tiles (chunks of 64 rows, 32
     columns of P, boxes of 64 columns of N): S of 1 to 1000 around 64 and
@@ -642,7 +704,8 @@ def phase_check_ssd() -> tuple[float, set[SsdShape]]:
                   SsdShape(3, 130, 2, 8, 16, dt, 64), SsdShape(1, 1000, 8, 64, 128, dt, 256)]
         card_vs_cpu = [ssm_shape(1, 100, dt), ssm_shape(1, 77, dt)]  # phase 5's prefills
         served = main_ssd_shapes(dt)
-        for shape in sweep + ragged + ssd_edges(dt) + card_vs_cpu + served:
+        train = [sh for sh in train_ssd_shapes() if sh.dtype == dt]  # phase 6's
+        for shape in sweep + ragged + ssd_edges(dt) + card_vs_cpu + served + train:
             args = shape.inputs()
             out = ssd_ops.ssd(*args)  # (y, final state)
             torch.cuda.synchronize()
@@ -653,6 +716,89 @@ def phase_check_ssd() -> tuple[float, set[SsdShape]]:
             del args, out
         torch.cuda.empty_cache()
     return main_err, checked
+
+
+def _ssd_grads(fn, args, dy, dh=None):
+    """Gradients of ``sum(y * dy)`` (and ``sum(h_final * dh)``) through ``fn``
+    with respect to x, dt, a, b and c."""
+    leaves = [t.detach().requires_grad_() for t in args]
+    y, hf = fn(*leaves)
+    outs, cots = ([y], [dy]) if dh is None else ([y, hf], [dy, dh])
+    return torch.autograd.grad(outs, leaves, cots)
+
+
+def phase_check_ssd_grads() -> tuple[float, set[SsdShape]]:
+    """The SSD backward kernel, through ``ops.ssd``'s autograd function,
+    against autograd through the plain ``ssd_chunked`` on the same inputs on
+    the card: at mamba2's train shapes (bf16 B 8 x S 256, and the
+    card-vs-CPU fp32 B 2 x S 128) with the cotangent of y only, as training
+    gives it; at a ragged S (200 rows: a last chunk of 8) with the final
+    state's cotangent too, and with rows of dt = 0, tiny and negative, in
+    both dtypes; and at the JAX package's gradient-test shape.  Each of dx,
+    ddt, da, db and dc within ``SSD_GRAD_TOL`` of its largest value, in its
+    input's dtype, and finite; one backward launch each.  Returns the max
+    abs error at the bf16 train shape and the shapes checked."""
+    main = train_ssd_shapes()[0]
+    cases = [(sh, False) for sh in train_ssd_shapes()]  # (shape, with the state's cotangent)
+    cases += [(SsdShape(1, 64, 2, 16, 16, torch.float32, 32), False)]
+    for dt in (torch.float32, torch.bfloat16):
+        cases += [(SsdShape(2, 200, 4, 64, 128, dt, 64), True),
+                  (SsdShape(2, 200, 4, 64, 128, dt, 64, edges=True), False)]
+    main_err = 0.0
+    for shape, with_state in cases:
+        args = shape.inputs(seed=7)
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        dy = torch.randn(args[0].shape, generator=gen, device="cuda").to(shape.dtype)
+        dh = (torch.randn(shape.b, shape.h, shape.p, shape.n, generator=gen, device="cuda")
+              if with_state else None)
+        before = ssd_kernel.bwd_launches
+        got = _ssd_grads(ssd_ops.ssd, args, dy, dh)
+        torch.cuda.synchronize()
+        if ssd_kernel.bwd_launches != before + 1 or any(g.dtype != t.dtype
+                                                        for g, t in zip(got, args)):
+            raise SystemExit(f"ssd_scan backward at {shape}: {ssd_kernel.bwd_launches - before} "
+                             f"launches, dtypes {[g.dtype for g in got]}")
+        want = _ssd_grads(lambda *a: ssd_chunked(*a, shape.chunk), args, dy, dh)
+        tol = SSD_GRAD_TOL[shape.dtype]
+        errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        rels = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
+        ok = all(r <= tol for r in rels) and all(bool(torch.isfinite(g.float()).all()) for g in got)
+        names = ("dx", "ddt", "da", "db", "dc")
+        log(f"phase 2 check ssd_scan_bwd {shape}{' + final-state cotangent' if with_state else ''}: "
+            + ", ".join(f"{n} rel {r:.3e}" for n, r in zip(names, rels))
+            + f"; max_abs_err {max(errs):.3e} (tol {tol:g} of each gradient's largest value) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the ssd_scan backward disagrees with autograd through its plain "
+                             f"version at {shape}")
+        if shape == main:
+            main_err = max(errs)
+        del args, got, want
+    torch.cuda.empty_cache()
+    return main_err, {shape for shape, _ in cases}
+
+
+def phase_time_ssd_backward() -> dict:
+    """The SSD backward at mamba2's train shape: the kernel (autograd's
+    backward of ``ops.ssd``: the three launches and the scratch), the plain
+    backward (autograd through ``ssd_chunked``), and the bound; no PyTorch
+    call computes it."""
+    shape = train_ssd_shapes()[0]
+    args = [t.detach().requires_grad_() for t in shape.inputs(seed=1)]
+    dy = torch.randn(args[0].shape, device="cuda").to(shape.dtype)
+    y, _ = ssd_ops.ssd(*args)
+    y_plain, _ = ssd_chunked(*args, shape.chunk)
+    ms = cuda_ms(lambda: torch.autograd.grad(y, args, dy, retain_graph=True), iters=10)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(y_plain, args, dy, retain_graph=True),
+                       iters=5, warmup=1)
+    bound_ms, bound_by = shape.bwd_bound()
+    log(f"phase 3 time ssd_scan_bwd {shape}: kernel {ms:.4f} ms, plain (autograd through "
+        f"ssd_chunked) {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms ({bound_by}); "
+        f"kernel at {100 * bound_ms / ms:.1f}% of bound")
+    del y, y_plain, args
+    torch.cuda.empty_cache()
+    return dict(shape=str(shape), ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def phase_time_ssd() -> list[dict]:
@@ -691,11 +837,16 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     the plain ``ssd_step``)."""
     n_attn, n_moe, n_ssm = layer_kinds(cfg)
     return {"flash_attention": n_attn * prefills, "moe_gmm": 3 * n_moe * (prefills + decode_steps),
-            "ssd_scan": n_ssm * prefills}
+            "ssd_scan": n_ssm * prefills, "ssd_scan_bwd": 0}
 
 
 def _launches() -> dict:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+
+
+def _reset_launches() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape],
@@ -719,8 +870,7 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    for mod in KERNELS.values():
-        mod.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     outs = engine.generate(prompts, NEW_TOKENS)
     cb_s = time.perf_counter() - t0
@@ -1033,25 +1183,6 @@ def phase_check_gmm_grads() -> None:
         gmm_kernel.launch = launch
 
 
-def phase_check_ssd_guard() -> None:
-    """The SSD scan has no backward on the card yet (ROADMAP B4): a call that
-    needs a gradient must raise, not return an output without one; without
-    grad it runs."""
-    sargs = list(SsdShape(1, 128, 4, 64, 128, torch.bfloat16).inputs())
-    before = ssd_kernel.launches
-    try:
-        ssd_ops.ssd(sargs[0].requires_grad_(), *sargs[1:])
-    except NotImplementedError as e:
-        log(f"phase 6 check ssd_scan ssd under grad on the card: raises NotImplementedError "
-            f"({str(e)[:60]}...) ok")
-    else:
-        raise SystemExit("ssd returned an output without a gradient under grad")
-    with torch.no_grad():
-        ssd_ops.ssd(*sargs)
-    if ssd_kernel.launches != before + 1:
-        raise SystemExit("the guarded SSD kernel launched under grad, or not without it")
-
-
 def phase_time_flash_backward() -> None:
     """At the train shape: the kernel's forward beside SDPA's, and the port's
     backward (the plain version recomputed and differentiated) beside
@@ -1086,6 +1217,7 @@ def phase_time_flash_backward() -> None:
 
 
 KERNEL_CLASSES = (("flash_attention", ("flash_fwd",)), ("moe_gmm", ("gmm_bf16", "gmm_f32")),
+                  ("ssd_scan", ("ssd_fwd",)), ("ssd_scan_bwd", ("ssd_bwd",)),
                   ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
                   ("elementwise", ("elementwise",)), ("reduction", ("reduce",)))
 
@@ -1107,7 +1239,7 @@ def profile_train_step(model, params, opt, opt_cfg, batch) -> str:
         t0 = time.perf_counter()
         grads, _ = value_and_grads(model, params, batch)
         start.record()
-        adamw_update(params, grads, opt, opt_cfg)
+        adamw_update(params, grads, opt, opt_cfg, model.decay_mask(params))
         end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1139,21 +1271,23 @@ def train_launches(cfg, passes: int) -> dict:
     """Launches of ``passes`` gradient passes (one per train step): with
     remat, flash attention twice per attention layer (forward and
     recompute); the grouped matmul 12 times per MoE layer (three products
-    forward, three recomputed, and the dx and dw of each)."""
-    n_attn, n_moe, _ = layer_kinds(cfg)
+    forward, three recomputed, and the dx and dw of each); the SSD scan
+    twice per SSM layer (forward and recompute) and its backward once."""
+    n_attn, n_moe, n_ssm = layer_kinds(cfg)
     fwd = 2 if cfg.remat else 1
     return {"flash_attention": fwd * n_attn * passes, "moe_gmm": (3 * fwd + 6) * n_moe * passes,
-            "ssd_scan": 0}
+            "ssd_scan": fwd * n_ssm * passes, "ssd_scan_bwd": n_ssm * passes}
 
 
-def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]) -> dict:
+def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape],
+                ssd_checked: set[SsdShape], ssd_grad_checked: set[SsdShape]) -> dict:
     """``arch`` at full width trained ``TRAIN_STEPS`` steps through
     ``Trainer``; returns the launches the run made by kernel.  Fails unless
     every kernel ran as often as ``train_launches`` says, at shapes phase 2
     checked, the loss is finite and falls, and every parameter gets a
-    finite, non-zero gradient; for an MoE model also unless its
-    load-balancing loss is finite and positive and two gradient passes of
-    one batch are bit-identical."""
+    finite, non-zero gradient; for an MoE or SSM model also unless two
+    gradient passes of one batch are bit-identical, and for an MoE model
+    unless its load-balancing loss is finite and positive."""
     cfg = get_config(arch)
     model = build_model(cfg)
     trainer = Trainer(model, _train_opt(TRAIN_STEPS, TRAIN_LR))
@@ -1165,14 +1299,14 @@ def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
         f"master, {cfg.compute_dtype} compute) on {model.device} in {time.perf_counter() - t0:.1f} s")
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
     batches = [pipe.global_batch_arrays(i) for i in range(TRAIN_STEPS + 1)]
-    moe = layer_kinds(cfg)[1] > 0
+    n_attn, n_moe, n_ssm = layer_kinds(cfg)
+    moe = n_moe > 0
     if moe:
         with torch.no_grad():
             aux0 = float(model.train_loss(params, batches[0])[1]["aux_loss"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for mod in KERNELS.values():
-        mod.launches = 0
+    _reset_launches()
     walls, losses, gnorms = [], [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -1186,9 +1320,13 @@ def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     want = train_launches(cfg, TRAIN_STEPS)
     if launches != want:
         raise SystemExit(f"{cfg.name} training: launches {launches}, want {want}")
-    if train_shape(arch=arch) not in flash_checked:
+    if n_attn and train_shape(arch=arch) not in flash_checked:
         raise SystemExit(f"training launched flash_attention at {train_shape(arch=arch)}, "
                          "unchecked")
+    ssd_train = train_ssd_shapes()[0]
+    if n_ssm and not (ssd_train in ssd_checked and ssd_train in ssd_grad_checked):
+        raise SystemExit(f"training launched ssd_scan (forward and backward) at {ssd_train}, "
+                         "which phase 2 did not check in both directions")
     if moe and not set(train_gmm_shapes()) <= gmm_checked:
         raise SystemExit("training launched moe_gmm at shapes phase 2 did not check: "
                          + ", ".join(map(str, set(train_gmm_shapes()) - gmm_checked)))
@@ -1205,20 +1343,24 @@ def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     log(f"phase 6 train {cfg.name} full width, B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} steps: "
         f"loss " + " ".join(f"{x:.4f}" for x in losses) + " (finite, falling) ok; gnorm "
         + " ".join(f"{x:.3f}" for x in gnorms))
-    if moe:
-        # the same batch again: the backward's gathers and products must
-        # repeat bit for bit (models/moe.py)
+    if moe or n_ssm:
+        # the same batch again: the backward's gathers and products
+        # (models/moe.py) and the SSD backward's sums over heads and chunks
+        # must repeat bit for bit
         again, _ = value_and_grads(model, params, batches[0])
         same = all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(again)))
         del again
+        if not same:
+            raise SystemExit(f"{cfg.name}: two gradient passes of batch 0 differ")
+        log(f"phase 6 train {cfg.name}: two gradient passes of batch 0 bit-identical ok")
+    if moe:
         with torch.no_grad():
             aux = float(model.train_loss(params, batches[0])[1]["aux_loss"])
-        log(f"phase 6 train {cfg.name}: load-balancing loss (summed over {layer_kinds(cfg)[1]} "
-            f"MoE layers, batch 0) {aux0:.6f} at init, {aux:.6f} after {TRAIN_STEPS} steps; two "
-            f"gradient passes of batch 0 {'bit-identical' if same else 'DIFFER'} "
-            f"{'ok' if same and math.isfinite(aux) and aux > 0 else 'FAIL'}")
-        if not (same and math.isfinite(aux) and aux > 0):
-            raise SystemExit(f"{cfg.name}: gradients not deterministic, or a bad aux loss {aux}")
+        log(f"phase 6 train {cfg.name}: load-balancing loss (summed over {n_moe} MoE layers, "
+            f"batch 0) {aux0:.6f} at init, {aux:.6f} after {TRAIN_STEPS} steps "
+            f"{'ok' if math.isfinite(aux) and aux > 0 else 'FAIL'}")
+        if not (math.isfinite(aux) and aux > 0):
+            raise SystemExit(f"{cfg.name}: a bad aux loss {aux}")
     del grads
     per_step = {k: n // TRAIN_STEPS for k, n in launches.items() if n}
     log(f"phase 6 train {cfg.name}: step wall median {1e3 * median:.1f} ms (min "
@@ -1282,12 +1424,12 @@ def phase_train_card_vs_cpu(arch: str) -> None:
         raise SystemExit("training on the card and on the CPU disagree")
 
 
-def _kernel_entry(name, mod, launches, err, rep) -> dict:
+def _kernel_entry(name, mod, replaces, launches, err, rep) -> dict:
     return {
         "name": name,
         "route": "cuda",
         "source": str(mod.SOURCE.relative_to(Path(__file__).resolve().parent)),
-        "replaces": mod.REPLACES,
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": err,
         "ms": rep["ms"],
@@ -1308,7 +1450,9 @@ def main() -> int:
     fa_err, fa_checked = phase_check_flash()
     gmm_err, gmm_checked = phase_check_gmm()
     ssd_err, ssd_checked = phase_check_ssd()
+    ssd_bwd_err, ssd_grad_checked = phase_check_ssd_grads()
     fa_rows, gmm_rows, ssd_rows = phase_time_flash(), phase_time_gmm(), phase_time_ssd()
+    ssd_bwd_rep = phase_time_ssd_backward()
     paths = {arch: phase_serve(arch, fa_checked, gmm_checked, ssd_checked) for arch in ARCHS}
     phase_ssm_prefill_vs_plain()
     phase_prefill_profile()
@@ -1316,24 +1460,26 @@ def main() -> int:
         phase_card_vs_cpu(arch)
     phase_check_flash_grads()
     phase_check_gmm_grads()
-    phase_check_ssd_guard()
     phase_time_flash_backward()
-    for arch in (DENSE, MOE):
-        paths[f"train {arch}"] = phase_train(arch, fa_checked, gmm_checked)
-    for arch in (DENSE, MOE):
+    for arch in ARCHS:
+        paths[f"train {arch}"] = phase_train(arch, fa_checked, gmm_checked, ssd_checked,
+                                             ssd_grad_checked)
+    for arch in ARCHS:
         phase_train_card_vs_cpu(arch)
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)
     gmm_rep = next(r for r in gmm_rows if r["shape"] == str(expert_shapes(decode_c)[0]))
     ssd_rep = next(r for r in ssd_rows if r["shape"] == str(ssm_shape(4, 512)))
     kernels = []
-    for name, mod, err, rep in (("flash_attention", fa_kernel, fa_err, fa_rep),
-                                ("moe_gmm", gmm_kernel, gmm_err, gmm_rep),
-                                ("ssd_scan", ssd_kernel, ssd_err, ssd_rep)):
-        entry = _kernel_entry(name, mod, sum(p[name] for p in paths.values()), err, rep)
+    for name, mod, replaces, err, rep in (
+            ("flash_attention", fa_kernel, fa_kernel.REPLACES, fa_err, fa_rep),
+            ("moe_gmm", gmm_kernel, gmm_kernel.REPLACES, gmm_err, gmm_rep),
+            ("ssd_scan", ssd_kernel, ssd_kernel.REPLACES, ssd_err, ssd_rep),
+            ("ssd_scan_bwd", ssd_kernel, ssd_kernel.BWD_REPLACES, ssd_bwd_err, ssd_bwd_rep)):
+        entry = _kernel_entry(name, mod, replaces, sum(p[name] for p in paths.values()), err, rep)
         entry["launches_by_path"] = {arch: p[name] for arch, p in paths.items()}
         kernels.append(entry)
-    log(f"kernels: {', '.join(KERNELS)} (each launched on a main path, held against its "
+    log(f"kernels: {', '.join(COUNTERS)} (each launched on a main path, held against its "
         "plain version)")
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -92,6 +92,43 @@
 // zeros with dt = 0: their decay is 1 and their u is 0, so the state passes
 // through unchanged, and their y rows are not stored.  Inputs are contiguous
 // and 16-byte aligned (ops.py checks it).
+//
+// The backward (ssd_scan_bwd) replaces the JAX package's custom VJP
+// src/repro/kernels/ssd_scan/ops.py::_ssd_bwd (:25-28), which is no Pallas
+// kernel: jax.vjp through the sequential reference_ssd, recomputed from the
+// saved inputs.  Given dy and the final state's cotangent (zeros in
+// training), it returns dx, ddt, da, db and dc, in fp32 FMA arithmetic for
+// both dtypes, in three launches:
+// 1. ssd_bwd_states: per (32 columns of P, head, batch), a forward walk over
+//    the chunks that stores each chunk's entry state S_k [P, N], and, in the
+//    same launch, a backward walk that stores the gradient dS of each
+//    chunk's exit state, both into fp32 scratch [B, H, S/64, P, N];
+// 2. ssd_bwd_chunk: per (chunk, head, batch), all chunks in parallel, the
+//    chunk's gradients from S_k and dS (formulas at the kernel), with the
+//    products over P in passes of 32 columns;
+// 3. ssd_bwd_reduce: b and c are shared by the heads and a by the rows, so
+//    dB, dC (per head) and da (per chunk) are partial sums, added over H,
+//    and over batch and chunks, in a fixed order: no atomics, and two
+//    passes are bit-identical.
+// What bounds it on this card.  At the train shape of mamba2-1.3b (B 8, S
+// 256, H 64, P 64, N 128, bf16) the products take 13.0 GFLOP, 0.013 ms at
+// 989 TFLOP/s on the bf16 tensor cores (which meet the bf16 gradients'
+// tolerance; 0.19 ms at 67 TFLOP/s on the fp32 FMA units this kernel
+// uses), against 53 MB of inputs and outputs, 0.016 ms at 3.35 TB/s: the
+// bound is 0.016 ms, set by bytes.  The scratch costs 67 MB for each
+// of S_k and dS and 67 MB for each of the per-head dB and dC, 268 MB a
+// layer, written once and read once (0.16 ms of the memory's time), freed
+// when the backward returns.  The design is a first, simple one: each thread
+// adds 4 x 4 blocks of fp32 FMAs from operands it reads from shared memory
+// by 16-byte loads, in whichever layout they are staged in, with the
+// columns spread so that a quarter warp reads distinct banks.  Two loaded
+// floats per four FMAs cap it at half the FMA rate, and 176 KB of shared
+// memory and 216 registers a thread leave one block of 8 warps per SM, too
+// few to hide the loads' latency.  On an H100 (700 W) at the train shape
+// the backward took 1.29 ms, ssd_bwd_chunk 1.00 ms of it: 1.2 % of the
+// 0.016 ms bound, and 15 % of the FMA units' 0.19 ms (chip_smoke.py).
+// Tensor cores (the forward's two-term split), more warps per SM and less
+// scratch traffic are the next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -615,8 +652,540 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
 }
 
+// ---------------------------------------------------------------- backward (fp32 FMA)
+constexpr int kBwdThreads = 256;
+constexpr int kBwdPT = 32;  // columns of P per pass over P (and per block of ssd_bwd_states)
+
+struct BwdParams {
+  const void* x;        // [B, S, H, P]
+  const float* dt;      // [B, S, H]
+  const float* a;       // [H]
+  const void* b;        // [B, S, N]
+  const void* c;        // [B, S, N]
+  const void* dy;       // [B, S, H, P], x's dtype
+  const float* dstate;  // [B, H, P, N], the final state's cotangent; null: zeros
+  float* states;        // [B, H, NC, P, N] scratch: the state entering each chunk
+  float* dstates;       // [B, H, NC, P, N] scratch: the gradient of the state leaving it
+  void* dx;             // [B, S, H, P] in x's dtype, or null
+  float* ddt;           // [B, S, H], or null
+  float* db_part;       // [B, S, H, N] scratch: each head's dB, or null
+  float* dc_part;       // [B, S, H, N] scratch: each head's dC, or null
+  float* da_part;       // [B, NC, H] scratch: each chunk's da, or null
+  void* db;             // [B, S, N] in b's dtype, or null
+  void* dc;             // [B, S, N] in c's dtype, or null
+  float* da;            // [H], or null
+  int B, S, H, P, N, NC, pt;
+};
+
+__device__ __forceinline__ void from_f(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16* dst, float v) {
+  *dst = __float2bfloat16_rn(v);
+}
+
+// The backward's products, each thread adding a 4 x 4 block to acc, both
+// operands in shared memory (leading dims and bases multiples of 4 floats),
+// each taken in the layout it is staged in, by 16-byte loads:
+//   tn: acc[r][c] += sum_{k0<=k<k1} A[k][r0 + r] Bm[k][c0 + c]
+//   nn: acc[r][c] += sum_k A[r0 + r][k] Bm[k][c0 + c]           (k0, k1 multiples of 4)
+//   nt: acc[r][c] += sum_k A[r0 + r][k] Bm[c0 + c cs][k]         (k0, k1 multiples of 4)
+// nt's columns lie cs apart, so that the threads of a quarter warp read
+// neighbouring rows of Bm (a row stride of an odd number of 16-byte words
+// then spreads them over the banks); neighbouring rows 4 apart would meet
+// in two banks.
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float (&a)[4],
+                                       const float (&b)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
+__device__ __forceinline__ void mma_tn(float (&acc)[4][4], const float* A, int lda,
+                                       const float* Bm, int ldb, int k0, int k1, int r0,
+                                       int c0) {
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    const float4 av = lds4(A + k * lda + r0), bv = lds4(Bm + k * ldb + c0);
+    const float a[4] = {av.x, av.y, av.z, av.w}, b[4] = {bv.x, bv.y, bv.z, bv.w};
+    fma4x4(acc, a, b);
+  }
+}
+
+__device__ __forceinline__ void mma_nn(float (&acc)[4][4], const float* A, int lda,
+                                       const float* Bm, int ldb, int k0, int k1, int r0,
+                                       int c0) {
+  for (int k = k0; k < k1; k += 4) {
+    float4 av[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = lds4(A + (r0 + i) * lda + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float4 bv = lds4(Bm + (k + kk) * ldb + c0);
+      const float a[4] = {(&av[0].x)[kk], (&av[1].x)[kk], (&av[2].x)[kk], (&av[3].x)[kk]};
+      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+      fma4x4(acc, a, b);
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_nt(float (&acc)[4][4], const float* A, int lda,
+                                       const float* Bm, int ldb, int k0, int k1, int r0,
+                                       int c0, int cs) {
+  for (int k = k0; k < k1; k += 4) {
+    float4 av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = lds4(A + (r0 + i) * lda + k);
+      bv[i] = lds4(Bm + (c0 + i * cs) * ldb + k);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float a[4] = {(&av[0].x)[kk], (&av[1].x)[kk], (&av[2].x)[kk], (&av[3].x)[kk]};
+      const float b[4] = {(&bv[0].x)[kk], (&bv[1].x)[kk], (&bv[2].x)[kk], (&bv[3].x)[kk]};
+      fma4x4(acc, a, b);
+    }
+  }
+}
+
+// Sums across a warp in a fixed order (every run adds the same pairs)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Inclusive prefix (suffix) sums over the kQ = 64 rows, one row per thread of
+// warps 0 and 1: a shuffle scan in each warp, then warp 1 (0) adds the other
+// warp's total.  Called by every thread; callers sync after.
+template <bool kSuffix>
+__device__ __forceinline__ void scan_rows(float v, float* out) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  if (tid < kQ) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = kSuffix ? __shfl_down_sync(0xffffffffu, v, off)
+                              : __shfl_up_sync(0xffffffffu, v, off);
+      if (kSuffix ? lane + off < 32 : lane >= off) v += u;
+    }
+    out[tid] = v;
+  }
+  __syncthreads();
+  if (kSuffix ? tid < 32 : tid >= 32 && tid < kQ) out[tid] += out[kSuffix ? 32 : 31];
+}
+
+// dt a of the chunk's rows, its inclusive prefix sum, and dt; rows past S
+// have dt = 0.  Callers sync after.
+__device__ __forceinline__ void chunk_cumsum(const BwdParams& p, long long row0, int t0, int L,
+                                             int h, float a, float* la, float* cum, float* dtv) {
+  const int tid = threadIdx.x;
+  float v = 0.f;
+  if (tid < kQ) {
+    const float d = tid < L ? p.dt[(row0 + t0 + tid) * p.H + h] : 0.f;
+    v = d * a;
+    la[tid] = v;
+    dtv[tid] = d;
+  }
+  scan_rows<false>(v, cum);
+}
+
+// Pass 1 of the backward, both directions in one launch: one block per (P
+// slice of pt columns, head, 2 x batch + direction).  Direction 0 walks the
+// chunks forward from a zero state and stores the state entering each;
+// direction 1 walks them backward from the final state's cotangent and
+// stores the gradient of the state leaving each:
+//     S  <- exp(cum_Q) S  + sum_j (x_j exp(cum_Q - cum_j) dt_j) B_j^T
+//     dS <- exp(cum_Q) dS + sum_i (dy_i exp(cum_i)) C_i^T
+// Each thread keeps one 4 x 4 tile of the [pt, N] state in registers.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) ssd_bwd_states(const BwdParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = p.N, pt = p.pt, ldn = N + kPad, ldp = pt + kPad;
+  float* W = smem;           // [kQ][ldn]: B rows (forward) or C rows (backward)
+  float* V = W + kQ * ldn;   // [kQ][ldp]: the rows' factors of this block's columns
+  float* la = V + kQ * ldp;  // dt a
+  float* cum = la + kQ;
+  float* coef = cum + kQ;    // dt, then each row's factor
+
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * pt, h = blockIdx.y, bi = blockIdx.z >> 1, dir = blockIdx.z & 1;
+  const float a = p.a[h];
+  const T* vg = static_cast<const T*>(dir ? p.dy : p.x);
+  const T* wg = static_cast<const T*>(dir ? p.c : p.b);
+  const long long row0 = (long long)bi * p.S;
+  float* out = (dir ? p.dstates : p.states) + ((long long)bi * p.H + h) * p.NC * p.P * N;
+
+  const bool owner = tid < (pt / 4) * (N / 4);
+  const int q0 = owner ? (tid / (N / 4)) * 4 : 0, n0 = owner ? (tid % (N / 4)) * 4 : 0;
+  float st[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      st[i][j] = dir && p.dstate && owner
+                     ? p.dstate[(((long long)bi * p.H + h) * p.P + p0 + q0 + i) * N + n0 + j]
+                     : 0.f;
+
+  for (int it = 0; it < p.NC; ++it) {
+    const int k = dir ? p.NC - 1 - it : it;
+    const int t0 = k * kQ, L = min(kQ, p.S - t0);
+    if (owner)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        store4(out + ((long long)k * p.P + p0 + q0 + i) * N + n0, st[i][0], st[i][1], st[i][2],
+               st[i][3]);
+    if (it + 1 == p.NC) break;  // the state past the walk is not needed
+    __syncthreads();            // the previous chunk is consumed
+    for (int e = tid; e < kQ * N; e += kBwdThreads) {
+      const int j = e / N, n = e - j * N;
+      W[j * ldn + n] = j < L ? to_f(wg[(row0 + t0 + j) * N + n]) : 0.f;
+    }
+    chunk_cumsum(p, row0, t0, L, h, a, la, cum, coef);
+    __syncthreads();
+    if (tid < kQ) coef[tid] = dir ? expf(cum[tid]) : expf(cum[kQ - 1] - cum[tid]) * coef[tid];
+    __syncthreads();
+    for (int e = tid; e < kQ * pt; e += kBwdThreads) {
+      const int j = e / pt, q = e - j * pt;
+      V[j * ldp + q] =
+          j < L ? to_f(vg[((row0 + t0 + j) * p.H + h) * p.P + p0 + q]) * coef[j] : 0.f;
+    }
+    __syncthreads();
+    if (owner) {
+      const float decay = expf(cum[kQ - 1]);
+      float acc[4][4] = {};
+      mma_tn(acc, V, ldp, W, ldn, 0, L, q0, n0);  // sum_j V[j][q] W[j][n]
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) st[i][j] = fmaf(decay, st[i][j], acc[i][j]);
+    }
+  }
+}
+
+__host__ __device__ constexpr size_t bwd_chunk_smem_floats(int n, int pt) {
+  return 2 * (size_t)kQ * (n + kPad)        // C and B rows
+         + 2 * (size_t)kQ * (pt + kPad)     // x and dy rows of one pass
+         + 2 * (size_t)pt * (n + kPad)      // S and dS rows of one pass
+         + 2 * (size_t)kQ * (kQ + kPad)     // M (then W) and D
+         + (size_t)(kBwdPT / 4) * kQ        // per-row partials over a pass's columns
+         + 2 * (size_t)(kMaxN / 4) * kQ     // per-row partials over N
+         + 8 * (size_t)kQ + kBwdThreads / 32;  // per-row scalars; per-warp partials
+}
+
+// Pass 2: one block per (chunk, head, batch), the chunks in parallel, from
+// the chunk's entry state S and the gradient dS of its exit state (pass 1).
+// With L_ij = exp(cum_i - cum_j) for i >= j (0 above the diagonal; exp is
+// never taken of j > i), u = x dt, e_i = exp(cum_i), t_j = exp(cum_Q - cum_j)
+// and DU_ij = dy_i . u_j:
+//     du_j  = sum_{i>=j} (C_i . B_j) L_ij dy_i + t_j dS B_j
+//     dB_j  = sum_{i>=j} DU_ij L_ij C_i + t_j dS^T u_j
+//     dC_i  = sum_{j<=i} DU_ij L_ij B_j + e_i S^T dy_i
+//     dcum_i = sum_j W_ij - sum_j W_ji + e_i dy_i^T S C_i - t_i u_i^T dS B_i,
+//              W_ij = DU_ij (C_i . B_j) L_ij; and dcum_Q += sum_j t_j u_j^T dS B_j
+//              + exp(cum_Q) <dS, S>
+//     d(dt a) = reverse cumsum of dcum;  ddt = d(dt a) a + du . x;  dx = du dt
+// The products over P run in passes of pt columns; DU and each thread's
+// tiles of dB and dC stay in registers across them.  dB and dC are this
+// head's share (per-head partials, summed over H by ssd_bwd_reduce), da this
+// chunk's.  Every sum runs in a fixed order: no atomics.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) ssd_bwd_chunk(const BwdParams p) {
+  extern __shared__ __align__(16) float smem[];
+  const int N = p.N, pt = p.pt, ldn = N + kPad, ldp = pt + kPad, ldq = kQ + kPad;
+  float* Cr = smem;              // [kQ][ldn]
+  float* Br = Cr + kQ * ldn;     // [kQ][ldn]
+  float* Xr = Br + kQ * ldn;     // [kQ][ldp] x, this pass's columns
+  float* Yr = Xr + kQ * ldp;     // [kQ][ldp] dy, this pass's columns
+  float* Sm = Yr + kQ * ldp;     // [pt][ldn] S, this pass's rows of P
+  float* dSm = Sm + pt * ldn;    // [pt][ldn] dS, this pass's rows of P
+  float* M = dSm + pt * ldn;     // [kQ][ldq] (C B^T) L, then W
+  float* D = M + kQ * ldq;       // [kQ][ldq] DU L
+  float* red = D + kQ * ldq;     // [kBwdPT / 4][kQ] sum over 4 columns of P of du x
+  float* red_e = red + (kBwdPT / 4) * kQ;  // [kMaxN / 4][kQ] sum over 4 of N, e-term
+  float* red_t = red_e + (kMaxN / 4) * kQ;  // [kMaxN / 4][kQ] sum over 4 of N, t-term
+  float* la = red_t + (kMaxN / 4) * kQ;
+  float* cum = la + kQ;
+  float* dtv = cum + kQ;
+  float* ev = dtv + kQ;          // exp(cum)
+  float* tv = ev + kQ;           // exp(cum_Q - cum)
+  float* ddtx = tv + kQ;         // sum_p du x
+  float* dcum = ddtx + kQ;
+  float* tterm = dcum + kQ;      // t_j u_j^T dS B_j
+  float* ss = tterm + kQ;        // [kBwdThreads / 32] per-warp partial sums
+
+  const int tid = threadIdx.x, k = blockIdx.x, h = blockIdx.y, bi = blockIdx.z;
+  const int t0 = k * kQ, L = min(kQ, p.S - t0);
+  const float a = p.a[h];
+  const T* xg = static_cast<const T*>(p.x);
+  const T* yg = static_cast<const T*>(p.dy);
+  const T* bg = static_cast<const T*>(p.b);
+  const T* cg = static_cast<const T*>(p.c);
+  const long long row0 = (long long)bi * p.S;
+  const long long sbase = (((long long)bi * p.H + h) * p.NC + k) * p.P * N;  // [P][N] of chunk k
+
+  for (int e = tid; e < kQ * N; e += kBwdThreads) {
+    const int j = e / N, n = e - j * N;
+    float bv = 0.f, cv = 0.f;
+    if (j < L) {
+      const long long off = (row0 + t0 + j) * N + n;
+      bv = to_f(bg[off]);
+      cv = to_f(cg[off]);
+    }
+    Br[j * ldn + n] = bv;
+    Cr[j * ldn + n] = cv;
+  }
+  chunk_cumsum(p, row0, t0, L, h, a, la, cum, dtv);
+  __syncthreads();
+  if (tid < kQ) {
+    ev[tid] = expf(cum[tid]);
+    tv[tid] = expf(cum[kQ - 1] - cum[tid]);
+    ddtx[tid] = 0.f;
+  }
+
+  // this thread's block of [kQ][kQ] (M, DU, D, W): rows i0..i0 + 3, columns
+  // jb, jb + 16, jb + 32, jb + 48; none below the diagonal where jb > i0 + 3
+  const int i0 = (tid / (kQ / 4)) * 4, jb = tid % (kQ / 4);
+  const bool lower = jb <= i0 + 3;
+  {
+    float acc[4][4] = {};
+    if (lower) mma_nt(acc, Cr, ldn, Br, ldn, 0, N, i0, jb, kQ / 4);  // C_i . B_j
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int i = i0 + ii, j = jb + jj * (kQ / 4);
+        M[i * ldq + j] = j <= i ? acc[ii][jj] * expf(cum[i] - cum[j]) : 0.f;
+      }
+  }
+
+  // this thread's tiles of [kQ][N] (dB, dC): up to two
+  const int nt = N / 4, n_tiles = (kQ / 4) * nt;
+  float du_[4][4] = {};  // dy_i . x_j over the passes (dt_j applied after)
+  float dcs[2][4][4] = {}, dbs[2][4][4] = {};
+  float ss_part = 0.f;
+
+  for (int p0 = 0; p0 < p.P; p0 += pt) {
+    __syncthreads();  // the previous pass is consumed (and M written)
+    for (int e = tid; e < kQ * pt; e += kBwdThreads) {
+      const int j = e / pt, q = e - j * pt;
+      float xv = 0.f, yv = 0.f;
+      if (j < L) {
+        const long long off = ((row0 + t0 + j) * p.H + h) * p.P + p0 + q;
+        xv = to_f(xg[off]);
+        yv = to_f(yg[off]);
+      }
+      Xr[j * ldp + q] = xv;
+      Yr[j * ldp + q] = yv;
+    }
+    for (int e = tid; e < pt * N; e += kBwdThreads) {
+      const int q = e / N, n = e - q * N;
+      const long long off = sbase + (long long)(p0 + q) * N + n;
+      const float sv = p.states[off], dsv = p.dstates[off];
+      Sm[q * ldn + n] = sv;
+      dSm[q * ldn + n] = dsv;
+      ss_part = fmaf(sv, dsv, ss_part);
+    }
+    __syncthreads();
+
+    if (lower) mma_nt(du_, Yr, ldp, Xr, ldp, 0, pt, i0, jb, kQ / 4);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int t = tid + m * kBwdThreads;
+      if (t < n_tiles) {
+        const int r0 = (t / nt) * 4, c0 = (t % nt) * 4;
+        mma_nn(dcs[m], Yr, ldp, Sm, ldn, 0, pt, r0, c0);   // dy^T S
+        mma_nn(dbs[m], Xr, ldp, dSm, ldn, 0, pt, r0, c0);  // x^T dS
+      }
+    }
+    // du of this pass's columns (rows ju..ju + 3, columns qb + qs qq), dx,
+    // and du . x per row
+    const int qs = pt / 4;
+    if (tid < (kQ / 4) * qs) {
+      const int ju = (tid / qs) * 4, qb = tid % qs;
+      float u1[4][4] = {}, u2[4][4] = {};
+      for (int i = ju; i < kQ; ++i) {  // sum_{i>=j} M_ij dy_i
+        const float4 mv = lds4(M + i * ldq + ju);
+        const float a[4] = {mv.x, mv.y, mv.z, mv.w};
+        float b[4];
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) b[qq] = Yr[i * ldp + qb + qq * qs];
+        fma4x4(u1, a, b);
+      }
+      mma_nt(u2, Br, ldn, dSm, ldn, 0, N, ju, qb, qs);  // dS B_j
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = ju + jj;
+        const long long off = ((row0 + t0 + j) * p.H + h) * p.P + p0 + qb;
+        float s = 0.f;
+#pragma unroll
+        for (int qq = 0; qq < 4; ++qq) {
+          const float du = fmaf(tv[j], u2[jj][qq], u1[jj][qq]);
+          s = fmaf(du, Xr[j * ldp + qb + qq * qs], s);
+          if (p.dx && j < L) from_f(static_cast<T*>(p.dx) + off + qq * qs, du * dtv[j]);
+        }
+        red[qb * kQ + j] = s;
+      }
+    }
+    __syncthreads();
+    if (tid < kQ)
+      for (int r = 0; r < pt / 4; ++r) ddtx[tid] += red[r * kQ + tid];
+  }
+
+  // W = DU M into M, D = DU L: each thread its own block
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int i = i0 + ii, j = jb + jj * (kQ / 4);
+      const float du = du_[ii][jj] * dtv[j];
+      M[i * ldq + j] *= du;  // 0 above the diagonal
+      D[i * ldq + j] = j <= i ? du * expf(cum[i] - cum[j]) : 0.f;
+    }
+  // the state terms of dC and dB, their rows' shares of dcum, then the L terms
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int t = tid + m * kBwdThreads;
+    if (t < n_tiles) {
+      const int r0 = (t / nt) * 4, c0 = (t % nt) * 4;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int r = r0 + ii;
+        float se = 0.f, st = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          dcs[m][ii][cc] *= ev[r];
+          dbs[m][ii][cc] *= tv[r] * dtv[r];
+          se = fmaf(Cr[r * ldn + c0 + cc], dcs[m][ii][cc], se);
+          st = fmaf(Br[r * ldn + c0 + cc], dbs[m][ii][cc], st);
+        }
+        red_e[(c0 / 4) * kQ + r] = se;
+        red_t[(c0 / 4) * kQ + r] = st;
+      }
+    }
+  }
+  __syncthreads();  // D, W, red_e and red_t are written
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int t = tid + m * kBwdThreads;
+    if (t < n_tiles) {
+      const int r0 = (t / nt) * 4, c0 = (t % nt) * 4;
+      mma_tn(dbs[m], D, ldq, Cr, ldn, r0, kQ, r0, c0);      // sum_{i>=j} D_ij C_i
+      mma_nn(dcs[m], D, ldq, Br, ldn, 0, r0 + 4, r0, c0);  // sum_{j<=i} D_ij B_j
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int r = r0 + ii;
+        if (r >= L) break;
+        const long long off = ((row0 + t0 + r) * p.H + h) * N + c0;
+        const float(&gb)[4] = dbs[m][ii];
+        const float(&gc)[4] = dcs[m][ii];
+        if (p.db_part) store4(p.db_part + off, gb[0], gb[1], gb[2], gb[3]);
+        if (p.dc_part) store4(p.dc_part + off, gc[0], gc[1], gc[2], gc[3]);
+      }
+    }
+  }
+  {
+    // dcum of row r = tid / 4, each of its 4 threads over a quarter of the
+    // columns, then across the 4
+    const int r = tid >> 2, qq = tid & 3;
+    float sw = 0.f, se = 0.f, st = 0.f;
+    for (int j = qq * (kQ / 4); j < (qq + 1) * (kQ / 4); ++j) sw += M[r * ldq + j] - M[j * ldq + r];
+    for (int c = qq; c < nt; c += 4) {
+      se += red_e[c * kQ + r];
+      st += red_t[c * kQ + r];
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      sw += __shfl_xor_sync(0xffffffffu, sw, off);
+      se += __shfl_xor_sync(0xffffffffu, se, off);
+      st += __shfl_xor_sync(0xffffffffu, st, off);
+    }
+    if (qq == 0) {
+      dcum[r] = sw + se - st;
+      tterm[r] = st;
+    }
+    const float sum = warp_sum(ss_part);  // <dS, S>, a warp's share
+    if ((tid & 31) == 0) ss[tid >> 5] = sum;
+  }
+  __syncthreads();
+  if (tid < 32) {  // the cum_Q terms, into the last row's dcum
+    const float t_all = warp_sum(tterm[tid] + tterm[tid + 32]);
+    const float s_all = warp_sum(tid < kBwdThreads / 32 ? ss[tid] : 0.f);
+    if (tid == 0) dcum[kQ - 1] += t_all + expf(cum[kQ - 1]) * s_all;
+  }
+  __syncthreads();
+  // d(dt a) of each row, the reverse cumsum of dcum
+  scan_rows<true>(tid < kQ ? dcum[tid] : 0.f, la);
+  __syncthreads();
+  if (tid < kQ) {
+    const float dla = la[tid];
+    if (p.ddt && tid < L) p.ddt[(row0 + t0 + tid) * p.H + h] = fmaf(dla, a, ddtx[tid]);
+    const float share = warp_sum(dla * dtv[tid]);  // da: the rows' shares
+    if ((tid & 31) == 0) ss[tid >> 5] = share;
+  }
+  __syncthreads();
+  if (tid == 0 && p.da_part) p.da_part[((long long)bi * p.NC + k) * p.H + h] = ss[0] + ss[1];
+}
+
+// Pass 3: db and dc, each the sum over H of the heads' shares, and da the
+// sum over batch and chunks of theirs, each in a fixed order.
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) ssd_bwd_reduce(const BwdParams p) {
+  const long long n_out = (long long)p.B * p.S * p.N;
+  for (long long e = (long long)blockIdx.x * kBwdThreads + threadIdx.x; e < n_out;
+       e += (long long)gridDim.x * kBwdThreads) {
+    const long long src = (e / p.N) * p.H * p.N + e % p.N;  // [b, s][h = 0][n]
+    if (p.db) {
+      float s = 0.f;
+      for (int h = 0; h < p.H; ++h) s += p.db_part[src + (long long)h * p.N];
+      from_f(static_cast<T*>(p.db) + e, s);
+    }
+    if (p.dc) {
+      float s = 0.f;
+      for (int h = 0; h < p.H; ++h) s += p.dc_part[src + (long long)h * p.N];
+      from_f(static_cast<T*>(p.dc) + e, s);
+    }
+  }
+  if (p.da && blockIdx.x == 0)
+    for (int h = threadIdx.x; h < p.H; h += kBwdThreads) {
+      float s = 0.f;
+      for (long long r = 0; r < (long long)p.B * p.NC; ++r) s += p.da_part[r * p.H + h];
+      p.da[h] = s;
+    }
+}
+
 // ---------------------------------------------------------------- launch
 constexpr int kTmaError = -1000;  // kTmaError - CUresult: a tensor map the driver refused
+
+template <typename T>
+int launch_bwd(const BwdParams& p, cudaStream_t stream) {
+  const size_t states_bytes = ((size_t)kQ * (p.N + kPad) + (size_t)kQ * (p.pt + kPad) + 3 * kQ) *
+                              sizeof(float);
+  const size_t chunk_bytes = bwd_chunk_smem_floats(p.N, p.pt) * sizeof(float);
+  cudaError_t attr = cudaFuncSetAttribute(ssd_bwd_states<T>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)states_bytes);
+  if (attr == cudaSuccess)
+    attr = cudaFuncSetAttribute(ssd_bwd_chunk<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)chunk_bytes);
+  if (attr != cudaSuccess) return (int)attr;
+  ssd_bwd_states<T><<<dim3(p.P / p.pt, p.H, 2 * p.B), kBwdThreads, states_bytes, stream>>>(p);
+  cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  ssd_bwd_chunk<T><<<dim3(p.NC, p.H, p.B), kBwdThreads, chunk_bytes, stream>>>(p);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return (int)rc;
+  if (p.db || p.dc || p.da) {
+    const long long n_out = (long long)p.B * p.S * p.N;
+    const long long want = (n_out + kBwdThreads - 1) / kBwdThreads;
+    const int blocks = want < 4096 ? (int)want : 4096;
+    ssd_bwd_reduce<T><<<blocks, kBwdThreads, 0, stream>>>(p);
+    rc = cudaGetLastError();
+  }
+  return (int)rc;
+}
 
 template <typename T>
 int launch_fma(const Params& p, cudaStream_t stream) {
@@ -679,6 +1248,36 @@ extern "C" int ssd_scan_fwd(int dtype, int tensor_cores, const void* x, const vo
     return N > 64 ? launch_tc<2>(p, st) : launch_tc<1>(p, st);
   }
   return dtype == 1 ? launch_fma<__nv_bfloat16>(p, st) : launch_fma<float>(p, st);
+}
+
+// The backward of ssd_scan_fwd for the cotangents dy [B, S, H, P] (x's
+// dtype) and dstate [B, H, P, N] (float32, or null for zeros).  dtype as
+// above, for x, b, c, dy, dx, db and dc; dt, a, ddt, da and the scratch in
+// float32.  The scratch: states and dstates [B, H, ceil(S / 64), P, N];
+// db_part and dc_part [B, S, H, N] (each null where db, dc is); da_part
+// [B, ceil(S / 64), H] (null where da is).  A null output is not computed.
+// All tensors contiguous; the outputs and scratch 16-byte aligned.  Returns
+// as ssd_scan_fwd.
+extern "C" int ssd_scan_bwd(int dtype, const void* x, const void* dt, const void* a,
+                            const void* b, const void* c, const void* dy, const void* dstate,
+                            void* states, void* dstates, void* dx, void* ddt, void* db_part,
+                            void* dc_part, void* da_part, void* db, void* dc, void* da, int B,
+                            int S, int H, int P, int N, void* stream) {
+  if (dtype != 0 && dtype != 1) return -1;
+  const int NC = S < 1 ? 0 : (S + kQ - 1) / kQ;
+  if (B < 1 || S < 1 || H < 1 || 2 * B > 65535 || H > 65535 || N < 4 || N > kMaxN || N % 4 ||
+      P < 4 || P % 4 || (P > kBwdPT && P % kBwdPT) || (db && !db_part) || (dc && !dc_part) ||
+      (da && !da_part))
+    return -2;
+  const BwdParams p{x, static_cast<const float*>(dt), static_cast<const float*>(a), b, c, dy,
+                    static_cast<const float*>(dstate), static_cast<float*>(states),
+                    static_cast<float*>(dstates), dx, static_cast<float*>(ddt),
+                    static_cast<float*>(db_part), static_cast<float*>(dc_part),
+                    static_cast<float*>(da_part), db, dc, static_cast<float*>(da),
+                    B, S, H, P, N, NC, P > kBwdPT ? kBwdPT : P};
+  if (P / p.pt > 65535) return -2;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 1 ? launch_bwd<__nv_bfloat16>(p, st) : launch_bwd<float>(p, st);
 }
 
 extern "C" const char* ssd_scan_error_string(int code) {

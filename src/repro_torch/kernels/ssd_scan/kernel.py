@@ -1,8 +1,10 @@
 """ctypes binding of the hand-written CUDA SSD chunked scan
 (``csrc/ssd_scan.cu``), the Hopper counterpart of the JAX package's Pallas
-``_ssd_kernel``.  The library holds two kernels, and ``route`` says which one
-a launch takes.  It is built at first use; ``launches`` counts the launches
-since it was last set to 0."""
+``_ssd_kernel``, and of its backward, which replaces the JAX package's
+custom VJP (``BWD_REPLACES``).  The library holds two forward kernels, and
+``route`` says which one a launch takes.  It is built at first use;
+``launches`` counts the forward's launches and ``bwd_launches`` the
+backward's since each was last set to 0."""
 
 from __future__ import annotations
 
@@ -15,12 +17,14 @@ from .. import build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 REPLACES = "src/repro/kernels/ssd_scan/kernel.py:28"
+BWD_REPLACES = "src/repro/kernels/ssd_scan/ops.py:25"  # _ssd_bwd, jax.vjp of reference_ssd
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 64  # the kernel's chunk of rows (kQ in the source)
 MAX_STATE = 128  # largest N (kMaxN)
 P_TILE = 32  # columns of P per block (kMaxPT)
 
 launches = 0
+bwd_launches = 0
 _built: build.Built | None = None
 
 
@@ -38,6 +42,9 @@ def bind(built: build.Built) -> build.Built:
     fn = built.lib.ssd_scan_fwd
     fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    bwd = built.lib.ssd_scan_bwd
+    bwd.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    bwd.restype = ctypes.c_int
     built.lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
     built.lib.ssd_scan_error_string.restype = ctypes.c_char_p
     _built = built
@@ -64,7 +71,40 @@ def launch(x, dt, a, b, c, y, state) -> None:
                               x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
                               c.data_ptr(), y.data_ptr(), state.data_ptr(), bs, s, h, p, n,
                               stream)
+    _raise_on(lib, rc, "ssd_scan")
+    launches += 1
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def launch_bwd(x, dt, a, b, c, dy, dstate, scratch: dict, grads: dict) -> None:
+    """Launch the backward on the current stream: the inputs as ``launch``
+    takes them, dy [B, S, H, P] in x's dtype and dstate [B, H, P, N] fp32 or
+    None (zeros); ``scratch`` holds "states" and "dstates" [B, H, NC, P, N]
+    and, beside each gradient of b, c and a that is asked for, "db_part",
+    "dc_part" [B, S, H, N] and "da_part" [B, NC, H], all fp32; ``grads``
+    maps each of "dx", "ddt", "db", "dc", "da" to its output or None, which
+    is not computed.  Every tensor contiguous on one CUDA device, already
+    checked by ``ops``.  Raises if the launch is refused."""
+    global bwd_launches
+    lib = load().lib
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ssd_scan_bwd(
+            DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), dy.data_ptr(), _ptr(dstate), scratch["states"].data_ptr(),
+            scratch["dstates"].data_ptr(), *(_ptr(grads[k]) for k in ("dx", "ddt")),
+            *(_ptr(scratch.get(k)) for k in ("db_part", "dc_part", "da_part")),
+            *(_ptr(grads[k]) for k in ("db", "dc", "da")), bs, s, h, p, n, stream)
+    _raise_on(lib, rc, "ssd_scan backward")
+    bwd_launches += 1
+
+
+def _raise_on(lib, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.ssd_scan_error_string(rc).decode()
-        raise RuntimeError(f"ssd_scan kernel launch failed ({rc}): {msg}")
-    launches += 1
+        raise RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")

@@ -1,17 +1,19 @@
-"""Public SSD chunked-scan wrapper.
+"""Public SSD chunked-scan wrapper, differentiable.
 
 On a CPU tensor ``ssd`` computes the plain PyTorch version (``ref.py``) in
-chunks of ``chunk`` rows.  On a CUDA tensor it launches the hand-written
-kernel (``csrc/ssd_scan.cu``), which takes chunks of its own size
-(``kernel.CHUNK``; the result does not depend on the chunk), or raises:
-there is no fallback.  The library dispatches by dtype (``kernel.route``):
-bfloat16 x/b/c run on the tensor cores with the fp32 factors split into two
-bf16 terms, float32 on the FMA units, both hand-written.  Forward only on
-the card: there a call that would need a gradient raises
-``NotImplementedError``, since the kernel's outputs would carry none (the
-backward, which the JAX package's custom VJP recomputes through the
-sequential ``reference_ssd``, is ROADMAP B4).  The CPU path stays the
-differentiable plain version.
+chunks of ``chunk`` rows, and autograd differentiates it.  On a CUDA tensor
+it is an autograd function whose forward launches the hand-written kernel
+(``csrc/ssd_scan.cu``), which takes chunks of its own size
+(``kernel.CHUNK``; the result does not depend on the chunk), and whose
+backward launches the hand-written backward kernel of the same library, or
+raises: there is no fallback.  The forward dispatches by dtype
+(``kernel.route``): bfloat16 x/b/c run on the tensor cores with the fp32
+factors split into two bf16 terms, float32 on the FMA units.  The backward
+runs in fp32 on the FMA units for both, from the saved inputs, as the JAX
+package's custom VJP (``_ssd_bwd``) recomputes through the sequential
+``reference_ssd``: it recomputes each chunk's entry state and stores no
+residuals of the forward.  Its plain version is autograd through
+``ssd_chunked``, which the tests and ``chip_smoke.py`` hold it against.
 """
 
 from __future__ import annotations
@@ -54,21 +56,55 @@ def _check(x, dt, a, b, c) -> None:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
+def _cotangent(g, dtype):
+    """``g`` as the kernel reads it: in ``dtype`` and contiguous.  Autograd
+    hands a contiguous one in the model; a gradient broadcast from a
+    reduction (``ssd(...)[0].sum()`` hands over a stride-0 expand) is
+    copied, the only case."""
+    g = g.to(dtype)
+    return g if g.is_contiguous() else g.contiguous()
+
+
+class _SSD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c):
+        ctx.set_materialize_grads(False)  # an unused output's cotangent stays None
+        ctx.save_for_backward(x, dt, a, b, c)
+        bs, _, h, p = x.shape
+        y = torch.empty_like(x)
+        state = torch.empty((bs, h, p, b.shape[-1]), dtype=torch.float32, device=x.device)
+        kernel.launch(x, dt, a, b, c, y, state)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        x, dt, a, b, c = ctx.saved_tensors
+        need = dict(zip(("dx", "ddt", "da", "db", "dc"), ctx.needs_input_grad))
+        gy = torch.zeros_like(x) if gy is None else _cotangent(gy, x.dtype)
+        if gstate is not None:
+            gstate = _cotangent(gstate, torch.float32)
+        bs, s, h, p = x.shape
+        n, nc = b.shape[-1], -(-s // kernel.CHUNK)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        scratch = {"states": torch.empty((bs, h, nc, p, n), **f32),
+                   "dstates": torch.empty((bs, h, nc, p, n), **f32)}
+        for name, shape in (("db", (bs, s, h, n)), ("dc", (bs, s, h, n)), ("da", (bs, nc, h))):
+            if need[name]:
+                scratch[f"{name}_part"] = torch.empty(shape, **f32)
+        inputs = dict(zip(("dx", "ddt", "da", "db", "dc"), (x, dt, a, b, c)))
+        grads = {k: torch.empty_like(inputs[k]) if need[k] else None for k in inputs}
+        kernel.launch_bwd(x, dt, a, b, c, gy, gstate, scratch, grads)
+        return grads["dx"], grads["ddt"], grads["da"], grads["db"], grads["dc"]
+
+
 def ssd(x, dt, a, b, c, *, chunk: int = 256):
     """x [B,S,H,P]; dt [B,S,H] (softplus'ed, positive, fp32); a [H] (negative,
     fp32); b/c [B,S,N] -> (y [B,S,H,P] in ``x.dtype``, final state [B,H,P,N]
-    fp32), from a zero state.  Any S >= 1."""
+    fp32), from a zero state.  Any S >= 1.  Differentiable in every input;
+    the gradients come back in the inputs' dtypes."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, a, b, c, chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c)):
-        raise NotImplementedError(
-            "ssd has no backward on the card yet (ROADMAP B4): call it under "
-            "torch.no_grad(), or on CPU tensors for the differentiable plain version")
     _check(x, dt, a, b, c)
-    bs, _, h, p = x.shape
-    y = torch.empty_like(x)
-    state = torch.empty((bs, h, p, b.shape[-1]), dtype=torch.float32, device=x.device)
-    kernel.launch(x, dt, a, b, c, y, state)
-    return y, state
+    return _SSD.apply(x, dt, a, b, c)

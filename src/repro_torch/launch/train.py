@@ -3,7 +3,8 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \
       --steps 8 --batch 8 --seq 256
 
-  # small config on the CPU
+  # small config on the CPU; --arch granite-moe-1b-a400m (MoE) and
+  # --arch mamba2-1.3b (SSM) train the same way
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 3
 
 One device, random weights (seed 0), ``SyntheticLM`` batches (seed 0).  The

@@ -23,8 +23,12 @@ params this way.  ``train_loss`` takes the fp32 master params as ``init``
 makes them and casts on every call, as the reference does, so that the
 gradients reach the fp32 leaves.
 
-Encoder-decoder, multimodal frontends, MLA and hybrid attention/SSM stacks
-wait for later slices and raise ``NotImplementedError``.
+The entry points take the reference's parameters in its order.  ``impl``
+("xla" or "pallas") does not choose a path: the port takes its kernels on
+the card and their plain versions on the CPU either way.  ``mesh`` must be
+None (one device) and ``key`` is unused (no dropout).  Encoder-decoder,
+multimodal frontends, MLA and hybrid attention/SSM stacks wait for later
+slices and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +47,22 @@ __all__ = ["Model", "build_model"]
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+def _one_device(impl: str, mesh) -> None:
+    """The reference's ``impl`` and ``mesh``, in their places: both of its
+    ``impl`` values name the port's one path; a mesh waits for the
+    multi-device work (ROADMAP A11)."""
+    if impl not in ("xla", "pallas"):
+        raise NotImplementedError(f'impl must be "xla" or "pallas", got {impl!r}')
+    if mesh is not None:
+        raise NotImplementedError("the port's model runs on one device: mesh must be None")
+
+
+def _tokens(batch) -> torch.Tensor:
+    """The prompt tokens of ``batch``: the reference's ``{"tokens": [B, S]}``,
+    or the [B, S] tokens themselves."""
+    return batch["tokens"] if isinstance(batch, dict) else batch
 
 
 class Model:
@@ -94,12 +114,25 @@ class Model:
         return tree_map(lambda t: t.to(device=self.device, dtype=self.compute_dtype if t.dim() > 1
                                    else torch.float32), params)
 
+    def decay_mask(self, params: dict) -> dict:
+        """A bool per leaf of ``params``: whether AdamW decays it, as the
+        reference's ``_decay_mask`` (``ndim >= 2``) decides on its own tree.
+        There every layer leaf is stacked over the repeats of the layer
+        pattern when the pattern repeats, so a per-layer 1-D leaf (a norm
+        scale, a bias, the SSM's ``a_log``, ``dt_bias``, ``d_skip``) has two
+        dims there and is decayed; outside the layers only matrices are."""
+        stacked = self.cfg.n_layers // self.cfg.pattern_period() > 1
+        mask = {k: tree_map(lambda t: t.dim() >= 2, v) for k, v in params.items()
+                if k != "layers"}
+        mask["layers"] = tree_map(lambda t: t.dim() + stacked >= 2, params["layers"])
+        return mask
+
     # ---------------- caches ----------------
     def init_cache(self, batch: int, seq_len: int) -> dict:
         return tf.init_stack_cache(self.cfg, batch, seq_len, self.compute_dtype, self.device)
 
     # ---------------- training ----------------
-    def train_loss(self, params: dict, batch: dict):
+    def train_loss(self, params: dict, batch: dict, key=None, impl: str = "xla", mesh=None):
         """Mean next-token cross entropy of ``batch`` (``tokens`` and
         ``targets`` [B, S], an optional ``mask`` [B, S]; tensors or numpy
         arrays) under the fp32 master ``params``; returns (loss,
@@ -107,13 +140,9 @@ class Model:
         load-balancing loss summed over the layers (0 without them); for an
         MoE config the returned loss adds ``0.01 * aux_loss`` to the cross
         entropy, which ``metrics["loss"]`` holds alone, as in the reference.
-        Dense and MoE stacks: an SSM stack needs the SSD scan's backward
-        (ROADMAP B4)."""
+        Dense, MoE and attention-free SSM stacks."""
+        _one_device(impl, mesh)
         cfg = self.cfg
-        if not all(cfg.layer_is_attention(i) for i in range(cfg.n_layers)):
-            raise NotImplementedError(
-                f"{cfg.name}: SSM training is not ported yet (ROADMAP B4: the SSD scan's "
-                "backward)")
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         targets = torch.as_tensor(batch["targets"], device=self.device)
         b, s = tokens.shape
@@ -137,12 +166,14 @@ class Model:
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
         return x @ head.to(x.dtype)
 
-    def prefill(self, params: dict, tokens: torch.Tensor, last_pos=None):
-        """Forward over the prompt ``tokens`` [B, S]; returns (logits
+    def prefill(self, params: dict, batch, impl: str = "xla", mesh=None, last_pos=None):
+        """Forward over the prompt ``batch`` (``{"tokens": [B, S]}`` as the
+        reference takes it, or the tokens themselves); returns (logits
         [B, 1, V] at ``last_pos`` (default: the last position), caches).
         ``last_pos`` [B] selects the last real token of right-padded prompts;
         pair it with :meth:`mask_prompt_cache`."""
-        tokens = tokens.to(self.device)
+        _one_device(impl, mesh)
+        tokens = torch.as_tensor(_tokens(batch), device=self.device)
         b, s = tokens.shape
         x = params["embed"].to(self.compute_dtype)[tokens]
         positions = torch.arange(s, device=self.device).expand(b, s)
@@ -195,12 +226,13 @@ class Model:
         }
 
     def decode_step(self, params: dict, caches: dict, tokens: torch.Tensor, pos: torch.Tensor,
-                    ragged: bool = False):
+                    impl: str = "xla", mesh=None, ragged: bool = False):
         """One token per row: ``tokens`` [B, 1], ``pos`` [B] absolute
         positions.  ``ragged=False`` advances the batch in lockstep (one
         shared ring slot); ``ragged=True`` writes each row's own slot
         (continuous batching).  Writes into ``caches`` in place; returns
         (logits [B, 1, V], caches)."""
+        _one_device(impl, mesh)
         tokens = tokens.to(self.device)
         x = params["embed"].to(self.compute_dtype)[tokens]
         positions = pos.to(self.device)[:, None]

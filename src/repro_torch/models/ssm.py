@@ -6,10 +6,12 @@ Counterpart of the JAX package's ``models/ssm.py``.  The recurrence
 
 with a scalar A per head (the SSD restriction) runs in two ways:
 
-  * prefill: the whole prompt at once through ``kernels.ssd_scan`` -- the
-    hand-written chunked-scan kernel on the card, its plain chunked version
-    on the CPU (``kernels/ssd_scan/ref.py::ssd_chunked``, the port of the
-    reference's ``ssd_chunked``, in chunks of ``cfg.ssm.chunk_size``);
+  * prefill and training: the whole sequence at once through
+    ``kernels.ssd_scan`` -- the hand-written chunked-scan kernel on the card
+    (its backward a hand-written kernel too), its plain chunked version on
+    the CPU (``kernels/ssd_scan/ref.py::ssd_chunked``, the port of the
+    reference's ``ssd_chunked``, in chunks of ``cfg.ssm.chunk_size``),
+    differentiable either way;
   * decode: one token per row, in plain PyTorch (``ssd_step``), as the JAX
     package keeps it in XLA.
 

@@ -16,8 +16,8 @@ stack have no counterpart.  In training (grad mode on, no cache, no
 ``update_cache``) each block runs under ``torch.utils.checkpoint`` when
 ``cfg.remat`` is set, the counterpart of the JAX stack's ``jax.checkpoint``
 over the scanned block: its activations are recomputed in the backward
-pass, so attention's forward and the MoE layer's three grouped matmuls run
-twice a layer per step.  The recompute routes exactly as the forward did:
+pass, so attention's forward, the MoE layer's three grouped matmuls and
+the SSD scan's forward run twice a layer per step.  The recompute routes exactly as the forward did:
 routing depends only on the block's inputs.
 
 Cache layout, which the serving pool indexes: one flat dict whose every

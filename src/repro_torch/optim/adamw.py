@@ -57,26 +57,31 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
 
 
 def _decay_mask(leaf: torch.Tensor) -> bool:
-    """No weight decay on 1-D leaves (norm scales, biases)."""
+    """The reference's rule for one leaf: no weight decay on 1-D leaves (norm
+    scales, biases).  On a model's per-layer tree ``Model.decay_mask``
+    applies it as the reference does on its stacked tree."""
     return leaf.dim() >= 2
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, decay):
     """Returns (params, state, {"grad_norm", "lr"}), params and state
-    updated in place.  ``grads`` mirrors ``params``."""
+    updated in place.  ``grads`` mirrors ``params``, and so does ``decay``,
+    a bool per leaf that says whether it takes weight decay: a model's
+    params take ``Model.decay_mask``, the reference's decision on its
+    stacked tree; a plain tree ``tree_map(_decay_mask, params)``."""
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = cfg.betas
     bc1, bc2 = 1 - b1**step, 1 - b2**step
-    for p, g, m, v in zip(*map(tree_leaves, (params, grads, state["m"], state["v"]))):
+    for p, g, m, v, d in zip(*map(tree_leaves, (params, grads, state["m"], state["v"], decay))):
         g = g.float() * scale
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
         delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        if _decay_mask(p):
+        if d:
             delta.add_(p.float(), alpha=cfg.weight_decay)
         p.copy_(p.float().sub_(delta, alpha=lr))  # p.float() is p itself for fp32 leaves
     state["step"] = step

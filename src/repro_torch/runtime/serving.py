@@ -439,9 +439,17 @@ class ContinuousBatchingEngine:
         seed: int = 0,
         pad_id: int = 0,
         min_prompt_bucket: int = 8,
+        audit: bool = False,
+        tiers=None,
         max_queue_depth: Optional[int] = None,
+        obs=None,
     ):
         _one_device(mesh)
+        # the reference's parameters in its order; these wait for the rest of
+        # serving (ROADMAP A5)
+        for name, on in (("audit", audit), ("tiers", tiers is not None), ("obs", obs is not None)):
+            if on:
+                raise NotImplementedError(f"{name} is not ported yet (ROADMAP A5)")
         self.model = model
         self.params = model.load(params)
         self.pad_id = pad_id
@@ -480,12 +488,15 @@ class ContinuousBatchingEngine:
         arrival_time: Optional[float] = None,
         dispatch_weight: Optional[float] = None,
         now: Optional[float] = None,
+        session_id: Optional[int] = None,
         deadline: Optional[float] = None,
     ) -> int:
         """Enqueue one request; returns its request id.  Past
         ``max_queue_depth`` the request is rejected (state ``SHED``, no slot)
         and its id is still returned; past ``deadline`` an unadmitted request
-        is dropped."""
+        is dropped.  ``session_id`` (tiered sessions) waits for ROADMAP A5."""
+        if session_id is not None:
+            raise NotImplementedError("session_id is not ported yet (ROADMAP A5)")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")

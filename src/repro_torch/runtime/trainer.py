@@ -3,9 +3,10 @@
 Counterpart of the single-device branch of the JAX package's
 ``runtime/trainer.py`` (``make_train_step`` without a mesh, and
 ``Trainer``).  The step is ``Model.train_loss`` -> gradients of the fp32
-master params -> ``adamw_update``; with ``microbatches`` m > 1 the batch is
-split into m equal slices, the gradients are seeded from slice 0, summed
-and divided by m, and the loss is the mean of the slices' cross
+master params -> ``adamw_update``, with weight decay on the leaves the
+reference decays (``Model.decay_mask``); with ``microbatches`` m > 1 the
+batch is split into m equal slices, the gradients are seeded from slice 0,
+summed and divided by m, and the loss is the mean of the slices' cross
 entropies.  There is no jit: the step updates the params and the optimizer
 state in place (where the JAX ``Trainer.jitted_step`` donates their
 buffers) and returns them.
@@ -71,9 +72,14 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, pcfg=None, mesh=None,
             "the port's trainer runs on one device: a mesh and a ParallelConfig (the "
             "hierarchical and compressed gradient sync) wait for ROADMAP A11")
 
+    decay = None  # the decay mask depends only on the config and the tree: made at the first step
+
     def train_step(params, opt_state, batch):
+        nonlocal decay
+        if decay is None:
+            decay = model.decay_mask(params)
         grads, metrics = value_and_grads(model, params, batch, microbatches)
-        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
+        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg, decay)
         return params, opt_state, {**metrics, **om}
 
     return train_step

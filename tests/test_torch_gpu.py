@@ -111,17 +111,62 @@ def test_flash_gradients_on_card_match_cpu(cuda, dtype, shape):
 
 
 @pytest.mark.gpu
-def test_ssd_refuses_gradients_on_card(cuda):
-    """No backward kernel yet (ROADMAP B4): a call that would need a
-    gradient raises rather than returning an output without one."""
-    sx, dt, a, sb, sc = (torch.randn(1, 64, 2, 16, device=cuda, requires_grad=True),
-                         torch.rand(1, 64, 2, device=cuda) * 0.1 + 0.01,
-                         -torch.rand(2, device=cuda) - 0.5,
-                         torch.randn(1, 64, 16, device=cuda), torch.randn(1, 64, 16, device=cuda))
-    with pytest.raises(NotImplementedError, match="B4"):
-        ssd_ops.ssd(sx, dt, a, sb, sc)
-    with torch.no_grad():  # forward only: the kernel runs
-        assert ssd_ops.ssd(sx, dt, a, sb, sc)[0].shape == sx.shape
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_ssd_gradients_on_card_match_cpu(cuda, dtype):
+    """dx, ddt, da, db and dc through the forward and backward kernels on
+    the card against autograd through the plain ``ssd_chunked`` on the CPU,
+    with cotangents of y and of the final state, at a ragged S with rows of
+    dt = 0, tiny and negative; each within 5e-4 of its largest value in fp32
+    (``tests/test_kernels.py::test_ssd_grads``), 2e-2 in bf16 (dx, db and
+    dc are stored in bf16).  One backward launch; two passes bit-identical."""
+    rng = np.random.default_rng(6)
+    b, s, h, p, n = 2, 200, 4, 64, 128
+    host = [rng.normal(size=(b, s, h, p)), rng.uniform(0.001, 0.2, size=(b, s, h)),
+            -rng.uniform(0.5, 4.0, size=(h,)), rng.normal(size=(b, s, n)),
+            rng.normal(size=(b, s, n))]
+    host[1][:, ::7], host[1][:, 3::11], host[1][:, 5::13] = 0.0, 1e-30, -0.01
+    host = [torch.from_numpy(t.astype(np.float32)).to(dtype if i in (0, 3, 4) else torch.float32)
+            for i, t in enumerate(host)]
+    dy = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32)).to(dtype)
+    dh = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", cuda, cuda):
+        leaves = [t.to(dev).requires_grad_() for t in host]
+        before = ssd_kernel.bwd_launches
+        y, hf = ssd_ops.ssd(*leaves, chunk=64)
+        got = torch.autograd.grad([y, hf], leaves, [dy.to(dev), dh.to(dev)])
+        assert ssd_kernel.bwd_launches == before + (dev == cuda)
+        grads.setdefault(str(dev), []).append([g.cpu() for g in got])
+    assert all(torch.equal(u, v) for u, v in zip(*grads["cuda"]))
+    tol = 5e-4 if dtype == torch.float32 else TOL[dtype]
+    for g_card, g_cpu, x in zip(grads["cuda"][0], grads["cpu"][0], host):
+        assert g_card.dtype == x.dtype and bool(torch.isfinite(g_card.float()).all())
+        scale = g_cpu.float().abs().max()
+        torch.testing.assert_close(g_card.float(), g_cpu.float(), atol=tol * scale, rtol=0)
+
+
+@pytest.mark.gpu
+def test_ssm_train_steps_on_card_match_cpu(cuda):
+    """fp32 REDUCED mamba2, two Trainer steps from the same params on the
+    card (the SSD kernels forward, recompute and backward) and on the CPU:
+    losses within 1e-4."""
+    cfg = dataclasses.replace(get_config("mamba2-1.3b", reduced=True), compute_dtype="float32")
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=100, global_batch=4)
+    init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", cuda):
+        trainer = Trainer(build_model(cfg, device=dev), AdamWConfig(lr=1e-3, warmup_steps=2))
+        params = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(), init)
+        opt = adamw_init(params, trainer.opt_cfg)
+        before = (ssd_kernel.launches, ssd_kernel.bwd_launches)
+        losses[str(dev)] = []
+        for i in range(2):
+            params, opt, m = trainer.step(params, opt, pipe.global_batch_arrays(i))
+            losses[str(dev)].append(float(m["loss"]))
+        made = (ssd_kernel.launches - before[0], ssd_kernel.bwd_launches - before[1])
+        assert made == ((4 * cfg.n_layers, 2 * cfg.n_layers) if dev == cuda else (0, 0))
+        assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
 
 def _record_launches(monkeypatch):

@@ -7,6 +7,7 @@ rows of a step; mamba2's prompts below its chunk of 256, which the JAX
 package's SSD paths require of a prompt prefilled at its exact length)."""
 
 import dataclasses
+import inspect
 
 import jax
 import numpy as np
@@ -15,12 +16,14 @@ import torch
 
 from repro.configs.base import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
+from repro.models.model import Model as JaxModel
 from repro.runtime import serving as jax_serving
 from repro_torch.bridge import from_jax_params
 from repro_torch.configs.base import get_config
 from repro_torch.core import CollectiveCostModel
 from repro_torch.launch import serve
 from repro_torch.models import build_model
+from repro_torch.models.model import Model
 from repro_torch.runtime.serving import (
     SHED,
     ContinuousBatchingEngine,
@@ -238,11 +241,33 @@ def test_one_shot_engine_matches_reference_greedy_streams(pair):
     np.testing.assert_array_equal(got, want)
 
 
+def _params_of(fn):
+    """(name, default) of every parameter after ``self``."""
+    return [(p.name, p.default) for p in list(inspect.signature(fn).parameters.values())[1:]]
+
+
+@pytest.mark.parametrize("port,ref", [
+    (ContinuousBatchingEngine.__init__, jax_serving.ContinuousBatchingEngine.__init__),
+    (ContinuousBatchingEngine.submit, jax_serving.ContinuousBatchingEngine.submit),
+    (Model.prefill, JaxModel.prefill),
+    (Model.decode_step, JaxModel.decode_step),
+    (Model.train_loss, JaxModel.train_loss),
+], ids=["engine", "submit", "prefill", "decode_step", "train_loss"])
+def test_entry_points_take_the_reference_signature(port, ref):
+    """The reference's parameters, in its order, with its defaults."""
+    assert _params_of(port) == _params_of(ref)
+
+
 def test_engines_take_the_reference_parameter_order(pair):
-    """Both engines called positionally, as a caller of the JAX package
-    would: (model, params, n_slots, max_len, mesh) and (model, params,
-    max_len, mesh); generate (prompts, max_new_tokens, pad_id, temperature,
-    seed) and (prompts, max_new_tokens, temperature, eos_id)."""
+    """The engines and the model's entry points called positionally, as a
+    caller of the JAX package would: (model, params, n_slots, max_len,
+    mesh, ..., min_prompt_bucket, audit, tiers, max_queue_depth, obs) and
+    (model, params, max_len, mesh); generate (prompts, max_new_tokens,
+    pad_id, temperature, seed) and (prompts, max_new_tokens, temperature,
+    eos_id); submit (..., now, session_id, deadline); prefill (params,
+    batch, impl, mesh, last_pos); decode_step (params, caches, tokens, pos,
+    impl, mesh, ragged).  What is not ported raises: a mesh, audit, tiers,
+    obs, a session id, an impl that is neither "xla" nor "pallas"."""
     mj, pj, mt, pt = pair
     rng = np.random.default_rng(8)
     prompts = _prompts(rng, mt.cfg.vocab, [5, 9, 13, 3])
@@ -260,6 +285,42 @@ def test_engines_take_the_reference_parameter_order(pair):
                  lambda: ServingEngine(mt, pt, 48, object())):
         with pytest.raises(NotImplementedError, match="mesh"):
             make()
+
+    # the constructor's tail: max_queue_depth is 14th, after audit and tiers
+    eng = ContinuousBatchingEngine(mt, pt, 3, 48, None, None, None, "fcfs", 0, 0, 8, False,
+                                   None, 1, None)
+    assert eng.max_queue_depth == 1 and eng.min_prompt_bucket == 8
+    for i, value in ((11, True), (12, object()), (14, object())):  # audit, tiers, obs
+        args = [mt, pt, 3, 48, None, None, None, "fcfs", 0, 0, 8, False, None, None, None]
+        args[i] = value
+        with pytest.raises(NotImplementedError, match="A5"):
+            ContinuousBatchingEngine(*args)
+    # submit's tail: (..., now, session_id, deadline)
+    rid = eng.submit(prompts[0], 4, 0.0, None, None, None, 1.0, None, 2.5)
+    assert eng.requests[rid].deadline == 2.5 and eng.requests[rid].t_submit == 1.0
+    with pytest.raises(NotImplementedError, match="session_id"):
+        eng.submit(prompts[0], 4, 0.0, None, None, None, 1.0, 7)
+
+    # prefill and decode_step: impl and mesh before last_pos and ragged
+    toks = torch.as_tensor(np.stack([np.pad(p, (0, 13 - len(p))) for p in prompts]))
+    last = torch.as_tensor([len(p) - 1 for p in prompts])
+    with torch.no_grad():
+        want_logits, want_caches = mt.prefill(pt, toks, last_pos=last)
+        for impl in ("xla", "pallas"):
+            logits, caches = mt.prefill(pt, {"tokens": toks}, impl, None, last)
+            torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
+        caches = mt.prepare_decode_caches(want_caches, 32)
+        tok, pos = want_logits[:, 0].argmax(-1)[:, None], last + 1
+        want_step, _ = mt.decode_step(pt, {k: v.clone() for k, v in caches.items()}, tok, pos,
+                                      ragged=True)
+        step, _ = mt.decode_step(pt, caches, tok, pos, "pallas", None, True)
+        torch.testing.assert_close(step, want_step, rtol=0, atol=0)
+        for call in (lambda: mt.prefill(pt, toks, "triton"),
+                     lambda: mt.prefill(pt, toks, "xla", object()),
+                     lambda: mt.decode_step(pt, caches, tok, pos, "xla", object(), True),
+                     lambda: mt.decode_step(pt, caches, tok, pos, True)):
+            with pytest.raises(NotImplementedError):
+                call()
 
 
 def test_moe_continuous_engine_matches_reference_greedy_streams(moe_pair):

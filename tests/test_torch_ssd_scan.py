@@ -6,18 +6,28 @@ bf16 2e-2); at ragged S, which the JAX wrappers refuse (they assert that the
 chunk divides S), against the sequential oracle alone; with an initial state
 against the JAX ``ssd_chunked``.  Inputs come from seeded numpy generators.
 
-The CUDA kernel itself cannot run without a card; ``chip_smoke.py`` and
-``tests/test_torch_gpu.py`` hold it against this plain version on one.  Its
-bf16 arithmetic (fp32 factors split into two bf16 terms for the tensor
-cores) is emulated here in PyTorch and held against the fp32 plain version
-at mamba2-1.3b's widths."""
+Gradients: ``ops.ssd`` on the CPU (autograd through ``ssd_chunked``)
+against the JAX ``ssd``'s custom VJP around the Pallas kernel in interpret
+mode, at ``tests/test_kernels.py::test_ssd_grads``'s shape, and against
+``jax.vjp`` of the sequential oracle at ragged S, within that test's 5e-4
+of each gradient's largest value.
 
+The CUDA kernels themselves cannot run without a card; ``chip_smoke.py``
+and ``tests/test_torch_gpu.py`` hold them against this plain version on one.
+The forward's bf16 arithmetic (fp32 factors split into two bf16 terms for
+the tensor cores) is emulated here in PyTorch and held against the fp32
+plain version at mamba2-1.3b's widths; so are the backward kernel's passes
+(entry states, exit-state gradients, per-chunk gradients, the sums over
+heads) against autograd."""
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels.ssd_scan.kernel import ssd_scan as jax_ssd_scan
+from repro.kernels.ssd_scan.ops import ssd as jax_ssd
 from repro.kernels.ssd_scan.ref import reference_ssd as jax_reference_ssd
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels.ssd_scan import kernel, ops
@@ -217,3 +227,140 @@ def test_route_takes_tensor_cores_for_bf16_rows_tma_can_address():
     assert kernel.route(torch.float32, 64, 128) == "fma"
     assert kernel.route(torch.bfloat16, 12, 128) == "fma"
     assert kernel.route(torch.bfloat16, 64, 20) == "fma"
+
+
+# ---------------------------------------------------------------- backward
+GRAD_TOL = 5e-4  # tests/test_kernels.py::test_ssd_grads, of each gradient's largest value
+
+
+def _cotangents(b, s, h, p, n, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, s, h, p)).astype(np.float32),
+            rng.normal(size=(b, h, p, n)).astype(np.float32))
+
+
+def _port_grads(fn, arrays, dy, dh):
+    """Gradients of ``sum(y * dy) + sum(h_final * dh)`` through ``fn``
+    with respect to x, dt, a, b and c, as numpy."""
+    leaves = [torch.tensor(np.asarray(t, np.float32), requires_grad=True) for t in arrays]
+    y, hf = fn(*leaves)
+    grads = torch.autograd.grad([y, hf], leaves, [torch.from_numpy(dy), torch.from_numpy(dh)])
+    return [g.numpy() for g in grads]
+
+
+def _close_to_largest(got, want, tol):
+    """Each gradient within ``tol`` of the reference gradient's largest value."""
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc"), got, want):
+        w = np.asarray(w, np.float32)
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g, w, atol=tol * float(np.abs(w).max()), rtol=0, err_msg=name)
+
+
+def test_ssd_gradients_match_jax_custom_vjp():
+    """``tests/test_kernels.py::test_ssd_grads``'s shape and draw, with
+    cotangents of y and of the final state: the JAX ``ssd`` differentiates
+    through its custom VJP (the forward the Pallas kernel in interpret mode,
+    the backward ``jax.vjp`` of ``reference_ssd``)."""
+    rng = np.random.default_rng(8)
+    b, s, h, p, n = 1, 64, 2, 16, 16
+    arrays = [rng.normal(size=(b, s, h, p)), rng.uniform(0.001, 0.2, size=(b, s, h)),
+              -rng.uniform(0.5, 3.0, size=(h,)), rng.normal(size=(b, s, n)),
+              rng.normal(size=(b, s, n))]
+    jx = [jnp.asarray(t, jnp.float32) for t in arrays]
+    dy, dh = _cotangents(b, s, h, p, n, seed=9)
+    _, vjp = jax.vjp(lambda *t: jax_ssd(*t, chunk=32, interpret=True), *jx)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    got = _port_grads(lambda *t: ops.ssd(*t, chunk=32), arrays, dy, dh)
+    _close_to_largest(got, want, GRAD_TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(77, 32), (130, 64)])
+def test_ssd_gradients_at_ragged_s_match_reference_vjp(s, chunk):
+    """S that no chunk divides, which the JAX wrappers refuse: against
+    ``jax.vjp`` of the sequential oracle."""
+    b, h, p, n = 2, 3, 16, 32
+    arrays = _inputs(b, s, h, p, n, seed=s)
+    jx = [jnp.asarray(t, jnp.float32) for t in arrays]
+    dy, dh = _cotangents(b, s, h, p, n, seed=s + 1)
+    _, vjp = jax.vjp(jax_reference_ssd, *jx)
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    got = _port_grads(lambda *t: ops.ssd(*t, chunk=chunk), arrays, dy, dh)
+    _close_to_largest(got, want, GRAD_TOL)
+
+
+def _kernel_backward(x, dt, a, b, c, dy, dh, q=kernel.CHUNK):
+    """The CUDA backward's passes, emulated in fp32 (``csrc/ssd_scan.cu``,
+    ``ssd_bwd_states``, ``ssd_bwd_chunk``, ``ssd_bwd_reduce``): each chunk's
+    entry state by a forward walk and the gradient of its exit state by a
+    backward walk from ``dh``; then each chunk's gradients from those two
+    alone; then the heads' dB and dC and the chunks' da summed.  Rows past S
+    are zeros with dt = 0, as the kernel loads them."""
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = -(-s // q)
+
+    def rows(t, dim):  # [.., S, ..] -> [.., nc, q, ..], zeros past S
+        pad = [0, 0] * (t.dim() - 1 - dim) + [0, nc * q - s]
+        return torch.nn.functional.pad(t, pad).unflatten(dim, (nc, q))
+
+    xs, ys = rows(x.permute(0, 2, 1, 3), 2), rows(dy.permute(0, 2, 1, 3), 2)  # [B,H,nc,q,P]
+    d = rows(dt.permute(0, 2, 1), 2)  # [B,H,nc,q]
+    bc, cc = rows(b, 1)[:, None], rows(c, 1)[:, None]  # [B,1,nc,q,N]
+    cum = torch.cumsum(d * a[None, :, None, None], -1)
+    e, t, decay = torch.exp(cum), torch.exp(cum[..., -1:] - cum), torch.exp(cum[..., -1])
+    states, exits = [], [None] * nc
+    st = torch.zeros(bs, h, p, n)
+    for k in range(nc):
+        states.append(st)
+        xw = xs[:, :, k] * (t * d)[:, :, k, :, None]
+        st = decay[:, :, k, None, None] * st + xw.transpose(-1, -2) @ bc[:, :, k]
+    ds = dh
+    for k in reversed(range(nc)):
+        exits[k] = ds
+        ds = decay[:, :, k, None, None] * ds + (ys[:, :, k] * e[:, :, k, :, None]).transpose(
+            -1, -2) @ cc[:, :, k]
+    S, dS = torch.stack(states, 2), torch.stack(exits, 2)  # [B,H,nc,P,N]
+    mask = torch.ones(q, q, dtype=torch.bool).tril()
+    lij = torch.exp(torch.where(mask, cum[..., :, None] - cum[..., None, :], float("-inf")))
+    m = (cc @ bc.transpose(-1, -2)) * lij  # (C B^T) L
+    du_ = (ys @ xs.transpose(-1, -2)) * d[..., None, :]  # dy_i . u_j
+    du = m.transpose(-1, -2) @ ys + t[..., None] * (bc @ dS.transpose(-1, -2))
+    dcs = e[..., None] * (ys @ S)
+    dbs = (t * d)[..., None] * (xs @ dS)
+    w, dd = du_ * m, du_ * lij
+    tterm = (bc * dbs).sum(-1)
+    dcum = w.sum(-1) - w.sum(-2) + (cc * dcs).sum(-1) - tterm
+    dcum[..., -1] += tterm.sum(-1) + decay * (dS * S).sum((-1, -2))
+    dla = dcum.flip(-1).cumsum(-1).flip(-1)
+    db = (dbs + dd.transpose(-1, -2) @ cc).sum(1)  # over H
+    dc = (dcs + dd @ bc).sum(1)
+
+    def back(t, dim):  # [.., nc, q, ..] -> [.., S, ..]
+        return t.flatten(dim, dim + 1).narrow(dim, 0, s)
+
+    return (back(du * d[..., None], 2).permute(0, 2, 1, 3),
+            back(dla * a[None, :, None, None] + (du * xs).sum(-1), 2).permute(0, 2, 1),
+            (dla * d).sum((0, 2, 3)), back(db, 1), back(dc, 1))
+
+
+@pytest.mark.parametrize("s,edges", [(64, False), (200, False), (77, True), (1, False)])
+def test_kernel_backward_algorithm_matches_autograd(s, edges):
+    """The backward kernel's arithmetic, emulated in fp32, against autograd
+    through ``ssd_chunked``: ragged S, S of one row, and (``edges``) rows of
+    dt = 0, dt far below fp32's resolution next to 1 and dt < 0, as
+    ``tests/test_torch_gpu.py`` gives the forward."""
+    b, h, p, n = 2, 3, 8, 16
+    arrays = _inputs(b, s, h, p, n, seed=s + 20)
+    if edges:
+        arrays[1][:, ::7] = 0.0
+        arrays[1][:, 3::11] = 1e-30
+        arrays[1][:, 5::13] = -0.01
+    dy, dh = _cotangents(b, s, h, p, n, seed=s + 21)
+    want = _port_grads(lambda *t: ssd_chunked(*t, chunk=32), arrays, dy, dh)
+    t = [torch.tensor(np.asarray(v, np.float32)) for v in arrays]
+    got = [g.numpy() for g in _kernel_backward(*t, torch.from_numpy(dy), torch.from_numpy(dh))]
+    for g, w in zip(got, want):
+        if not np.abs(w).max():  # S = 1: da is 0 (the one row's decay cancels)
+            np.testing.assert_allclose(g, w, atol=1e-6)
+            continue
+        np.testing.assert_allclose(g, w, atol=GRAD_TOL * float(np.abs(w).max()), rtol=0)

@@ -1,8 +1,9 @@
 """The port's train path against the JAX package's: the loss, AdamW and its
-schedule, the synthetic data, the flash attention backward, ``train_loss``
-and its gradients (dense and MoE stacks, the MoE load-balancing loss
-included), block remat, microbatching, the ``Trainer`` and the launcher, on
-the REDUCED configs in fp32 on the CPU.
+schedule and weight-decay mask, the synthetic data, the flash attention
+backward, ``train_loss`` and its gradients (dense and MoE stacks, the MoE
+load-balancing loss included), block remat, microbatching, the ``Trainer``
+and the launcher, on the REDUCED configs in fp32 on the CPU.  The SSM
+stack's training is in ``tests/test_torch_train_ssm.py``.
 
 Weights are made by the JAX package and cross the bridge; gradients cross
 back with ``to_jax_params``; inputs come from seeded numpy generators.
@@ -27,6 +28,7 @@ from repro.kernels.flash_attention.ops import flash_attention as jax_flash_atten
 from repro.models import build_model as jax_build_model
 from repro.models.layers import cross_entropy_loss as jax_cross_entropy_loss
 from repro.optim import adamw as jax_adamw
+from repro.optim.adamw import _decay_mask as jax_decay_mask
 from repro.runtime.trainer import Trainer as JaxTrainer
 from repro_torch.bridge import from_jax_params, to_jax_params
 from repro_torch.configs.base import get_config
@@ -42,7 +44,14 @@ from repro_torch.runtime.trainer import Trainer, value_and_grads
 
 DENSE = ["internlm2-1.8b", "h2o-danube-1.8b", "qwen3-32b"]
 MOE = ["granite-moe-1b-a400m", "olmoe-1b-7b"]
+SSM = "mamba2-1.3b"
 B, S = 2, 96  # S > the h2o-danube REDUCED window of 64
+
+# Two intra-op threads per process.  Under pytest-xdist every worker imports
+# this module, so the cap holds in all of them: six workers of torch's
+# default (one thread per core) oversubscribe the cores, and the suite's
+# wall-clock-sensitive tests then fail under the load.
+torch.set_num_threads(2)
 
 
 def _np(x):
@@ -113,7 +122,8 @@ def test_adamw_update_matches_jax_with_clipping():
     st = adamw.adamw_init(pt, cfg_t)
     for g in grads:
         pj, sj, mj = jax_adamw.adamw_update(pj, g, sj, cfg_j)
-        pt, st, mt = adamw.adamw_update(pt, tree_map(torch.tensor, g), st, cfg_t)
+        pt, st, mt = adamw.adamw_update(pt, tree_map(torch.tensor, g), st, cfg_t,
+                                        tree_map(adamw._decay_mask, pt))
         assert float(mj["grad_norm"]) > cfg_t.clip_norm
         np.testing.assert_allclose(_np(mt["grad_norm"]), np.asarray(mj["grad_norm"]), rtol=1e-6)
         assert mt["lr"] == pytest.approx(float(mj["lr"]), rel=1e-6)
@@ -137,7 +147,8 @@ def test_adamw_decreases_loss_quadratic():
     l0 = float(loss(params).detach())
     for _ in range(50):
         g = torch.autograd.grad(loss(params), list(params.values()))
-        params, state, _ = adamw.adamw_update(params, dict(zip(params, g)), state, cfg)
+        params, state, _ = adamw.adamw_update(params, dict(zip(params, g)), state, cfg,
+                                              tree_map(adamw._decay_mask, params))
     assert float(loss(params).detach()) < 0.1 * l0
 
 
@@ -259,19 +270,21 @@ def _count_gmm(monkeypatch):
 
 @pytest.mark.parametrize("arch,name", [("granite-moe-1b-a400m", "MoE"), ("mamba2-1.3b", "SSM")])
 def test_train_loss_refuses_moe_and_ssm_stacks(arch, name):
-    """SSM stacks still refuse (ROADMAP B4: the SSD scan's backward); MoE
-    stacks train since the grouped matmul got its backward: a finite loss
-    with a positive load-balancing loss, and a finite gradient that reaches
-    every leaf."""
+    """MoE and SSM stacks train (the grouped matmul and the SSD scan have
+    their backward): a finite loss, with a positive load-balancing loss on
+    MoE, and a finite gradient that reaches every leaf.  What ``train_loss``
+    still refuses on them is what the port has not ported: a mesh and an
+    ``impl`` that is neither of the reference's."""
     model = build_model(get_config(arch, reduced=True), device="cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    if name == "SSM":
-        with pytest.raises(NotImplementedError, match=f"{name} training"):
-            model.train_loss(params, batch_of(model.cfg.vocab, s=16))
-        return
-    params = tree_map(lambda t: t.requires_grad_(), params)
-    loss, metrics = model.train_loss(params, batch_of(model.cfg.vocab, s=16))
-    assert bool(torch.isfinite(loss)) and float(metrics["aux_loss"].detach()) > 0
+    params = tree_map(lambda t: t.requires_grad_(), model.init(torch.Generator().manual_seed(0)))
+    batch = batch_of(model.cfg.vocab, s=16)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        model.train_loss(params, batch, mesh=object())
+    with pytest.raises(NotImplementedError, match="impl"):
+        model.train_loss(params, batch, impl="triton")
+    loss, metrics = model.train_loss(params, batch)
+    assert bool(torch.isfinite(loss))
+    assert (float(metrics["aux_loss"].detach()) > 0) == (name == "MoE")
     grads = torch.autograd.grad(loss, tree_leaves(params))
     assert all(bool(torch.isfinite(g).all()) and bool(g.any()) for g in grads)
 
@@ -387,6 +400,30 @@ def test_moe_trainer_loss_curve_matches_jax():
         assert opt_t["step"] == int(opt_j["step"]) == i + 1
     np.testing.assert_allclose(got, want, rtol=1e-4)
     assert got[-1][0] < got[0][0]
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m", SSM])
+def test_decay_mask_matches_the_reference_on_its_stacked_tree(arch):
+    """The reference's ``_decay_mask`` (``ndim >= 2``) on its own tree, where
+    the layers are stacked over the pattern's repeats, equals
+    ``Model.decay_mask`` leaf by leaf; with one layer nothing is stacked and
+    the 1-D leaves are not decayed."""
+    for n_layers in (None, 1):
+        mj, pj, mt = make_pair(arch)
+        if n_layers:
+            cfg_j = dataclasses.replace(mj.cfg, n_layers=n_layers)
+            pj = jax.tree.map(np.asarray, jax_build_model(cfg_j).init(jax.random.PRNGKey(0)))
+            mt = build_model(dataclasses.replace(mt.cfg, n_layers=n_layers), device="cpu")
+        mask = mt.decay_mask(from_jax_params(mt.cfg, pj))
+        got = to_jax_params(mt.cfg, tree_map(lambda d: torch.tensor(d), mask))
+        want = jax.tree.map(lambda a: bool(jax_decay_mask(a)), pj)
+        flat = [np.asarray(g) for g in jax.tree.leaves(got)]  # one bool per layer of a leaf
+        assert all(g.all() == g.any() for g in flat)
+        assert [bool(g.all()) for g in flat] == jax.tree.leaves(want)
+        if n_layers == 1:
+            assert not mask["layers"][0]["ln1"]
+        elif arch == SSM:
+            assert mask["layers"][0]["mixer"]["a_log"] and mask["layers"][0]["mixer"]["dt_bias"]
 
 
 def test_trainer_refuses_a_mesh_and_a_parallel_config():
