@@ -4,10 +4,10 @@ of a checkout: ``python3 chip_smoke.py``).  It imports only ``repro_torch``,
 torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, the three kernel
-   libraries (the SSD scan's with its backward) built from the sources in
-   the checkout (one nvcc each, started together), with
-   ptxas's registers, spills, any compiler warning and any note that it
-   serialised wgmma instructions;
+   libraries (flash attention's and the SSD scan's each with its backward)
+   built from the sources in the checkout (one nvcc each, started
+   together), with ptxas's registers and spills by kernel, any compiler
+   warning and any note that it serialised wgmma instructions;
 2. every kernel against its plain PyTorch version on the card.  Flash
    attention at the shapes of the kernel sweep, of both attention paths (every
    prefill group of 1, 2 or 4 rows at every bucket of 128 to 2048 tokens:
@@ -61,28 +61,36 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    layers, with the SSD kernel's part;
 5. card against CPU: each model cut to 2 layers in fp32, prefill and 8
    ragged decode steps on both; greedy tokens equal, logits within 1e-3;
-6. the train path: flash attention's dq, dk and dv (kernel forward,
-   recomputed plain backward) against autograd through the plain version on
-   the card, at the train shape, a windowed shape and in fp32; the grouped
-   matmul's and the expert FFN's gradients (every product through the
-   kernel, the transposed operands read in place) against autograd through
-   the plain versions, in bf16 and fp32; flash's forward and the plain
-   backward timed beside SDPA's forward and backward, each with its bound;
-   then internlm2-1.8b, granite-moe-1b-a400m and mamba2-1.3b at full width
-   (bf16 compute, fp32 master weights, random weights from seed 0) each
-   trained 8 steps through ``Trainer`` on ``SyntheticLM`` batches (B 8, S
-   256, seed 0): flash attention launched twice per attention layer and
-   step (forward and remat recompute), the grouped matmul 12 times per MoE
-   layer and step (3 forward, 3 recompute, 3 dx and 3 dw), the SSD scan
-   twice per SSM layer and step and its backward once, a finite loss that
-   falls, the MoE load-balancing loss, a finite non-zero gradient for every
-   parameter, step wall, tokens/s, peak memory and one profiled step; for
-   granite and mamba2 two gradient passes of one batch that are
-   bit-identical; then each model cut to 2 layers in fp32 trained 3 steps on
-   the card and on the CPU, gradients within 1e-4 of each leaf's largest
-   value, losses within 1e-4 relative and params within 1e-4;
-7. a JSON line of the kernels (the SSD backward beside the three forward
-   kernels), and as the last line
+6. the train path: flash attention's backward kernel (dq, dk and dv from
+   the forward kernel's o and logsumexp rows) against the plain
+   ``attention_backward`` and against autograd through the plain
+   ``reference_attention`` on the card, and the forward kernel's logsumexp
+   rows against the plain ``attention_forward``'s: at the train shapes of
+   internlm2-1.8b (D 128) and granite-moe-1b-a400m (D 64), a windowed
+   shape, qwen3-32b's group of 8 query heads per kv head, a ragged S, a
+   non-causal shape, every head dim, fused-qkv views, and in fp32 at the
+   card-vs-CPU train shapes; the grouped matmul's and the expert FFN's
+   gradients (every product through the kernel, the transposed operands
+   read in place) against autograd through the plain versions, in bf16 and
+   fp32; at both train shapes flash's forward beside SDPA's, and its
+   backward kernel beside ``attention_backward``, the old recompute
+   (autograd through ``reference_attention``) and SDPA's backward, each
+   with its bound; then internlm2-1.8b, granite-moe-1b-a400m and
+   mamba2-1.3b at full width (bf16 compute, fp32 master weights, random
+   weights from seed 0) each trained 8 steps through ``Trainer`` on
+   ``SyntheticLM`` batches (B 8, S 256, seed 0): flash attention launched
+   twice per attention layer and step (forward and remat recompute) and its
+   backward once, the grouped matmul 12 times per MoE layer and step (3
+   forward, 3 recompute, 3 dx and 3 dw), the SSD scan twice per SSM layer
+   and step and its backward once, a finite loss that falls, the MoE
+   load-balancing loss, a finite non-zero gradient for every parameter,
+   two gradient passes of one batch that are bit-identical, step wall,
+   tokens/s, peak memory and one profiled step; then each model cut to 2
+   layers in fp32 trained 3 steps on the card and on the CPU, gradients
+   within 1e-4 of each leaf's largest value, losses within 1e-4 relative
+   and params within 1e-4;
+7. a JSON line of the kernels (the flash and SSD backwards beside the
+   three forward kernels), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
@@ -95,6 +103,7 @@ import dataclasses
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -110,7 +119,8 @@ from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
-from repro_torch.kernels.flash_attention.ref import reference_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_backward, attention_forward, reference_attention)
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel  # noqa: E402
 from repro_torch.kernels.moe_gmm import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
@@ -145,9 +155,11 @@ FP32_LOGITS_BOUND = 1e-3
 DENSE, MOE, SSM = "internlm2-1.8b", "granite-moe-1b-a400m", "mamba2-1.3b"
 ARCHS = (DENSE, MOE, SSM)
 KERNELS = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel, "ssd_scan": ssd_kernel}
-# launch counters by kernel: the SSD backward is a kernel of the SSD library
-# with a counter of its own
-COUNTERS = {"flash_attention": (fa_kernel, "launches"), "moe_gmm": (gmm_kernel, "launches"),
+# launch counters by kernel: each backward is a kernel of its forward's
+# library with a counter of its own
+COUNTERS = {"flash_attention": (fa_kernel, "launches"),
+            "flash_attention_bwd": (fa_kernel, "bwd_launches"),
+            "moe_gmm": (gmm_kernel, "launches"),
             "ssd_scan": (ssd_kernel, "launches"), "ssd_scan_bwd": (ssd_kernel, "bwd_launches")}
 MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
 MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
@@ -170,6 +182,10 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS, TRAIN_CPU_LR = 2, 128, 3, 3e-4
 TRAIN_CPU_TOL = 1e-4
 # flash dq/dk/dv against autograd through the plain version
 FLASH_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# the forward kernel's logsumexp rows against the plain version's: both sum
+# fp32 exponentials of the same fp32 scores (the kernel's one ex2.approx
+# each, 2^-22 relative); a wrong base or scale is off by O(1)
+LSE_TOL = 1e-4
 # the SSD backward's dx, ddt, da, db, dc against autograd through the plain
 # ssd_chunked, each relative to its largest value: the JAX package's 5e-4 in
 # fp32 (tests/test_kernels.py::test_ssd_grads), the per-kernel bf16 one in
@@ -256,6 +272,18 @@ class Shape:
         nbytes = self.b * self.s * self.d * (2 * self.h + 2 * self.kv) * (
             2 if self.dtype == torch.bfloat16 else 4
         )
+        t_ops, t_bytes = ops / PEAK_OPS[self.dtype], nbytes / PEAK_BYTES
+        return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+    def bwd_bound(self) -> tuple[float, str]:
+        """The backward's least time: five products over the attended pairs
+        (the scores again, dV, dP, dQ, dK) at the peak of the inputs' type,
+        and its bytes: q, k, v, o, dO and the fp32 lse rows read once, dq,
+        dk and dv written once."""
+        elem = 2 if self.dtype == torch.bfloat16 else 4
+        ops = 10.0 * self.b * self.h * self.d * self.attended_pairs()
+        nbytes = (self.b * self.s * self.d * (4 * self.h + 4 * self.kv) * elem
+                  + 4 * self.b * self.h * self.s)
         t_ops, t_bytes = ops / PEAK_OPS[self.dtype], nbytes / PEAK_BYTES
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -408,8 +436,7 @@ def phase_card_and_build() -> tuple[str, str]:
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc each
         built = dict(zip(KERNELS, pool.map(lambda k: k.load(), KERNELS.values())))
     for name, b in built.items():
-        ptxas = "; ".join(line.split("ptxas info    : ")[-1].strip()
-                          for line in b.log.splitlines() if "Used " in line or "spill" in line)
+        ptxas = "; ".join(_ptxas_by_kernel(b.log))
         warnings = [line.strip() for line in b.log.splitlines() if "warning" in line.lower()]
         serialised = [line.split("ptxas info    : ")[-1].strip() for line in b.log.splitlines()
                       if "Potential Performance Loss" in line]
@@ -419,6 +446,36 @@ def phase_card_and_build() -> tuple[str, str]:
             log(f"phase 1 build: {name} warning: {w}")
     log(f"phase 1 build: all {len(built)} kernels in {time.perf_counter() - t0:.1f} s wall")
     return smi, kind
+
+
+def _kernel_label(mangled: str) -> str:
+    """A kernel's name and first template argument from its mangled name
+    (``flash_bwd_dkdv_bf16<128>``, ``flash_bwd_prep<f>``), skipping the
+    anonymous namespace."""
+    pos, name = (3 if mangled.startswith("_ZN") else 2), ""
+    while m := re.match(r"\d+", mangled[pos:]):
+        start = pos + m.end()
+        name, pos = mangled[start:start + int(m.group())], start + int(m.group())
+        if not name.startswith("_GLOBAL__N"):
+            break
+    if not name:
+        return mangled[:48]
+    arg = re.match(r"IL[ijb](\d+)E|I(?:\d+)?([A-Za-z_]\w*?)E", mangled[pos:])
+    return f"{name}<{arg.group(1) or arg.group(2)}>" if arg else name
+
+
+def _ptxas_by_kernel(log: str) -> list[str]:
+    """ptxas's registers and spills of each kernel of a build log."""
+    out, name, spill = [], "?", ""
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name = _kernel_label(m.group(1))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = "" if m.group(1) == m.group(2) == "0" else f", spills {m.group(1)}/{m.group(2)} B"
+        elif m := re.search(r"Used (\d+) registers", line):
+            out.append(f"{name} {m.group(1)} regs{spill}")
+            spill = ""
+    return out
 
 
 def main_shape(rows: int, bucket: int, arch: str = DENSE) -> Shape:
@@ -836,7 +893,8 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     decode step, the SSD scan once per SSM layer and prefill (decode keeps
     the plain ``ssd_step``)."""
     n_attn, n_moe, n_ssm = layer_kinds(cfg)
-    return {"flash_attention": n_attn * prefills, "moe_gmm": 3 * n_moe * (prefills + decode_steps),
+    return {"flash_attention": n_attn * prefills, "flash_attention_bwd": 0,
+            "moe_gmm": 3 * n_moe * (prefills + decode_steps),
             "ssd_scan": n_ssm * prefills, "ssd_scan_bwd": 0}
 
 
@@ -1098,32 +1156,74 @@ def phase_card_vs_cpu(arch: str, steps: int = 8) -> None:
 
 def _flash_grads(shape: Shape, q, k, v, cot, plain: bool):
     """dq, dk, dv of ``sum(attention(q, k, v) * cot)``: through the port's
-    autograd function (kernel forward, recomputed plain backward), or with
-    ``plain`` through autograd of the plain version."""
+    autograd function (the forward and backward kernels), or with ``plain``
+    through autograd of the plain version."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     attend = reference_attention if plain else fa_ops.flash_attention
     out = attend(*leaves, causal=shape.causal, window=shape.window)
     return torch.autograd.grad(out, leaves, cot)
 
 
-def phase_check_flash_grads() -> None:
-    """Flash attention's gradients on the card against autograd through the
-    plain version: the train shape, a windowed shape (window < S) and fp32."""
-    shapes = [train_shape(), Shape(2, 512, 16, 8, 128, torch.bfloat16, window=128),
-              train_shape(torch.float32)]
+def flash_grad_shapes() -> list[Shape]:
+    """Phase 6's backward shapes: the train shapes of internlm2 (D 128) and
+    granite (D 64) first, then a windowed shape (window < S), qwen3-32b's
+    group of 8 query heads per kv head, a ragged S (a short last tile of
+    each kernel), S of 1, non-causal shapes, every head dim at a small shape,
+    fused-qkv views, and the card-vs-CPU train shapes in fp32."""
+    bf16 = torch.bfloat16
+    cfg = get_config("qwen3-32b")
+    return ([train_shape(), train_shape(arch=MOE),
+             Shape(2, 512, 16, 8, 128, bf16, window=128),
+             Shape(1, 512, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, bf16),
+             Shape(2, 200, 16, 8, 128, bf16), Shape(2, 1, 16, 8, 64, bf16),
+             Shape(1, 256, 16, 8, 128, bf16, causal=False),
+             Shape(2, 129, 16, 8, 64, bf16, causal=False, window=50)]
+            + [Shape(2, 200, 4, 2, d, dt) for dt in (bf16, torch.float32)
+               for d in fa_kernel.HEAD_DIMS]
+            + [Shape(2, 333, 16, 8, 128, bf16, fused=True),
+               Shape(1, 129, 32, 8, 80, torch.float32, window=64, fused=True)]
+            + [train_shape(torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, arch)
+               for arch in (DENSE, MOE)])
+
+
+def phase_check_flash_grads() -> tuple[float, set[Shape]]:
+    """Flash attention's backward kernel on the card, through the autograd
+    function (one forward and one backward launch), against the plain
+    ``attention_backward`` (from the plain forward's o and lse) and against
+    autograd through the plain ``reference_attention``, on the same inputs,
+    within ``FLASH_GRAD_TOL``; and the forward kernel's logsumexp rows
+    against ``attention_forward``'s within ``LSE_TOL``.  Returns the max
+    error against ``attention_backward`` at internlm2's train shape and the
+    shapes checked."""
+    main, main_err = train_shape(), 0.0
+    shapes = flash_grad_shapes()
     for shape in shapes:
         q, k, v = shape.inputs(seed=3)
         cot = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(4),
                           device="cuda").to(shape.dtype)
-        before = fa_kernel.launches
+        before = (fa_kernel.launches, fa_kernel.bwd_launches)
         got = _flash_grads(shape, q, k, v, cot, plain=False)
-        want = _flash_grads(shape, q, k, v, cot, plain=True)
         torch.cuda.synchronize()
-        if fa_kernel.launches != before + 1 or any(g.dtype != shape.dtype for g in got):
-            raise SystemExit(f"flash_attention backward at {shape}: {fa_kernel.launches - before} "
+        made = (fa_kernel.launches - before[0], fa_kernel.bwd_launches - before[1])
+        if made != (1, 1) or any(g.dtype != shape.dtype for g in got):
+            raise SystemExit(f"flash_attention backward at {shape}: {made} (forward, backward) "
                              f"launches, dtypes {[g.dtype for g in got]}")
-        _check("flash_attention dq/dk/dv", shape, tuple(got), tuple(want),
-               FLASH_GRAD_TOL[shape.dtype], phase=6)
+        mask = dict(causal=shape.causal, window=shape.window)
+        _, lse = fa_ops._forward(q, k, v, shape.causal, shape.window, True)
+        o_plain, lse_plain = attention_forward(q, k, v, **mask)
+        _check("flash_attention lse", shape, lse, lse_plain, LSE_TOL, phase=6)
+        plain = attention_backward(q, k, v, o_plain, lse_plain, cot, **mask)
+        tol = FLASH_GRAD_TOL[shape.dtype]
+        err = _check("flash_attention_bwd dq/dk/dv vs attention_backward", shape, tuple(got),
+                     plain, tol, phase=6)
+        want = _flash_grads(shape, q, k, v, cot, plain=True)
+        _check("flash_attention_bwd dq/dk/dv vs autograd through reference_attention", shape,
+               tuple(got), tuple(want), tol, phase=6)
+        if shape == main:
+            main_err = err
+        del q, k, v, cot, got, plain, want, lse, lse_plain, o_plain
+        torch.cuda.empty_cache()
+    return main_err, set(shapes)
 
 
 def _grads(fn, inputs, cot):
@@ -1183,40 +1283,55 @@ def phase_check_gmm_grads() -> None:
         gmm_kernel.launch = launch
 
 
-def phase_time_flash_backward() -> None:
-    """At the train shape: the kernel's forward beside SDPA's, and the port's
-    backward (the plain version recomputed and differentiated) beside
-    SDPA's backward, each with its bound.  The backward's bound counts five
-    products over the attended pairs (the scores again, dV, dP, dQ, dK) and
-    q, k, v, dO read and dq, dk, dv written once."""
-    shape = train_shape()
-    q, k, v = (t.detach().requires_grad_() for t in shape.inputs(seed=1))
-    cot = torch.randn(q.shape, device="cuda", dtype=shape.dtype)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
-                                                  enable_gqa=True)
-    fwd = lambda: fa_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    with torch.no_grad():
-        ms, lib_ms = cuda_ms(fwd, iters=20), cuda_ms(sdpa, iters=20)
-    out, out_s = fwd(), sdpa()
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), cot, retain_graph=True),
-                     iters=10)
-    lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out_s, (q, k, v), cot.transpose(1, 2),
-                                                     retain_graph=True), iters=10)
-    bound_ms, bound_by = shape.bound()
-    elem = 2 if shape.dtype == torch.bfloat16 else 4
-    t_ops = 10.0 * shape.b * shape.h * shape.d * shape.attended_pairs() / PEAK_OPS[shape.dtype]
-    t_bytes = shape.b * shape.s * shape.d * (3 * shape.h + 4 * shape.kv) * elem / PEAK_BYTES
-    bwd_bound = max(t_ops, t_bytes) * 1e3
-    log(f"phase 6 time flash_attention {shape} forward: kernel {ms:.4f} ms, library (sdpa) "
-        f"{lib_ms:.4f} ms, kernel/library {ms / lib_ms:.2f}, bound {bound_ms:.4f} ms ({bound_by})")
-    log(f"phase 6 time flash_attention {shape} backward: plain (recompute + autograd) "
-        f"{bwd_ms:.4f} ms, library (sdpa backward) {lib_bwd_ms:.4f} ms, plain/library "
-        f"{bwd_ms / lib_bwd_ms:.2f}, bound {bwd_bound:.4f} ms "
-        f"({'operations' if t_ops >= t_bytes else 'bytes'})")
+def phase_time_flash_backward() -> dict:
+    """At the train shapes of internlm2 and granite: the forward kernel beside
+    SDPA's forward, and the backward kernel (autograd's backward of
+    ``ops.flash_attention``: its scratch, outputs and one launch of three
+    kernels) beside the plain ``attention_backward``, the recompute it
+    replaced (autograd through ``reference_attention``, forward included, as
+    the port's backward ran before) and SDPA's backward, each with its
+    bound (``Shape.bound``, ``Shape.bwd_bound``).  Returns internlm2's
+    backward row."""
+    rows = []
+    for arch in (DENSE, MOE):
+        shape = train_shape(arch=arch)
+        q, k, v = (t.detach().requires_grad_() for t in shape.inputs(seed=1))
+        cot = torch.randn(q.shape, device="cuda", dtype=shape.dtype)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+        fwd = lambda: fa_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+        with torch.no_grad():
+            ms, lib_ms = cuda_ms(fwd, iters=20), cuda_ms(sdpa, iters=20)
+            o_plain, lse_plain = attention_forward(q, k, v, causal=True)
+            plain_ms = cuda_ms(lambda: attention_backward(q, k, v, o_plain, lse_plain, cot,
+                                                          causal=True), iters=10, warmup=1)
+        out, out_s = fwd(), sdpa()
+        bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), cot, retain_graph=True),
+                         iters=20)
+        recompute_ms = cuda_ms(lambda: torch.autograd.grad(
+            reference_attention(q, k, v, causal=True), (q, k, v), cot), iters=10, warmup=1)
+        lib_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out_s, (q, k, v), cot.transpose(1, 2),
+                                                         retain_graph=True), iters=20)
+        bound_ms, bound_by = shape.bound()
+        bwd_bound, bwd_by = shape.bwd_bound()
+        log(f"phase 6 time flash_attention {shape} forward: kernel {ms:.4f} ms, library (sdpa) "
+            f"{lib_ms:.4f} ms, kernel/library {ms / lib_ms:.2f}, bound {bound_ms:.4f} ms "
+            f"({bound_by})")
+        log(f"phase 6 time flash_attention_bwd {shape}: kernel {bwd_ms:.4f} ms, plain "
+            f"(attention_backward) {plain_ms:.4f} ms, recompute (autograd through "
+            f"reference_attention) {recompute_ms:.4f} ms, library (sdpa backward) "
+            f"{lib_bwd_ms:.4f} ms, kernel/library {bwd_ms / lib_bwd_ms:.2f}, bound "
+            f"{bwd_bound:.4f} ms ({bwd_by}); kernel at {100 * bwd_bound / bwd_ms:.1f}% of bound")
+        rows.append(dict(shape=str(shape), ms=bwd_ms, plain_ms=plain_ms, library_ms=lib_bwd_ms,
+                         bound_ms=bwd_bound, bound_by=bwd_by))
+        del q, k, v, cot, qt, kt, vt, out, out_s, o_plain, lse_plain
+        torch.cuda.empty_cache()
+    return rows[0]
 
 
-KERNEL_CLASSES = (("flash_attention", ("flash_fwd",)), ("moe_gmm", ("gmm_bf16", "gmm_f32")),
+KERNEL_CLASSES = (("flash_attention", ("flash_fwd",)), ("flash_attention_bwd", ("flash_bwd",)),
+                  ("moe_gmm", ("gmm_bf16", "gmm_f32")),
                   ("ssd_scan", ("ssd_fwd",)), ("ssd_scan_bwd", ("ssd_bwd",)),
                   ("matmul", ("gemm", "nvjet", "cutlass", "xmma")),
                   ("elementwise", ("elementwise",)), ("reduction", ("reduce",)))
@@ -1270,24 +1385,27 @@ def _train_opt(steps: int, lr: float) -> AdamWConfig:
 def train_launches(cfg, passes: int) -> dict:
     """Launches of ``passes`` gradient passes (one per train step): with
     remat, flash attention twice per attention layer (forward and
-    recompute); the grouped matmul 12 times per MoE layer (three products
-    forward, three recomputed, and the dx and dw of each); the SSD scan
-    twice per SSM layer (forward and recompute) and its backward once."""
+    recompute) and its backward once; the grouped matmul 12 times per MoE
+    layer (three products forward, three recomputed, and the dx and dw of
+    each); the SSD scan twice per SSM layer (forward and recompute) and its
+    backward once."""
     n_attn, n_moe, n_ssm = layer_kinds(cfg)
     fwd = 2 if cfg.remat else 1
-    return {"flash_attention": fwd * n_attn * passes, "moe_gmm": (3 * fwd + 6) * n_moe * passes,
+    return {"flash_attention": fwd * n_attn * passes, "flash_attention_bwd": n_attn * passes,
+            "moe_gmm": (3 * fwd + 6) * n_moe * passes,
             "ssd_scan": fwd * n_ssm * passes, "ssd_scan_bwd": n_ssm * passes}
 
 
-def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape],
-                ssd_checked: set[SsdShape], ssd_grad_checked: set[SsdShape]) -> dict:
+def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Shape],
+                gmm_checked: set[GmmShape], ssd_checked: set[SsdShape],
+                ssd_grad_checked: set[SsdShape]) -> dict:
     """``arch`` at full width trained ``TRAIN_STEPS`` steps through
     ``Trainer``; returns the launches the run made by kernel.  Fails unless
-    every kernel ran as often as ``train_launches`` says, at shapes phase 2
-    checked, the loss is finite and falls, and every parameter gets a
-    finite, non-zero gradient; for an MoE or SSM model also unless two
-    gradient passes of one batch are bit-identical, and for an MoE model
-    unless its load-balancing loss is finite and positive."""
+    every kernel ran as often as ``train_launches`` says, at shapes phases 2
+    and 6 checked (the backwards' too), the loss is finite and falls, every
+    parameter gets a finite, non-zero gradient and two gradient passes of
+    one batch are bit-identical; for an MoE model also unless its
+    load-balancing loss is finite and positive."""
     cfg = get_config(arch)
     model = build_model(cfg)
     trainer = Trainer(model, _train_opt(TRAIN_STEPS, TRAIN_LR))
@@ -1320,9 +1438,11 @@ def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     want = train_launches(cfg, TRAIN_STEPS)
     if launches != want:
         raise SystemExit(f"{cfg.name} training: launches {launches}, want {want}")
-    if n_attn and train_shape(arch=arch) not in flash_checked:
-        raise SystemExit(f"training launched flash_attention at {train_shape(arch=arch)}, "
-                         "unchecked")
+    if n_attn and not (train_shape(arch=arch) in flash_checked
+                       and train_shape(arch=arch) in flash_grad_checked):
+        raise SystemExit(f"training launched flash_attention (forward and backward) at "
+                         f"{train_shape(arch=arch)}, which phases 2 and 6 did not check in both "
+                         "directions")
     ssd_train = train_ssd_shapes()[0]
     if n_ssm and not (ssd_train in ssd_checked and ssd_train in ssd_grad_checked):
         raise SystemExit(f"training launched ssd_scan (forward and backward) at {ssd_train}, "
@@ -1343,16 +1463,15 @@ def phase_train(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     log(f"phase 6 train {cfg.name} full width, B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} steps: "
         f"loss " + " ".join(f"{x:.4f}" for x in losses) + " (finite, falling) ok; gnorm "
         + " ".join(f"{x:.3f}" for x in gnorms))
-    if moe or n_ssm:
-        # the same batch again: the backward's gathers and products
-        # (models/moe.py) and the SSD backward's sums over heads and chunks
-        # must repeat bit for bit
-        again, _ = value_and_grads(model, params, batches[0])
-        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(again)))
-        del again
-        if not same:
-            raise SystemExit(f"{cfg.name}: two gradient passes of batch 0 differ")
-        log(f"phase 6 train {cfg.name}: two gradient passes of batch 0 bit-identical ok")
+    # the same batch again: the flash backward's sums over query tiles and
+    # heads, the MoE backward's gathers and products (models/moe.py) and the
+    # SSD backward's sums over heads and chunks must repeat bit for bit
+    again, _ = value_and_grads(model, params, batches[0])
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(again)))
+    del again
+    if not same:
+        raise SystemExit(f"{cfg.name}: two gradient passes of batch 0 differ")
+    log(f"phase 6 train {cfg.name}: two gradient passes of batch 0 bit-identical ok")
     if moe:
         with torch.no_grad():
             aux = float(model.train_loss(params, batches[0])[1]["aux_loss"])
@@ -1458,12 +1577,12 @@ def main() -> int:
     phase_prefill_profile()
     for arch in ARCHS:
         phase_card_vs_cpu(arch)
-    phase_check_flash_grads()
+    fa_bwd_err, fa_grad_checked = phase_check_flash_grads()
     phase_check_gmm_grads()
-    phase_time_flash_backward()
+    fa_bwd_rep = phase_time_flash_backward()
     for arch in ARCHS:
-        paths[f"train {arch}"] = phase_train(arch, fa_checked, gmm_checked, ssd_checked,
-                                             ssd_grad_checked)
+        paths[f"train {arch}"] = phase_train(arch, fa_checked, fa_grad_checked, gmm_checked,
+                                             ssd_checked, ssd_grad_checked)
     for arch in ARCHS:
         phase_train_card_vs_cpu(arch)
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
@@ -1473,6 +1592,7 @@ def main() -> int:
     kernels = []
     for name, mod, replaces, err, rep in (
             ("flash_attention", fa_kernel, fa_kernel.REPLACES, fa_err, fa_rep),
+            ("flash_attention_bwd", fa_kernel, fa_kernel.BWD_REPLACES, fa_bwd_err, fa_bwd_rep),
             ("moe_gmm", gmm_kernel, gmm_kernel.REPLACES, gmm_err, gmm_rep),
             ("ssd_scan", ssd_kernel, ssd_kernel.REPLACES, ssd_err, ssd_rep),
             ("ssd_scan_bwd", ssd_kernel, ssd_kernel.BWD_REPLACES, ssd_bwd_err, ssd_bwd_rep)):

@@ -112,6 +112,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// ``bytes`` contiguous bytes of global memory into shared memory, completing
+// on ``bar``; both addresses 16-byte aligned, ``bytes`` a multiple of 16
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // a box of shared memory (in the map's swizzle) to ``map`` at coordinates
 // (innermost first); elements out of the tensor's bounds are not written.
 // One thread issues it, commits it with bulk_commit and, before the shared

@@ -13,7 +13,8 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels.flash_attention import kernel, ops
-from repro_torch.kernels.flash_attention.ref import reference_attention
+from repro_torch.kernels.flash_attention.ref import (attention_backward, attention_forward,
+                                                     reference_attention)
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.kernels.moe_gmm.ref import reference_grouped_matmul
@@ -90,8 +91,9 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype):
 @pytest.mark.parametrize("dtype,shape", [(torch.bfloat16, (2, 256, 16, 8, 128, True, 0)),
                                          (torch.float32, (1, 200, 4, 2, 64, True, 64))])
 def test_flash_gradients_on_card_match_cpu(cuda, dtype, shape):
-    """dq, dk and dv through the kernel's forward and the recomputed plain
-    backward on the card against the same on the CPU, in q's dtypes."""
+    """dq, dk and dv through the forward and backward kernels on the card (one
+    launch each) against the same autograd function on the CPU (the plain
+    versions), in q's dtypes."""
     b, s, h, kv, d, causal, window = shape
     rng = np.random.default_rng(3)
     host = [torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(np.float32)).to(dtype)
@@ -100,14 +102,51 @@ def test_flash_gradients_on_card_match_cpu(cuda, dtype, shape):
     grads = {}
     for dev in ("cpu", cuda):
         leaves = [t.to(dev).requires_grad_() for t in host]
-        before = kernel.launches
+        before = (kernel.launches, kernel.bwd_launches)
         out = ops.flash_attention(*leaves, causal=causal, window=window)
         grads[str(dev)] = torch.autograd.grad(out, leaves, cot.to(dev))
-        assert kernel.launches == before + (dev == cuda)
+        made = (kernel.launches - before[0], kernel.bwd_launches - before[1])
+        assert made == ((1, 1) if dev == cuda else (0, 0))
     tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
     for g_card, g_cpu in zip(grads["cuda"], grads["cpu"]):
         assert g_card.dtype == dtype
         torch.testing.assert_close(g_card.cpu().float(), g_cpu.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_backward_kernel_matches_plain_version(cuda, dtype):
+    """The backward kernel's dq, dk and dv against ``attention_backward`` on
+    the same inputs (o and lse from the plain forward there, from the kernel
+    here, which must agree with them), at a windowed GQA shape with a short
+    last tile and on q, k and v as views of one fused buffer; two passes
+    bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for b, s, h, kv, d, window, fused in ((2, 300, 8, 2, 64, 100, False),
+                                          (2, 333, 16, 8, 128, 0, True)):
+        if fused:
+            qkv = torch.randn(b, s, h + 2 * kv, d, generator=gen, device=cuda).to(dtype)
+            q, k, v = qkv.split([h, kv, kv], dim=2)
+        else:
+            q, k, v = (torch.randn(b, s, n, d, generator=gen, device=cuda).to(dtype)
+                       for n in (h, kv, kv))
+        cot = torch.randn(b, s, h, d, generator=gen, device=cuda).to(dtype)
+        passes = []
+        for _ in range(2):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            before = kernel.bwd_launches
+            out = ops.flash_attention(*leaves, causal=True, window=window)
+            passes.append(torch.autograd.grad(out, leaves, cot))
+            assert kernel.bwd_launches == before + 1
+        assert all(torch.equal(a, c) for a, c in zip(*passes))
+        _, lse = ops._forward(q, k, v, True, window, True)
+        o_plain, lse_plain = attention_forward(q, k, v, causal=True, window=window)
+        torch.testing.assert_close(lse, lse_plain, atol=1e-4, rtol=1e-4)
+        want = attention_backward(q, k, v, o_plain, lse_plain, cot, causal=True, window=window)
+        tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+        for g, w, x in zip(passes[0], want, (q, k, v)):
+            assert g.dtype == dtype and g.shape == x.shape
+            torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
 
 
 @pytest.mark.gpu
@@ -261,7 +300,8 @@ def test_moe_train_steps_on_card_match_cpu(cuda):
 @pytest.mark.gpu
 def test_train_steps_on_card_match_cpu(cuda):
     """fp32 REDUCED internlm2, two Trainer steps from the same params on the
-    card (flash kernel forward) and on the CPU: losses within 1e-4."""
+    card (the flash kernels: forward, remat recompute and backward) and on
+    the CPU: losses within 1e-4."""
     cfg = dataclasses.replace(get_config("internlm2-1.8b", reduced=True), compute_dtype="float32")
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=64, global_batch=4)
     init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
@@ -270,12 +310,13 @@ def test_train_steps_on_card_match_cpu(cuda):
         trainer = Trainer(build_model(cfg, device=dev), AdamWConfig(lr=1e-3, warmup_steps=2))
         params = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(), init)
         opt = adamw_init(params, trainer.opt_cfg)
-        before = kernel.launches
+        before = (kernel.launches, kernel.bwd_launches)
         losses[str(dev)] = []
         for i in range(2):
             params, opt, m = trainer.step(params, opt, pipe.global_batch_arrays(i))
             losses[str(dev)].append(float(m["loss"]))
-        assert kernel.launches - before == (4 * cfg.n_layers if dev == cuda else 0)
+        made = (kernel.launches - before[0], kernel.bwd_launches - before[1])
+        assert made == ((4 * cfg.n_layers, 2 * cfg.n_layers) if dev == cuda else (0, 0))
         assert all(bool(torch.isfinite(t).all()) for t in tree_leaves(params))
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
 
