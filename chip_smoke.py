@@ -31,20 +31,24 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    state must also be within 1e-4 of the plain version relative to its
    largest value.  The SSD backward (dx, ddt, da, db, dc) against autograd
    through the plain ``ssd_chunked``, each gradient within 5e-4 (fp32) or
-   2e-2 (bf16) of its largest value: at mamba2's train shapes (bf16 B 8 x S
-   256, fp32 B 2 x S 128), at a ragged S with the final state's cotangent,
-   with rows of dt = 0, tiny and negative, and at the JAX package's
-   gradient-test shape.  Phases 4 and 6 fail if they launched a kernel at a
-   shape this phase did not check;
+   2e-2 (bf16) of its largest value, on the route ``bwd_route`` names (the
+   tensor cores for bf16 with P <= 64 and P, N multiples of 8; the FMA
+   units otherwise): at mamba2's train shapes (bf16 B 8 x S 256, fp32 B 2 x
+   S 128), at a ragged S with the final state's cotangent, with rows of dt
+   = 0, tiny and negative, at the JAX package's gradient-test shape, at the
+   edges of the wgmma route's tiles and at a bf16 shape of the FMA route.
+   Phases 4 and 6 fail if they launched a kernel at a shape this phase did
+   not check;
 3. kernel times at the main-path shapes beside the plain version, one
    library call the port never calls (``scaled_dot_product_attention``,
    ``torch.bmm``, on the same transposed views for the backward products;
    no single PyTorch call computes the SSD scan), the kernel-to-library
    ratio and the least time the card could take (bound); the grouped
    matmul's dx and dw at granite's train shapes; the SSD scan at all nine
-   served mamba2 shapes; the SSD backward at mamba2's train shape, beside
+   served mamba2 shapes; the SSD backward at mamba2's train shape on its
+   wgmma route, beside the FMA route on the same inputs (timed in turns),
    the plain backward (autograd through ``ssd_chunked``) and its bound at
-   the peak of the inputs' type;
+   the peak of the inputs' type, and each route's device time by kernel;
 4. the three main paths at full width (random weights from a seed, bf16),
    each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
@@ -82,15 +86,17 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    twice per attention layer and step (forward and remat recompute) and its
    backward once, the grouped matmul 12 times per MoE layer and step (3
    forward, 3 recompute, 3 dx and 3 dw), the SSD scan twice per SSM layer
-   and step and its backward once, a finite loss that falls, the MoE
-   load-balancing loss, a finite non-zero gradient for every parameter,
-   two gradient passes of one batch that are bit-identical, step wall,
+   and step and its backward once (on the wgmma route in bf16), a finite
+   loss that falls, the MoE load-balancing loss, a finite non-zero
+   gradient for every parameter, two gradient passes of one batch that are
+   bit-identical, step wall,
    tokens/s, peak memory and one profiled step; then each model cut to 2
    layers in fp32 trained 3 steps on the card and on the CPU, gradients
    within 1e-4 of each leaf's largest value, losses within 1e-4 relative
    and params within 1e-4;
 7. a JSON line of the kernels (the flash and SSD backwards beside the
-   three forward kernels), and as the last line
+   three forward kernels; the SSD backward's launches by route and its FMA
+   route's time beside), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
@@ -160,7 +166,8 @@ KERNELS = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel, "ssd_scan": ssd_
 COUNTERS = {"flash_attention": (fa_kernel, "launches"),
             "flash_attention_bwd": (fa_kernel, "bwd_launches"),
             "moe_gmm": (gmm_kernel, "launches"),
-            "ssd_scan": (ssd_kernel, "launches"), "ssd_scan_bwd": (ssd_kernel, "bwd_launches")}
+            "ssd_scan": (ssd_kernel, "launches"), "ssd_scan_bwd": (ssd_kernel, "bwd_launches"),
+            "ssd_scan_bwd_wgmma": (ssd_kernel, "bwd_wgmma_launches")}
 MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
 MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
 N_SLOTS, NEW_TOKENS = 4, 32
@@ -191,6 +198,11 @@ LSE_TOL = 1e-4
 # fp32 (tests/test_kernels.py::test_ssd_grads), the per-kernel bf16 one in
 # bf16 (dx, db and dc come back in bf16)
 SSD_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 5e-4}
+# ddt and da, which both backward routes store in fp32, in bf16: the wgmma
+# route's two-term split of its fp32 factors reads about 4e-6 of each one's
+# largest value, plain bf16 factors 4e-4 to 3e-3 (the CPU emulation,
+# tests/test_torch_ssd_scan.py::TC_GRAD_REL), so this holds the split
+SSD_FP32_STORE_TOL = 1e-4
 # the expert FFN's gradients against autograd through its plain version: the
 # JAX package's 2e-3 in fp32 (tests/test_kernels.py), the grouped matmul's
 # bf16 tolerance in bf16 (the two round silu(gate) * up to bf16 alike)
@@ -225,6 +237,23 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
             return start.elapsed_time(end) / iters
         cycles *= 4
     raise SystemExit("cuda_ms: the host could not queue the timed calls ahead of the device")
+
+
+def device_ms_by_kernel(fn, calls: int = 5) -> str:
+    """Device ms per call of each kernel that ``fn`` launches, by
+    torch.profiler over ``calls`` calls: where the time of a call of
+    several kernels goes."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:  # "void (anonymous namespace)::name<T>(args)" -> "name<T>"
+            m = re.search(r"(\w+(?:<[^()]*?>)?)\(", e.key)
+            parts.append(f"{m.group(1) if m else e.key[:40]} {e.self_device_time_total / 1e3 / calls:.4f}")
+    return ", ".join(parts) if parts else "the profiler saw no device time (not measured)"
 
 
 def _dt(dtype) -> str:
@@ -402,9 +431,9 @@ class SsdShape:
 
     def bwd_bound(self) -> tuple[float, str]:
         """The backward's least time: its products at the peak of the
-        inputs' type, as ``bound`` (the bf16 tensor cores meet phase 2's
-        bf16 gradient tolerance; the kernel itself computes on the fp32 FMA
-        units for both dtypes), and its bytes, ``bwd_nbytes``.  Per head the
+        inputs' type, as ``bound`` (for bf16 the tensor cores, on which the
+        wgmma route computes them; each product counts once, not once per
+        bf16 term), and its bytes, ``bwd_nbytes``.  Per head the
         forward walk's state updates over every chunk but the last and the
         backward walk's over every chunk but the first, 2 L P N each; per
         chunk C B^T (once for all heads), and per head dy u^T and the
@@ -784,23 +813,38 @@ def _ssd_grads(fn, args, dy, dh=None):
     return torch.autograd.grad(outs, leaves, cots)
 
 
-def phase_check_ssd_grads() -> tuple[float, set[SsdShape]]:
-    """The SSD backward kernel, through ``ops.ssd``'s autograd function,
-    against autograd through the plain ``ssd_chunked`` on the same inputs on
-    the card: at mamba2's train shapes (bf16 B 8 x S 256, and the
-    card-vs-CPU fp32 B 2 x S 128) with the cotangent of y only, as training
-    gives it; at a ragged S (200 rows: a last chunk of 8) with the final
-    state's cotangent too, and with rows of dt = 0, tiny and negative, in
-    both dtypes; and at the JAX package's gradient-test shape.  Each of dx,
-    ddt, da, db and dc within ``SSD_GRAD_TOL`` of its largest value, in its
-    input's dtype, and finite; one backward launch each.  Returns the max
-    abs error at the bf16 train shape and the shapes checked."""
-    main = train_ssd_shapes()[0]
-    cases = [(sh, False) for sh in train_ssd_shapes()]  # (shape, with the state's cotangent)
+def ssd_grad_cases() -> list[tuple[SsdShape, bool]]:
+    """Phase 2's backward cases, (shape, with the final state's cotangent):
+    mamba2's train shapes (bf16 B 8 x S 256, the card-vs-CPU fp32 B 2 x S
+    128) with the cotangent of y only, as training gives it; the JAX
+    package's gradient-test shape; a ragged S (200 rows: a last chunk of 8)
+    with the final state's cotangent, and with rows of dt = 0, tiny and
+    negative, in both dtypes; and in bf16 the wgmma route's edges (N of one
+    box, P of 8 and 16, three heads, which make groups of one) and a shape
+    it does not take (P 12, N 20: the FMA route)."""
+    bf16 = torch.bfloat16
+    cases = [(sh, False) for sh in train_ssd_shapes()]
     cases += [(SsdShape(1, 64, 2, 16, 16, torch.float32, 32), False)]
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, bf16):
         cases += [(SsdShape(2, 200, 4, 64, 128, dt, 64), True),
                   (SsdShape(2, 200, 4, 64, 128, dt, 64, edges=True), False)]
+    cases += [(SsdShape(1, 64, 2, 16, 16, bf16, 32), False), (SsdShape(2, 130, 4, 8, 16, bf16, 64), True),
+              (SsdShape(2, 130, 3, 16, 32, bf16, 64), True), (SsdShape(2, 100, 3, 12, 20, bf16, 64), True)]
+    return cases
+
+
+def phase_check_ssd_grads() -> tuple[float, set[SsdShape]]:
+    """The SSD backward kernels, through ``ops.ssd``'s autograd function,
+    against autograd through the plain ``ssd_chunked`` on the same inputs on
+    the card, at ``ssd_grad_cases``: each of dx, ddt, da, db and dc within
+    ``SSD_GRAD_TOL`` of its largest value (ddt and da in bf16 within
+    ``SSD_FP32_STORE_TOL``), in its input's dtype, and finite;
+    one backward launch each, on the route ``bwd_route`` names (the wgmma
+    route at every bf16 case it takes, the FMA route in fp32 and at the bf16
+    shape it does not take).  Returns the max abs error at the bf16 train
+    shape and the shapes checked."""
+    main = train_ssd_shapes()[0]
+    cases = ssd_grad_cases()
     main_err = 0.0
     for shape, with_state in cases:
         args = shape.inputs(seed=7)
@@ -808,22 +852,28 @@ def phase_check_ssd_grads() -> tuple[float, set[SsdShape]]:
         dy = torch.randn(args[0].shape, generator=gen, device="cuda").to(shape.dtype)
         dh = (torch.randn(shape.b, shape.h, shape.p, shape.n, generator=gen, device="cuda")
               if with_state else None)
-        before = ssd_kernel.bwd_launches
+        way = ssd_kernel.bwd_route(shape.dtype, shape.p, shape.n)
+        before = (ssd_kernel.bwd_launches, ssd_kernel.bwd_wgmma_launches)
         got = _ssd_grads(ssd_ops.ssd, args, dy, dh)
         torch.cuda.synchronize()
-        if ssd_kernel.bwd_launches != before + 1 or any(g.dtype != t.dtype
-                                                        for g, t in zip(got, args)):
-            raise SystemExit(f"ssd_scan backward at {shape}: {ssd_kernel.bwd_launches - before} "
-                             f"launches, dtypes {[g.dtype for g in got]}")
+        made = (ssd_kernel.bwd_launches - before[0], ssd_kernel.bwd_wgmma_launches - before[1])
+        if made != (1, int(way == "wgmma")) or any(g.dtype != t.dtype for g, t in zip(got, args)):
+            raise SystemExit(f"ssd_scan backward at {shape}: {made} (all, wgmma) launches for "
+                             f"route {way}, dtypes {[g.dtype for g in got]}")
         want = _ssd_grads(lambda *a: ssd_chunked(*a, shape.chunk), args, dy, dh)
         tol = SSD_GRAD_TOL[shape.dtype]
+        tols = [tol] * 5
+        if shape.dtype == torch.bfloat16:
+            tols[1] = tols[2] = SSD_FP32_STORE_TOL  # ddt, da: fp32 stores
         errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
         rels = [e / w.float().abs().max().item() for e, w in zip(errs, want)]
-        ok = all(r <= tol for r in rels) and all(bool(torch.isfinite(g.float()).all()) for g in got)
+        ok = (all(r <= t for r, t in zip(rels, tols))
+              and all(bool(torch.isfinite(g.float()).all()) for g in got))
         names = ("dx", "ddt", "da", "db", "dc")
-        log(f"phase 2 check ssd_scan_bwd {shape}{' + final-state cotangent' if with_state else ''}: "
-            + ", ".join(f"{n} rel {r:.3e}" for n, r in zip(names, rels))
-            + f"; max_abs_err {max(errs):.3e} (tol {tol:g} of each gradient's largest value) "
+        log(f"phase 2 check ssd_scan_bwd {shape} ({way})"
+            f"{' + final-state cotangent' if with_state else ''}: "
+            + ", ".join(f"{n} rel {r:.3e} (tol {t:g})" for n, r, t in zip(names, rels, tols))
+            + f" of each gradient's largest value; max_abs_err {max(errs):.3e} "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise SystemExit(f"the ssd_scan backward disagrees with autograd through its plain "
@@ -836,26 +886,38 @@ def phase_check_ssd_grads() -> tuple[float, set[SsdShape]]:
 
 
 def phase_time_ssd_backward() -> dict:
-    """The SSD backward at mamba2's train shape: the kernel (autograd's
-    backward of ``ops.ssd``: the three launches and the scratch), the plain
-    backward (autograd through ``ssd_chunked``), and the bound; no PyTorch
-    call computes it."""
+    """The SSD backward at mamba2's train shape: the kernels of the route it
+    takes (``ops._backward``: the launch and its scratch; the wgmma route),
+    the FMA route's kernels on the same inputs, timed in turns (FMA, wgmma,
+    wgmma, FMA), the plain backward (autograd through ``ssd_chunked``), and
+    the bound; no PyTorch call computes it."""
     shape = train_ssd_shapes()[0]
-    args = [t.detach().requires_grad_() for t in shape.inputs(seed=1)]
+    args = [t.detach() for t in shape.inputs(seed=1)]
     dy = torch.randn(args[0].shape, device="cuda").to(shape.dtype)
-    y, _ = ssd_ops.ssd(*args)
-    y_plain, _ = ssd_chunked(*args, shape.chunk)
-    ms = cuda_ms(lambda: torch.autograd.grad(y, args, dy, retain_graph=True), iters=10)
-    plain_ms = cuda_ms(lambda: torch.autograd.grad(y_plain, args, dy, retain_graph=True),
+    need = (True,) * 5
+    way = ssd_kernel.bwd_route(shape.dtype, shape.p, shape.n)
+    times = {way: [], "fma": []}
+    for turn in ("fma", way, way, "fma"):
+        times[turn].append(cuda_ms(lambda: ssd_ops._backward(*args, dy, None, need, way=turn),
+                                   iters=10))
+    leaves = [t.requires_grad_() for t in args]
+    y_plain, _ = ssd_chunked(*leaves, shape.chunk)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(y_plain, leaves, dy, retain_graph=True),
                        iters=5, warmup=1)
+    ms, fma_ms = min(times[way]), min(times["fma"])
     bound_ms, bound_by = shape.bwd_bound()
-    log(f"phase 3 time ssd_scan_bwd {shape}: kernel {ms:.4f} ms, plain (autograd through "
-        f"ssd_chunked) {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms ({bound_by}); "
-        f"kernel at {100 * bound_ms / ms:.1f}% of bound")
-    del y, y_plain, args
+    split = {turn: device_ms_by_kernel(lambda: ssd_ops._backward(*args, dy, None, need, way=turn))
+             for turn in (way, "fma")}
+    log(f"phase 3 time ssd_scan_bwd {shape}: kernel ({way}) "
+        + " / ".join(f"{t:.4f}" for t in times[way]) + " ms, FMA route "
+        + " / ".join(f"{t:.4f}" for t in times["fma"]) + f" ms ({fma_ms / ms:.2f}x the "
+        f"{way} route's time), plain (autograd through ssd_chunked) {plain_ms:.4f} ms, library "
+        f"none, bound {bound_ms:.4f} ms ({bound_by}); kernel at {100 * bound_ms / ms:.1f}% of "
+        f"bound; device ms a call by kernel ({way}: {split[way]}; fma: {split['fma']})")
+    del y_plain, args, leaves
     torch.cuda.empty_cache()
     return dict(shape=str(shape), ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by)
+                bound_by=bound_by, fma_ms=fma_ms)
 
 
 def phase_time_ssd() -> list[dict]:
@@ -895,7 +957,7 @@ def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
     n_attn, n_moe, n_ssm = layer_kinds(cfg)
     return {"flash_attention": n_attn * prefills, "flash_attention_bwd": 0,
             "moe_gmm": 3 * n_moe * (prefills + decode_steps),
-            "ssd_scan": n_ssm * prefills, "ssd_scan_bwd": 0}
+            "ssd_scan": n_ssm * prefills, "ssd_scan_bwd": 0, "ssd_scan_bwd_wgmma": 0}
 
 
 def _launches() -> dict:
@@ -1286,8 +1348,8 @@ def phase_check_gmm_grads() -> None:
 def phase_time_flash_backward() -> dict:
     """At the train shapes of internlm2 and granite: the forward kernel beside
     SDPA's forward, and the backward kernel (autograd's backward of
-    ``ops.flash_attention``: its scratch, outputs and one launch of three
-    kernels) beside the plain ``attention_backward``, the recompute it
+    ``ops.flash_attention``: its scratch, outputs and one launch: the
+    pre-pass and the grid of dK/dV and dQ blocks behind it) beside the plain ``attention_backward``, the recompute it
     replaced (autograd through ``reference_attention``, forward included, as
     the port's backward ran before) and SDPA's backward, each with its
     bound (``Shape.bound``, ``Shape.bwd_bound``).  Returns internlm2's
@@ -1388,12 +1450,16 @@ def train_launches(cfg, passes: int) -> dict:
     recompute) and its backward once; the grouped matmul 12 times per MoE
     layer (three products forward, three recomputed, and the dx and dw of
     each); the SSD scan twice per SSM layer (forward and recompute) and its
-    backward once."""
+    backward once, on the wgmma route where ``bwd_route`` sends the model's
+    compute dtype and shape (bf16 mamba2: every launch; fp32: none)."""
     n_attn, n_moe, n_ssm = layer_kinds(cfg)
     fwd = 2 if cfg.remat else 1
+    wgmma = n_ssm and ssd_kernel.bwd_route(
+        getattr(torch, cfg.compute_dtype), cfg.ssm.head_dim, cfg.ssm.state_dim) == "wgmma"
     return {"flash_attention": fwd * n_attn * passes, "flash_attention_bwd": n_attn * passes,
             "moe_gmm": (3 * fwd + 6) * n_moe * passes,
-            "ssd_scan": fwd * n_ssm * passes, "ssd_scan_bwd": n_ssm * passes}
+            "ssd_scan": fwd * n_ssm * passes, "ssd_scan_bwd": n_ssm * passes,
+            "ssd_scan_bwd_wgmma": n_ssm * passes if wgmma else 0}
 
 
 def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Shape],
@@ -1599,8 +1665,12 @@ def main() -> int:
         entry = _kernel_entry(name, mod, replaces, sum(p[name] for p in paths.values()), err, rep)
         entry["launches_by_path"] = {arch: p[name] for arch, p in paths.items()}
         kernels.append(entry)
-    log(f"kernels: {', '.join(COUNTERS)} (each launched on a main path, held against its "
-        "plain version)")
+    wgmma = sum(p["ssd_scan_bwd_wgmma"] for p in paths.values())
+    ssd_bwd = next(e for e in kernels if e["name"] == "ssd_scan_bwd")
+    ssd_bwd["launches_by_route"] = {"wgmma": wgmma, "fma": ssd_bwd["launches"] - wgmma}
+    ssd_bwd["fma_route_ms"] = ssd_bwd_rep["fma_ms"]
+    log(f"kernels: {', '.join(e['name'] for e in kernels)} (each launched on a main path, held "
+        "against its plain version)")
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -557,37 +557,47 @@ __global__ void __launch_bounds__(kFThreads) flash_fwd_f32(const Params p) {
 // and dv once: 50.5 MB, 0.0151 ms at 3.35 TB/s; its five products over the
 // 32,896 attended pairs per (batch, head) are 5.4 GFLOP, 0.0054 ms at 989
 // TFLOP/s.  So bytes bound it, as the forward at this shape; below that
-// sit the launches (three, each a few microseconds), the recomputed
-// products (S and dP are computed twice, once per kernel: 7.5 GFLOP in
-// all) and the latency of one dependent chain of products per tile.
+// sit the recomputed products (S and dP are computed twice, once by each
+// kind of block: 7.5 GFLOP in all), the balance of unequal blocks over 132
+// SMs and the latency of one dependent chain of products per tile.
 //
-// Design.  Three launches, no float atomics, so two passes give the same
+// Design.  Two launches, no float atomics, so two passes give the same
 // bits.  (1) flash_bwd_prep, one warp per row: delta and lse log2(e) into
 // fp32 scratch padded to a multiple of 128 rows (+inf and 0 past S, which
-// zero P there), so the tiles come by bulk copies.  (2) flash_bwd_dkdv_*,
-// one block per 128 keys of a (kv head, batch), walks the group's query
-// heads and the query tiles that reach its keys (q_tile_range, the
-// transpose of the forward's kv_tile_range) in a fixed order, holding dK
-// and dV in registers: it computes S^T = K Q^T and dP^T = V dO^T, so that
-// P^T and dS^T sit in registers as the A operand of dV += P^T dO and
-// dK += dS^T Q.  (3) flash_bwd_dq_*, one block per 128 query rows of a
-// (head, batch), walks the key tiles that its rows reach, as the forward
-// does, computing S and dP again and dQ += dS K.  The bf16 kernels run on
-// wgmma with TMA tiles through an mbarrier ring and setmaxnreg, as the
-// forward; P and dS enter the tensor cores in bf16 (their fp32 values
-// rounded once), every sum is fp32.  The fp32 kernels (parity runs and
-// tests) run on the FMA units, four lanes per row, as the fp32 forward.
+// zero P there), so the tiles come by bulk copies.  (2) One grid of two
+// kinds of blocks, which write disjoint outputs: a dK/dV block per 128 keys
+// of a (kv head, batch) walks the group's query heads and the query tiles
+// that reach its keys (q_tile_range, the transpose of the forward's
+// kv_tile_range) in a fixed order, holding dK and dV in registers: it
+// computes S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T sit in
+// registers as the A operand of dV += P^T dO and dK += dS^T Q.  A dQ block
+// per 128 query rows of a (head, batch) walks the key tiles that its rows
+// reach, as the forward does, computing S and dP again and dQ += dS K.
+// Under the causal mask the blocks are unequal (at the train shape a dK/dV
+// block walks 8 or 4 query tiles, a dQ block 4 or 2 key tiles): as two
+// launches the dK/dV grid was one wave of 128 blocks set by its heaviest
+// and the dQ grid two uneven waves, each launch draining the card.  In one
+// grid the blocks run in their natural order (dK/dV by key block, then dQ
+// from the last query tile down), which at the train shapes is heaviest
+// first across both kinds, so the light ones fill the tail.  The grid is
+// launched with programmatic dependent launch behind the pre-pass: its
+// blocks set up their barriers and load K, V, Q and dO while the pre-pass
+// runs, and the loader waits (griddepcontrol.wait) only before it reads
+// lse2 and delta.  The bf16 blocks run on wgmma with TMA tiles through an mbarrier ring and setmaxnreg, as the forward; P and dS
+// enter the tensor cores in bf16 (their fp32 values rounded once), every
+// sum is fp32.  The fp32 kernels (parity runs and tests) stay two launches
+// on the FMA units, four lanes per row, as the fp32 forward.
 //
-// Weighed and not built: dQ in the dK/dV kernel, through dS in shared
+// Weighed and not built: dQ in the dK/dV blocks, through dS in shared
 // memory summed across key blocks, needs float atomics (run-to-run bits) or
 // per-key-tile partials and a reduction (33.5 MB more traffic at the train
-// shape, twice this kernel's bytes bound); a separate launch that
-// recomputes S and dP costs 2 of 7 products instead.  Nothing was tried and
-// dropped on the card: the first version met its target (on the H100 at
-// the train shape 0.063 ms at D 128 and 0.048 ms at D 64, 0.79x and 0.99x
-// SDPA's backward; PERF.md), so the per-tile chain (products, wait,
-// softmax terms, products, wait) is not yet overlapped across tiles or
-// warpgroups as the forward's is.
+// shape, twice this kernel's bytes bound); recomputing S and dP costs 2 of
+// 7 products instead.  On an H100 80GB HBM3 (700 W) at the train shape the
+// three launches took 0.064 ms at D 128 and 0.049 ms at D 64 (0.80x and
+// 1.01-1.03x SDPA's backward); the one grid 0.056 and 0.044 ms (0.70-0.71x
+// and 0.89-0.91x; chip_smoke.py, PERF.md).  The per-tile chain (products,
+// wait, softmax terms, products, wait) is not yet overlapped across tiles
+// as the forward's is.
 
 struct BwdParams {
   Params f;          // q, k, v, o (read), their strides, the shape, scale, masks
@@ -622,11 +632,24 @@ __device__ __forceinline__ void q_tile_range(const Params& p, int k0, int keys, 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
+// Programmatic dependent launch: the pre-pass lets the backward grid start
+// at once (its blocks set up their barriers and load K, V, Q and dO), and
+// the backward's loader waits for the pre-pass to finish before it reads
+// lse2 and delta.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // The pre-pass: delta = rowsum(dO * O) in fp32 and lse2 = lse log2(e), each
 // [B, H, S_pad], with the rows past S padded (delta 0, lse2 +inf, so that
 // P = 2^(s scale log2 e - lse2) is 0 there).  One warp per row.
 template <typename T>
 __global__ void __launch_bounds__(256) flash_bwd_prep(const BwdParams bp) {
+  griddep_launch_dependents();
   const Params& p = bp.f;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row = blockIdx.x * 8 + warp;
@@ -719,13 +742,23 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* rows, int box_elems,
   }
 }
 
-// dK and dV of 128 keys of one (kv head, batch): one block, warpgroups 0 and
-// 1 computing 64 keys each, warpgroup 2 loading.  K and V come once; then
-// for each query head of the group and each 64-row query tile that reaches
-// these keys, in that order, Q, dO and the tile's lse2 and delta rows come
-// through a ring of stages.  Per tile a warpgroup computes S^T = K Q^T and
-// dP^T = V dO^T (wgmma, both operands K-major in shared memory), then in
-// registers P^T = 2^(S^T scale log2 e - lse2) (masked) and
+// ``rows`` rows (a multiple of 64) of one head from ``row0``, as boxes of 64
+// rows by 64 columns: the tensor maps of the backward all take 64-row boxes,
+// and a tile of 128 rows is two of them, one after the other
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int col, int head, int row0, int b,
+                                          int rows) {
+  for (int r = 0; r < rows; r += 64)
+    hopper::tma_load_4d(dst + r * 64, map, bar, col, head, row0 + r, b);
+}
+
+// dK and dV of 128 keys [k0, k0 + 128) of one (kv head, batch): warpgroups
+// 0 and 1 computing 64 keys each, warpgroup 2 loading.  K and V come once;
+// then for each query head of the group and each 64-row query tile that
+// reaches these keys, in that order, Q, dO and the tile's lse2 and delta
+// rows come through a ring of stages.  Per tile a warpgroup computes
+// S^T = K Q^T and dP^T = V dO^T (wgmma, both operands K-major in shared
+// memory), then in registers P^T = 2^(S^T scale log2 e - lse2) (masked) and
 // dS^T = P^T (dP^T - delta), and adds dV += P^T dO and dK += dS^T Q with
 // P^T and dS^T as bf16 A fragments and dO and Q read in place as MN-major B
 // operands.  dK and dV stay in fp32 registers over the whole walk (no
@@ -733,13 +766,10 @@ __device__ __forceinline__ void stage_rows(__nv_bfloat16* rows, int box_elems,
 // they go through shared memory (this warpgroup's rows of K and V, which
 // only it reads) to TMA stores.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dkdv_bf16(const __grid_constant__ CUtensorMap tq,
-                        const __grid_constant__ CUtensorMap tk,
-                        const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap tdo,
-                        const __grid_constant__ CUtensorMap tdk,
-                        const __grid_constant__ CUtensorMap tdv, const BwdParams bp) {
+__device__ __forceinline__ void bwd_dkdv(const CUtensorMap* tq, const CUtensorMap* tk,
+                                         const CUtensorMap* tv, const CUtensorMap* tdo,
+                                         const CUtensorMap* tdk, const CUtensorMap* tdv,
+                                         const BwdParams& bp, int b, int kvh, int kb) {
   using T = BwdTiles<D>;
   using bf16 = __nv_bfloat16;
   const Params& p = bp.f;
@@ -750,9 +780,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   bf16* Vs = Ks + T::KV_ELEMS;
   bf16* QOs = Vs + T::KV_ELEMS;  // per stage: Q, then dO
 
-  const int b = blockIdx.x / p.KV, kvh = blockIdx.x % p.KV;
   const int group = p.H / p.KV;
-  const int k0 = blockIdx.y * kBKb;
+  const int k0 = kb * kBKb;
   int t_begin, t_end;
   q_tile_range(p, k0, kBKb, kBQb, &t_begin, &t_end);
   const int per_head = t_end - t_begin, n = group * per_head;
@@ -774,15 +803,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ------------------------------------------------ loader warpgroup
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == kConsumers) {
-      hopper::tma_prefetch(&tq);
-      hopper::tma_prefetch(&tk);
-      hopper::tma_prefetch(&tv);
-      hopper::tma_prefetch(&tdo);
+      hopper::tma_prefetch(tq);
+      hopper::tma_prefetch(tk);
+      hopper::tma_prefetch(tv);
+      hopper::tma_prefetch(tdo);
       hopper::mbar_arrive_expect_tx(&kv_full, 2 * 2 * T::KV_ELEMS);
 #pragma unroll
       for (int c = 0; c < T::BOXES; ++c) {
-        hopper::tma_load_4d(Ks + c * kBKb * 64, &tk, &kv_full, 64 * c, kvh, k0, b);
-        hopper::tma_load_4d(Vs + c * kBKb * 64, &tv, &kv_full, 64 * c, kvh, k0, b);
+        load_rows(Ks + c * kBKb * 64, tk, &kv_full, 64 * c, kvh, k0, b, kBKb);
+        load_rows(Vs + c * kBKb * 64, tv, &kv_full, 64 * c, kvh, k0, b, kBKb);
       }
       for (int i = 0; i < n; ++i) {
         const int s = i % T::STAGES, h = head(i), q0 = first_row(i);
@@ -792,9 +821,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         hopper::mbar_arrive_expect_tx(&full[s], 2 * 2 * T::QT_ELEMS + 2 * kBQb * 4);
 #pragma unroll
         for (int c = 0; c < T::BOXES; ++c) {
-          hopper::tma_load_4d(qs + c * kBQb * 64, &tq, &full[s], 64 * c, h, q0, b);
-          hopper::tma_load_4d(dos + c * kBQb * 64, &tdo, &full[s], 64 * c, h, q0, b);
+          hopper::tma_load_4d(qs + c * kBQb * 64, tq, &full[s], 64 * c, h, q0, b);
+          hopper::tma_load_4d(dos + c * kBQb * 64, tdo, &full[s], 64 * c, h, q0, b);
         }
+        if (i == 0) griddep_wait();  // lse2 and delta are the pre-pass's
         const long long off = ((long long)b * p.H + h) * bp.S_pad + q0;
         hopper::bulk_load(lse_s[s], bp.lse2 + off, kBQb * 4, &full[s]);
         hopper::bulk_load(dl_s[s], bp.delta + off, kBQb * 4, &full[s]);
@@ -879,8 +909,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (tid == 0 && kw0 < p.Skv) {
 #pragma unroll
       for (int c = 0; c < T::BOXES; ++c) {
-        if (bp.dk != nullptr) hopper::tma_store_4d(&tdk, k_wg + c * kBKb * 64, 64 * c, kvh, kw0, b);
-        if (bp.dv != nullptr) hopper::tma_store_4d(&tdv, v_wg + c * kBKb * 64, 64 * c, kvh, kw0, b);
+        if (bp.dk != nullptr) hopper::tma_store_4d(tdk, k_wg + c * kBKb * 64, 64 * c, kvh, kw0, b);
+        if (bp.dv != nullptr) hopper::tma_store_4d(tdv, v_wg + c * kBKb * 64, 64 * c, kvh, kw0, b);
       }
       hopper::bulk_commit();
       hopper::bulk_wait<0, false>();
@@ -888,20 +918,19 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// dQ of 128 query rows of one (head, batch): warpgroups 0 and 1 computing
-// 64 rows each, warpgroup 2 loading.  Q, dO and the rows' lse2 and delta
-// come once; then each 64-key tile that the rows reach, K and V through a
-// ring of stages.  Per tile S = Q K^T and dP = dO V^T (wgmma, K-major
-// operands), P and dS = P (dP - delta) in registers, and dQ += dS K with dS
-// as bf16 A fragments and K read in place as an MN-major operand.  The
-// forward's structure with dO V^T beside Q K^T; no atomics.
+// dQ of 128 query rows [q0, q0 + 128) of one (head, batch): warpgroups 0
+// and 1 computing 64 rows each, warpgroup 2 loading.  Q, dO and the rows'
+// lse2 and delta come once; then each 64-key tile that the rows reach, K
+// and V through a ring of stages.  Per tile S = Q K^T and dP = dO V^T
+// (wgmma, K-major operands), P and dS = P (dP - delta) in registers, and
+// dQ += dS K with dS as bf16 A fragments and K read in place as an
+// MN-major operand.  The forward's structure with dO V^T beside Q K^T; no
+// atomics.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
-                      const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv,
-                      const __grid_constant__ CUtensorMap tdo,
-                      const __grid_constant__ CUtensorMap tdq, const BwdParams bp) {
+__device__ __forceinline__ void bwd_dq(const CUtensorMap* tq, const CUtensorMap* tk,
+                                       const CUtensorMap* tv, const CUtensorMap* tdo,
+                                       const CUtensorMap* tdq, const BwdParams& bp, int b, int h,
+                                       int qt) {
   using T = BwdTiles<D>;
   using bf16 = __nv_bfloat16;
   const Params& p = bp.f;
@@ -912,8 +941,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   bf16* dOs = Qs + T::Q_ELEMS;
   bf16* KVs = dOs + T::Q_ELEMS;  // per stage: K, then V
 
-  const int qt = gridDim.y - 1 - blockIdx.y;  // heaviest causal tiles first
-  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KV);
   const int q0 = qt * kBQd;
   int t_begin, t_end;
@@ -935,16 +962,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ------------------------------------------------ loader warpgroup
     hopper::setmaxnreg_dec<24>();
     if (threadIdx.x == kConsumers) {
-      hopper::tma_prefetch(&tq);
-      hopper::tma_prefetch(&tk);
-      hopper::tma_prefetch(&tv);
-      hopper::tma_prefetch(&tdo);
+      hopper::tma_prefetch(tq);
+      hopper::tma_prefetch(tk);
+      hopper::tma_prefetch(tv);
+      hopper::tma_prefetch(tdo);
       hopper::mbar_arrive_expect_tx(&q_full, 2 * 2 * T::Q_ELEMS + 2 * kBQd * 4);
 #pragma unroll
       for (int c = 0; c < T::BOXES; ++c) {
-        hopper::tma_load_4d(Qs + c * kBQd * 64, &tq, &q_full, 64 * c, h, q0, b);
-        hopper::tma_load_4d(dOs + c * kBQd * 64, &tdo, &q_full, 64 * c, h, q0, b);
+        load_rows(Qs + c * kBQd * 64, tq, &q_full, 64 * c, h, q0, b, kBQd);
+        load_rows(dOs + c * kBQd * 64, tdo, &q_full, 64 * c, h, q0, b, kBQd);
       }
+      griddep_wait();  // lse2 and delta are the pre-pass's
       const long long off = ((long long)b * p.H + h) * bp.S_pad + q0;
       hopper::bulk_load(lse_s, bp.lse2 + off, kBQd * 4, &q_full);
       hopper::bulk_load(dl_s, bp.delta + off, kBQd * 4, &q_full);
@@ -956,8 +984,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         hopper::mbar_arrive_expect_tx(&full[s], 2 * 2 * T::KT_ELEMS);
 #pragma unroll
         for (int c = 0; c < T::BOXES; ++c) {
-          hopper::tma_load_4d(ks + c * kBKd * 64, &tk, &full[s], 64 * c, kvh, t * kBKd, b);
-          hopper::tma_load_4d(vs + c * kBKd * 64, &tv, &full[s], 64 * c, kvh, t * kBKd, b);
+          hopper::tma_load_4d(ks + c * kBKd * 64, tk, &full[s], 64 * c, kvh, t * kBKd, b);
+          hopper::tma_load_4d(vs + c * kBKd * 64, tv, &full[s], 64 * c, kvh, t * kBKd, b);
         }
       }
     }
@@ -1029,10 +1057,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     hopper::named_barrier_sync(1 + wg, 128);
     if (tid == 0 && wq0 < p.S) {
 #pragma unroll
-      for (int c = 0; c < T::BOXES; ++c) hopper::tma_store_4d(&tdq, q_wg + c * kBQd * 64, 64 * c, h, wq0, b);
+      for (int c = 0; c < T::BOXES; ++c) hopper::tma_store_4d(tdq, q_wg + c * kBQd * 64, 64 * c, h, wq0, b);
       hopper::bulk_commit();
       hopper::bulk_wait<0, false>();
     }
+  }
+}
+
+// The order of the backward's blocks: every dK/dV block by key block (B KV
+// blocks each), then every dQ block from the last query tile down (B H
+// blocks each).  Under the causal mask that is heaviest first within each
+// kind, and at the train shapes (S 256, group 2) heaviest first across both
+// (dK/dV 8 and 4 query tiles of 2 heads, then dQ 4 and 2 key tiles).
+// One launch for every dK/dV and dQ block: they write disjoint outputs and
+// read only q, k, v, dO and the pre-pass's rows.  n_kv is the key blocks,
+// 0 when neither dK nor dV is asked for.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tdq, const __grid_constant__ CUtensorMap tdk,
+                   const __grid_constant__ CUtensorMap tdv, const BwdParams bp, const int n_kv) {
+  const Params& p = bp.f;
+  const int blk = blockIdx.x, kv_blocks = n_kv * p.B * p.KV;
+  if (blk < kv_blocks) {
+    const int per = p.B * p.KV, i = blk % per;
+    bwd_dkdv<D>(&tq, &tk, &tv, &tdo, &tdk, &tdv, bp, i / p.KV, i % p.KV, blk / per);
+  } else {
+    const int j = blk - kv_blocks, per = p.B * p.H, i = j % per;
+    const int tile = (p.S + kBQd - 1) / kBQd - 1 - j / per;
+    bwd_dq<D>(&tq, &tk, &tv, &tdo, &tdq, bp, i / p.H, i % p.H, tile);
   }
 }
 
@@ -1304,44 +1358,44 @@ template <int D>
 int launch_bwd_bf16(const BwdParams& bp, cudaStream_t stream) {
   using T = BwdTiles<D>;
   const Params& p = bp.f;
-  if (bp.dk != nullptr || bp.dv != nullptr) {
-    CUtensorMap tq, tk, tv, tdo, tdk, tdv;
-    int rc = encode_qkv(&tq, p.q, D, p.H, p.S, p.B, p.q_sb, p.q_ss, p.q_sh, kBQb);
-    if (rc == 0)
-      rc = encode_qkv(&tdo, bp.dout, D, p.H, p.S, p.B, bp.do_sb, bp.do_ss, bp.do_sh, kBQb);
-    if (rc == 0) rc = encode_qkv(&tk, p.k, D, p.KV, p.Skv, p.B, p.k_sb, p.k_ss, p.k_sh, kBKb);
-    if (rc == 0) rc = encode_qkv(&tv, p.v, D, p.KV, p.Skv, p.B, p.v_sb, p.v_ss, p.v_sh, kBKb);
-    tdk = tk;  // placeholders for an output not asked for, never stored to
-    tdv = tv;
-    if (rc == 0 && bp.dk != nullptr)
-      rc = encode_qkv(&tdk, bp.dk, D, p.KV, p.Skv, p.B, bp.dk_sb, bp.dk_ss, bp.dk_sh, 64);
-    if (rc == 0 && bp.dv != nullptr)
-      rc = encode_qkv(&tdv, bp.dv, D, p.KV, p.Skv, p.B, bp.dv_sb, bp.dv_ss, bp.dv_sh, 64);
-    if (rc != 0) return rc;
-    const int attr = set_smem(flash_bwd_dkdv_bf16<D>, T::SMEM_KV);
-    if (attr != 0) return attr;
-    flash_bwd_dkdv_bf16<D><<<dim3(p.B * p.KV, (p.Skv + kBKb - 1) / kBKb), kThreads, T::SMEM_KV,
-                             stream>>>(tq, tk, tv, tdo, tdk, tdv, bp);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  if (bp.dq != nullptr) {
-    CUtensorMap tq, tk, tv, tdo, tdq;
-    int rc = encode_qkv(&tq, p.q, D, p.H, p.S, p.B, p.q_sb, p.q_ss, p.q_sh, kBQd);
-    if (rc == 0)
-      rc = encode_qkv(&tdo, bp.dout, D, p.H, p.S, p.B, bp.do_sb, bp.do_ss, bp.do_sh, kBQd);
-    if (rc == 0) rc = encode_qkv(&tk, p.k, D, p.KV, p.Skv, p.B, p.k_sb, p.k_ss, p.k_sh, kBKd);
-    if (rc == 0) rc = encode_qkv(&tv, p.v, D, p.KV, p.Skv, p.B, p.v_sb, p.v_ss, p.v_sh, kBKd);
-    if (rc == 0)
-      rc = encode_qkv(&tdq, bp.dq, D, p.H, p.S, p.B, bp.dq_sb, bp.dq_ss, bp.dq_sh, 64);
-    if (rc != 0) return rc;
-    const int attr = set_smem(flash_bwd_dq_bf16<D>, T::SMEM_Q);
-    if (attr != 0) return attr;
-    // the query tiles are the slow grid dimension, so the heaviest are dispatched first
-    flash_bwd_dq_bf16<D><<<dim3(p.B * p.H, (p.S + kBQd - 1) / kBQd), kThreads, T::SMEM_Q,
-                           stream>>>(tq, tk, tv, tdo, tdq, bp);
-  }
-  return (int)cudaGetLastError();
+  // every map in boxes of 64 rows; an output not asked for gets a
+  // placeholder, never stored to
+  CUtensorMap tq, tk, tv, tdo, tdq, tdk, tdv;
+  int rc = encode_qkv(&tq, p.q, D, p.H, p.S, p.B, p.q_sb, p.q_ss, p.q_sh, 64);
+  if (rc == 0) rc = encode_qkv(&tdo, bp.dout, D, p.H, p.S, p.B, bp.do_sb, bp.do_ss, bp.do_sh, 64);
+  if (rc == 0) rc = encode_qkv(&tk, p.k, D, p.KV, p.Skv, p.B, p.k_sb, p.k_ss, p.k_sh, 64);
+  if (rc == 0) rc = encode_qkv(&tv, p.v, D, p.KV, p.Skv, p.B, p.v_sb, p.v_ss, p.v_sh, 64);
+  tdq = tq;
+  tdk = tk;
+  tdv = tv;
+  if (rc == 0 && bp.dq != nullptr)
+    rc = encode_qkv(&tdq, bp.dq, D, p.H, p.S, p.B, bp.dq_sb, bp.dq_ss, bp.dq_sh, 64);
+  if (rc == 0 && bp.dk != nullptr)
+    rc = encode_qkv(&tdk, bp.dk, D, p.KV, p.Skv, p.B, bp.dk_sb, bp.dk_ss, bp.dk_sh, 64);
+  if (rc == 0 && bp.dv != nullptr)
+    rc = encode_qkv(&tdv, bp.dv, D, p.KV, p.Skv, p.B, bp.dv_sb, bp.dv_ss, bp.dv_sh, 64);
+  if (rc != 0) return rc;
+  const int n_kv = (bp.dk != nullptr || bp.dv != nullptr) ? (p.Skv + kBKb - 1) / kBKb : 0;
+  const int n_qt = bp.dq != nullptr ? (p.S + kBQd - 1) / kBQd : 0;
+  const int blocks = n_kv * p.B * p.KV + n_qt * p.B * p.H;
+  if (blocks == 0) return 0;
+  const size_t smem = T::SMEM_KV > T::SMEM_Q ? T::SMEM_KV : T::SMEM_Q;
+  const int attr = set_smem(flash_bwd_bf16<D>, smem);
+  if (attr != 0) return attr;
+  // programmatic dependent launch behind the pre-pass (griddep_wait)
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  void* args[] = {&tq, &tk, &tv, &tdo, &tdq, &tdk, &tdv, const_cast<BwdParams*>(&bp),
+                  const_cast<int*>(&n_kv)};
+  return (int)cudaLaunchKernelExC(&cfg, reinterpret_cast<const void*>(flash_bwd_bf16<D>), args);
 }
 
 template <int D>

@@ -5,9 +5,12 @@ The counterpart of the JAX package's ``_flash_attention`` custom VJP
 dense ``reference_attention``.  Here both directions are kernels on a CUDA
 tensor (``csrc/flash_attention.cu``), or raise: there is no fallback.  When
 an input requires grad, the forward kernel also writes each row's logsumexp
-and the autograd function saves q, k, v, o and it; the backward kernel
-computes dq, dk and dv from them without building the S x S matrix, only
-those that autograd asks for.  On a CPU tensor the same autograd function
+and the autograd function saves q, k, v, o and it; the backward computes
+dq, dk and dv from them without building the S x S matrix, only those that
+autograd asks for: a pre-pass (each row's dO . o and lse in base 2), then
+one grid of dK/dV blocks and dQ blocks that starts behind the pre-pass by
+programmatic dependent launch (bf16; two grids in fp32).  On a CPU tensor
+the same autograd function
 computes the plain versions (``ref.py``: ``attention_forward`` and
 ``attention_backward``, the formulas of the JAX VJP in fp32), so that the
 CPU tests hold the function the kernels are held against on the card.
@@ -73,7 +76,8 @@ def _forward(q, k, v, causal: bool, window: int, with_lse: bool = False):
 
 def _backward(q, k, v, o, lse, g, need, causal: bool, window: int):
     """(dq, dk, dv), each None where ``need`` does not ask for it: the
-    backward kernel on the card (one launch), the plain version on the CPU."""
+    backward kernels on the card (one launch of the library), the plain
+    version on the CPU."""
     scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         grads = attention_backward(q, k, v, o, lse, g, causal=causal, window=window, scale=scale)

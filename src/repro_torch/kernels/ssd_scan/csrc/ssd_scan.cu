@@ -97,38 +97,54 @@
 // src/repro/kernels/ssd_scan/ops.py::_ssd_bwd (:25-28), which is no Pallas
 // kernel: jax.vjp through the sequential reference_ssd, recomputed from the
 // saved inputs.  Given dy and the final state's cotangent (zeros in
-// training), it returns dx, ddt, da, db and dc, in fp32 FMA arithmetic for
-// both dtypes, in three launches:
-// 1. ssd_bwd_states: per (32 columns of P, head, batch), a forward walk over
-//    the chunks that stores each chunk's entry state S_k [P, N], and, in the
+// training), it returns dx, ddt, da, db and dc in three launches:
+// 1. pass 1: per (32 columns of P, head, batch), a forward walk over the
+//    chunks that stores each chunk's entry state S_k [P, N], and, in the
 //    same launch, a backward walk that stores the gradient dS of each
-//    chunk's exit state, both into fp32 scratch [B, H, S/64, P, N];
-// 2. ssd_bwd_chunk: per (chunk, head, batch), all chunks in parallel, the
-//    chunk's gradients from S_k and dS (formulas at the kernel), with the
-//    products over P in passes of 32 columns;
+//    chunk's exit state, into scratch [B, H, S/64, P, N];
+// 2. pass 2: per chunk, all chunks in parallel, the chunk's gradients from
+//    S_k and dS (formulas at ssd_bwd_chunk);
 // 3. ssd_bwd_reduce: b and c are shared by the heads and a by the rows, so
-//    dB, dC (per head) and da (per chunk) are partial sums, added over H,
-//    and over batch and chunks, in a fixed order: no atomics, and two
-//    passes are bit-identical.
+//    dB, dC (per head or group of heads) and da (per chunk) are partial
+//    sums, added over the heads, and over batch and chunks, in a fixed
+//    order: no atomics, and two passes are bit-identical.
 // What bounds it on this card.  At the train shape of mamba2-1.3b (B 8, S
 // 256, H 64, P 64, N 128, bf16) the products take 13.0 GFLOP, 0.013 ms at
-// 989 TFLOP/s on the bf16 tensor cores (which meet the bf16 gradients'
-// tolerance; 0.19 ms at 67 TFLOP/s on the fp32 FMA units this kernel
-// uses), against 53 MB of inputs and outputs, 0.016 ms at 3.35 TB/s: the
-// bound is 0.016 ms, set by bytes.  The scratch costs 67 MB for each
-// of S_k and dS and 67 MB for each of the per-head dB and dC, 268 MB a
-// layer, written once and read once (0.16 ms of the memory's time), freed
-// when the backward returns.  The design is a first, simple one: each thread
-// adds 4 x 4 blocks of fp32 FMAs from operands it reads from shared memory
-// by 16-byte loads, in whichever layout they are staged in, with the
-// columns spread so that a quarter warp reads distinct banks.  Two loaded
-// floats per four FMAs cap it at half the FMA rate, and 176 KB of shared
-// memory and 216 registers a thread leave one block of 8 warps per SM, too
-// few to hide the loads' latency.  On an H100 (700 W) at the train shape
-// the backward took 1.29 ms, ssd_bwd_chunk 1.00 ms of it: 1.2 % of the
-// 0.016 ms bound, and 15 % of the FMA units' 0.19 ms (chip_smoke.py).
-// Tensor cores (the forward's two-term split), more warps per SM and less
-// scratch traffic are the next step.
+// 989 TFLOP/s on the bf16 tensor cores, against 53 MB of inputs and
+// outputs, 0.016 ms at 3.35 TB/s: the bound is 0.016 ms, set by bytes.  The
+// scratch adds 67 MB for each of S_k and dS, written once and read once
+// (0.080 ms of the memory's time), and the partials of dB and dC.
+// Two routes, chosen by the caller (kernel.py's ``bwd_route``):
+// - the wgmma route, for bf16 with P <= 64 and P and N multiples of 8 (every
+//   shape a model gives it): ssd_bwd_walk_tc is the forward kernel's state
+//   recurrence on the tensor cores, both walks in one launch, storing the
+//   states as two bf16 terms (hi, lo: the fp32 bytes) with TMA;
+//   ssd_bwd_chunk_tc takes one block per (chunk, group of up to 8 heads,
+//   batch), computes C B^T once for the group, and walks its heads with two
+//   consumer warpgroups (rows j: dB, du, dx; rows i: dC) on wgmma, every
+//   fp32 factor in two bf16 terms as the forward's, dB and dC summed over
+//   the group in registers, so the partials shrink eightfold (8.4 MB each
+//   at the train shape).  Emulated in PyTorch at mamba2's widths
+//   (tests/test_torch_ssd_scan.py), each gradient is within a few 1e-6 of
+//   fp32 autograd relative to its largest value; one term gives 4e-4 to
+//   3e-3.  On an H100 80GB HBM3 (700 W) at the train shape it took
+//   0.18 ms: 8.8-8.9 % of the bound, 7.1x the FMA route's 1.28-1.29 ms on
+//   the same inputs (chip_smoke.py, PERF.md, which has the time of each of
+//   the three launches).  What holds it is the
+//   scratch: the states' 268 MB written and read are 0.080 ms at 3.35
+//   TB/s.  Below that, the walks are chains of four dependent chunk
+//   updates per block, 2048 blocks of one warpgroup; the chunk pass is one
+//   block per SM (216 KB of shared memory), its two warpgroups each a
+//   serial chain of products and waits per head, in two waves of 256
+//   blocks.
+// - the FMA route, for float32 and the other bf16 shapes: ssd_bwd_states
+//   and ssd_bwd_chunk in fp32 FMA arithmetic, each thread adding 4 x 4
+//   blocks from operands it reads from shared memory by 16-byte loads, with
+//   the columns spread so that a quarter warp reads distinct banks; per-head
+//   partials of dB and dC.  Two loaded floats per four FMAs cap it at half
+//   the FMA rate, and 176 KB of shared memory and 216 registers a thread
+//   leave one block of 8 warps per SM: at the bf16 train shape it took 1.28
+//   ms (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -675,6 +691,7 @@ struct BwdParams {
   void* dc;             // [B, S, N] in c's dtype, or null
   float* da;            // [H], or null
   int B, S, H, P, N, NC, pt;
+  int parts;            // the partials of dB and dC per row: H (FMA route), H / G (wgmma route)
 };
 
 __device__ __forceinline__ void from_f(float* dst, float v) { *dst = v; }
@@ -1129,22 +1146,23 @@ __global__ void __launch_bounds__(kBwdThreads) ssd_bwd_chunk(const BwdParams p) 
   if (tid == 0 && p.da_part) p.da_part[((long long)bi * p.NC + k) * p.H + h] = ss[0] + ss[1];
 }
 
-// Pass 3: db and dc, each the sum over H of the heads' shares, and da the
-// sum over batch and chunks of theirs, each in a fixed order.
+// Pass 3: db and dc, each the sum of the partials over the heads (one per
+// head on the FMA route, one per group of heads on the wgmma route), and da
+// the sum over batch and chunks of theirs, each in a fixed order.
 template <typename T>
 __global__ void __launch_bounds__(kBwdThreads) ssd_bwd_reduce(const BwdParams p) {
   const long long n_out = (long long)p.B * p.S * p.N;
   for (long long e = (long long)blockIdx.x * kBwdThreads + threadIdx.x; e < n_out;
        e += (long long)gridDim.x * kBwdThreads) {
-    const long long src = (e / p.N) * p.H * p.N + e % p.N;  // [b, s][h = 0][n]
+    const long long src = (e / p.N) * p.parts * p.N + e % p.N;  // [b, s][part 0][n]
     if (p.db) {
       float s = 0.f;
-      for (int h = 0; h < p.H; ++h) s += p.db_part[src + (long long)h * p.N];
+      for (int h = 0; h < p.parts; ++h) s += p.db_part[src + (long long)h * p.N];
       from_f(static_cast<T*>(p.db) + e, s);
     }
     if (p.dc) {
       float s = 0.f;
-      for (int h = 0; h < p.H; ++h) s += p.dc_part[src + (long long)h * p.N];
+      for (int h = 0; h < p.parts; ++h) s += p.dc_part[src + (long long)h * p.N];
       from_f(static_cast<T*>(p.dc) + e, s);
     }
   }
@@ -1156,8 +1174,755 @@ __global__ void __launch_bounds__(kBwdThreads) ssd_bwd_reduce(const BwdParams p)
     }
 }
 
+// ---------------------------------------------------------------- backward (bf16 tensor cores)
+// The wgmma route of the backward, for bf16 with P <= 64 and P and N
+// multiples of 8.  Its scratch holds each state as two bf16 terms, hi =
+// bf16(v) and lo = bf16(v - hi), in planes [B, H, NC, 2, P, N] (the bytes of
+// the FMA route's fp32 [B, H, NC, P, N]), which TMA loads as wgmma operands.
+constexpr int kMaxG = 8;  // heads per block of ssd_bwd_chunk_tc
+
+// ssd_bwd_walk_tc, what the loader leaves in a stage besides the tiles
+struct __align__(16) WalkScalars {
+  float coef[kQ];  // each row's factor: exp(cum_Q - cum) dt (forward), exp(cum) (backward)
+  float decay;     // exp(cum_Q)
+};
+
+// Shared memory of ssd_bwd_walk_tc in bf16 elements from a 1024-byte
+// boundary, 128-byte swizzle.  Per stage: W (B or C) as NB boxes [64 rows][64
+// of N] and V (x or dy) as one box [64 rows][64 columns of P from the
+// block's first]; then (V coef)^T [32 columns of P][64 rows], hi rows 0..31
+// and lo rows 32..63; then two buffers of the state as NB boxes [64][64 of
+// N], hi in rows 0..31 and lo in rows 32..63, which TMA stores.
+template <int NB>
+struct WalkTiles {
+  static constexpr int STAGE = (NB + 1) * kBox;
+  static constexpr int VT = kStages * STAGE;
+  static constexpr int SS = VT + kBox;
+  static constexpr size_t SMEM = 2 * (size_t)(SS + 2 * NB * kBox) + 1024;  // + alignment
+};
+
+// Pass 1 on the tensor cores, both directions in one launch: one block per
+// (32 columns of P, head, 2 x batch + direction), warpgroup 0 computing and
+// warp 4 loading, the forward kernel's state recurrence (ssd_fwd_tc) without
+// its y.  Direction 0 walks chunks 0..NC-1 from a zero state and stores the
+// state entering each; direction 1 walks them backward from the final
+// state's cotangent and stores the gradient of the state leaving each:
+//     S^T  <- exp(cum_Q) S^T  + B^T (x exp(cum_Q - cum) dt)
+//     dS^T <- exp(cum_Q) dS^T + C^T (dy exp(cum))
+// The state lives in fp32 accumulators (S^T [N x 32], M = N in one or two
+// m64 tiles); W's tile is the MN-major A operand read in place, (V coef)^T
+// the K-major B operand in two terms.  Before each chunk's update the
+// threads write the state in two terms through stmatrix.trans as [P][N]
+// boxes, which one thread stores with TMA from one of two buffers (the
+// store of the chunk before reads the other).
+template <int NB>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    ssd_bwd_walk_tc(const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
+                    const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                    const __grid_constant__ CUtensorMap tst, const __grid_constant__ CUtensorMap tdst,
+                    const BwdParams p) {
+  using T = WalkTiles<NB>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  __shared__ WalkScalars scal[kStages];
+  bf16* sm = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+
+  const int p0 = blockIdx.x * p.pt, h = blockIdx.y, b = blockIdx.z >> 1, dir = blockIdx.z & 1;
+  const int n_upd = p.NC - 1;  // the state past the walk is not needed
+  auto chunk = [&](int it) { return dir ? p.NC - 1 - it : it; };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 33);  // the loader's 32 lanes and its expect_tx
+      hopper::mbar_init(&empty[s], kConsumers / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ------------------------------------------------ loader warp
+    const int lane = threadIdx.x - kConsumers;
+    const CUtensorMap* tw = dir ? &tc : &tb;
+    const CUtensorMap* tv = dir ? &tdy : &tx;
+    if (lane == 0) {
+      hopper::tma_prefetch(tw);
+      hopper::tma_prefetch(tv);
+    }
+    const float a2 = p.a[h] * kLog2e;
+    const float* dtg = p.dt + (long long)b * p.S * p.H + h;
+    float d0 = 0.f, d1 = 0.f;  // dt of rows lane and 32 + lane of the next chunk, 0 past S
+    auto load_dt = [&](int t0) {
+      d0 = t0 + lane < p.S ? dtg[(long long)(t0 + lane) * p.H] : 0.f;
+      d1 = t0 + 32 + lane < p.S ? dtg[(long long)(t0 + 32 + lane) * p.H] : 0.f;
+    };
+    if (n_upd > 0) load_dt(chunk(0) * kQ);
+    for (int it = 0; it < n_upd; ++it) {
+      const int s = it % kStages, t0 = chunk(it) * kQ;
+      hopper::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      if (lane == 0) {
+        bf16* st = sm + s * T::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * T::STAGE);
+#pragma unroll
+        for (int c = 0; c < NB; ++c) hopper::tma_load_3d(st + c * kBox, tw, &full[s], 64 * c, t0, b);
+        hopper::tma_load_4d(st + NB * kBox, tv, &full[s], p0, h, t0, b);
+      }
+      // inclusive scan of dt a log2(e) over the chunk's 64 rows
+      float c0 = d0 * a2, c1 = d1 * a2;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u0 = __shfl_up_sync(0xffffffffu, c0, off);
+        const float u1 = __shfl_up_sync(0xffffffffu, c1, off);
+        if (lane >= off) {
+          c0 += u0;
+          c1 += u1;
+        }
+      }
+      c1 += __shfl_sync(0xffffffffu, c0, 31);
+      const float cq = __shfl_sync(0xffffffffu, c1, 31);
+      WalkScalars& ws = scal[s];
+      ws.coef[lane] = dir ? exp2f(c0) : exp2f(cq - c0) * d0;
+      ws.coef[32 + lane] = dir ? exp2f(c1) : exp2f(cq - c1) * d1;
+      if (lane == 0) ws.decay = exp2f(cq);
+      hopper::mbar_arrive(&full[s]);
+      if (it + 1 < n_upd) load_dt(chunk(it + 1) * kQ);
+    }
+  } else {
+    // ------------------------------------------------ consumer warpgroup
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
+    const int r0 = 16 * warp + g;  // this lane's accumulator rows (of N): r0 and r0 + 8
+    bf16* const vt = sm + T::VT;   // (V coef)^T: hi rows, then lo rows
+    const CUtensorMap* to = dir ? &tdst : &tst;
+
+    float st[NB][16];
+#pragma unroll
+    for (int m = 0; m < NB; ++m)
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int n = 64 * m + r0 + 8 * ((e >> 1) & 1), q = 8 * (e / 4) + 2 * tg + (e & 1);
+        st[m][e] = dir && p.dstate && n < p.N && q < p.pt
+                       ? p.dstate[(((long long)b * p.H + h) * p.P + p0 + q) * p.N + n]
+                       : 0.f;
+      }
+
+    for (int it = 0; it < p.NC; ++it) {
+      const int s = it % kStages, k = chunk(it);
+      const bool upd = it < n_upd;
+      bf16* const ss = sm + T::SS + (it & 1) * NB * kBox;
+      // the state entering chunk k (or the gradient leaving it) in two terms:
+      // the accumulator's blocks (rows n, columns p) land as [p][n]
+#pragma unroll
+      for (int m = 0; m < NB; ++m)
+#pragma unroll
+        for (int jj = 0; jj < 4; jj += 2) {
+          uint32_t hr[4], lr[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            split_pack(st[m][4 * jj + 2 * q], st[m][4 * jj + 2 * q + 1], hr[q], lr[q]);
+          const int o = m * kBox + hopper::sw128_offset(8 * (jj + (lane >> 4)) + (lane & 7),
+                                                         16 * warp + 8 * ((lane >> 3) & 1));
+          hopper::stmatrix_x4_trans(ss + o, hr);
+          hopper::stmatrix_x4_trans(ss + kPBox + o, lr);
+        }
+      if (upd) {
+        // (V coef)^T in two terms for the 32 columns of P, then the decay
+        const bf16* vs = sm + s * T::STAGE + NB * kBox;
+        hopper::mbar_wait(&full[s], (it / kStages) & 1);
+        uint32_t vr[2][4];
+        float w[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int j0 = 16 * warp + 8 * i;
+          hopper::ldmatrix_x4(vr[i], vs + hopper::sw128_offset(j0 + (lane & 7), 8 * (lane >> 3)));
+          w[i] = scal[s].coef[j0 + lane / 4];
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          uint32_t hr[4], lr[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float2 v =
+                __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&vr[i][q]));
+            split_pack(v.x * w[i], v.y * w[i], hr[q], lr[q]);
+          }
+          const int o = hopper::sw128_offset(lane, 16 * warp + 8 * i);  // row p = lane
+          hopper::stmatrix_x4_trans(vt + o, hr);
+          hopper::stmatrix_x4_trans(vt + kPBox + o, lr);
+        }
+        const float decay = scal[s].decay;
+#pragma unroll
+        for (int m = 0; m < NB; ++m)
+#pragma unroll
+          for (int e = 0; e < 16; ++e) st[m][e] *= decay;
+      }
+      if (tid == 0) hopper::bulk_wait<0, true>();  // the other buffer's store has read it
+      hopper::fence_proxy_async();
+      hopper::named_barrier_sync(1, kConsumers);
+      if (tid == 0) {
+        const int plane = (((b * p.H + h) * p.NC) + k) * 2;
+#pragma unroll
+        for (int m = 0; m < NB; ++m) {
+          hopper::tma_store_3d(to, ss + m * kBox, 64 * m, p0, plane);
+          hopper::tma_store_3d(to, ss + m * kBox + kPBox, 64 * m, p0, plane + 1);
+        }
+        hopper::bulk_commit();
+      }
+      if (upd) {
+        const bf16* ws = sm + s * T::STAGE;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < NB; ++m) {
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const uint64_t da = hopper::desc_sw128(ws + m * kBox + kk * 16 * 64, 2 * kBox, 1024);
+            hopper::wgmma_ss_n32<1, 0>(st[m], da, hopper::desc_sw128(vt + 16 * kk, 16, 1024), 1);
+            hopper::wgmma_ss_n32<1, 0>(st[m], da,
+                                       hopper::desc_sw128(vt + kPBox + 16 * kk, 16, 1024), 1);
+          }
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+#pragma unroll
+        for (int m = 0; m < NB; ++m) hopper::fence_operands(st[m]);
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty[s]);  // the stage is read
+      }
+    }
+    if (tid == 0) hopper::bulk_wait<0, false>();
+  }
+}
+
+// ssd_bwd_chunk_tc, per head of the block: the rows' scalars
+struct __align__(16) HeadScalars {
+  float cum[kQ];  // inclusive cumsum of dt a, times log2(e)
+  float dt[kQ];
+  float e[kQ];    // exp(cum): the decay from the chunk's start
+  float t[kQ];    // exp(cum_Q - cum): the decay to the chunk's end
+  float decay;    // exp(cum_Q)
+};
+
+// ... and the rows' shares of dcum and ddt that its warpgroups leave
+struct RowTerms {
+  float w_row[kMaxG][kQ];  // sum_j W_ij  (warpgroup 1)
+  float w_col[kMaxG][kQ];  // sum_i W_ij  (warpgroup 0)
+  float e_term[kMaxG][kQ]; // e_i dy_i^T S C_i  (warpgroup 1)
+  float t_term[kMaxG][kQ]; // t_j u_j^T dS B_j  (warpgroup 0)
+  float du_x[kMaxG][kQ];   // du_j . x_j  (warpgroup 0)
+  float ds_s[kMaxG][4];    // <dS, S>, per warp of warpgroup 1
+};
+
+// Shared memory of ssd_bwd_chunk_tc in bf16 elements from a 1024-byte
+// boundary, every tile in TMA's 128-byte swizzle: C and B of the chunk as NB
+// boxes [64 rows][64 of N] each; then per stage (one head) x and dy as one
+// box [64 rows][64 of P] each, and S hi, S lo, dS hi, dS lo as NB boxes [64
+// of P][64 of N] each.
+template <int NB>
+struct ChunkTiles {
+  static constexpr int CS = 0, BS = NB * kBox, STAGE0 = 2 * NB * kBox;
+  static constexpr int X = 0, DY = kBox, SH = 2 * kBox, SL = SH + NB * kBox, DSH = SL + NB * kBox,
+                       DSL = DSH + NB * kBox, STAGE = DSL + NB * kBox;
+  static constexpr size_t SMEM = 2 * (size_t)(STAGE0 + kStages * STAGE) + 1024;  // + alignment
+};
+
+constexpr int kChunkConsumers = 256;  // warpgroups 0 and 1
+constexpr int kChunkThreads = 384;    // and the loader, warpgroup 2
+
+// the kk-th 16-deep step of an MN-major B operand whose depth is a tile's
+// 64 rows and whose columns run over its boxes of 64
+__device__ __forceinline__ uint64_t mn_major(const __nv_bfloat16* tile, int kk) {
+  return hopper::desc_sw128(tile + kk * 16 * 64, 2 * kBox, 1024);
+}
+
+// D[64 x 64 NB] (+)= A[64 x 16] B[16 x 64 NB], A from registers, B MN-major
+template <int NB>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32 * NB], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (NB == 1)
+    hopper::wgmma_rs_n64<1>(d, a, db, 1);
+  else
+    hopper::wgmma_rs_n128<1>(d, a, db, 1);
+}
+
+// A 64 x 64 fp32 accumulator (columns as the depth of the next product) as
+// A fragments in two terms: k-step kk takes columns 16kk.., its n8 tiles 2kk
+// and 2kk + 1
+__device__ __forceinline__ void split_frags(const float (&v)[32], uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    split_pack(v[4 * j], v[4 * j + 1], hi[j / 2][(j % 2) * 2], lo[j / 2][(j % 2) * 2]);
+    split_pack(v[4 * j + 2], v[4 * j + 3], hi[j / 2][(j % 2) * 2 + 1], lo[j / 2][(j % 2) * 2 + 1]);
+  }
+}
+
+// The warpgroup's 64 rows of a [64][64] bf16 tile as A fragments (ldmatrix),
+// each row times its factor (w0 for row 16 warp + g, w1 for the row 8
+// below), in two terms
+__device__ __forceinline__ void scaled_frags(const __nv_bfloat16* tile, float w0, float w1,
+                                             uint32_t (&hi)[4][4], uint32_t (&lo)[4][4], int warp,
+                                             int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t r[4];
+    hopper::ldmatrix_x4(r, tile + hopper::sw128_offset(16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1),
+                                                       16 * kk + 8 * (lane >> 4)));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r[q]));
+      const float w = (q & 1) ? w1 : w0;
+      split_pack(v.x * w, v.y * w, hi[kk][q], lo[kk][q]);
+    }
+  }
+}
+
+// two bf16 of a swizzled [64][64] tile at (row, col), col even
+__device__ __forceinline__ float2 tile_pair(const __nv_bfloat16* tile, int row, int col) {
+  return __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(tile + hopper::sw128_offset(row, col)));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Pass 2 on the tensor cores: one block per (chunk, group of G heads,
+// batch), warpgroups 0 and 1 computing, warpgroup 2 loading.  C and B of the
+// chunk come once, C B^T (warpgroup 1) and B C^T (warpgroup 0) are computed
+// once; then the block walks its heads in order, each head's x, dy, S and
+// dS through a ring of two stages.  The formulas are ssd_bwd_chunk's; with
+// D = DU∘L (DU_ij = dy_i . u_j, L the decays below the diagonal):
+//   warpgroup 0, rows j: D^T from X dY^T; dB += D^T C + (x t dt) dS; du =
+//     M^T dy + t (B dS^T), M^T = (B C^T)∘L^T; dx = du dt; sum_p du x; the
+//     t term t dt x . (B dS^T); the column sums of W = D∘(C B^T);
+//   warpgroup 1, rows i: D from dY X^T; dC += D B + (dy e) S; the e term
+//     e dy . (C S^T); the row sums of W; <dS, S>.
+// Every product is a wgmma: x, dy, B and C enter exact; each fp32 factor
+// (D, M^T, x t dt, dy e, and the states from pass 1) in two bf16 terms,
+// hi = bf16(v) and lo = bf16(v - hi), and a product of two split factors
+// in three (hi hi, hi lo, lo hi), all summed in fp32.  dB and dC stay in
+// fp32 registers over the group's heads (no atomics; the heads in a fixed
+// order) and are stored as the group's partial; then each warp finishes
+// one head's rows: dcum, its reverse cumsum, ddt and the chunk's share of
+// da.
+template <int NB>
+__global__ void __launch_bounds__(kChunkThreads, 1)
+    ssd_bwd_chunk_tc(const __grid_constant__ CUtensorMap tb, const __grid_constant__ CUtensorMap tc,
+                     const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tdy,
+                     const __grid_constant__ CUtensorMap tst, const __grid_constant__ CUtensorMap tdst,
+                     const BwdParams p) {
+  using T = ChunkTiles<NB>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bc_full, full[kStages], empty[kStages];
+  __shared__ HeadScalars hsc[kMaxG];
+  __shared__ RowTerms rt;
+  bf16* sm = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const bf16* cs = sm + T::CS;
+  const bf16* bs = sm + T::BS;
+
+  const int k = blockIdx.x, grp = blockIdx.y, b = blockIdx.z;
+  const int G = p.H / p.parts, h0 = grp * G;
+  const int t0 = k * kQ, L = min(kQ, p.S - t0);
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&bc_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kChunkConsumers / 32);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kChunkConsumers) {
+    // ------------------------------------------------ loader warpgroup
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == kChunkConsumers) {
+      hopper::tma_prefetch(&tb);
+      hopper::tma_prefetch(&tc);
+      hopper::tma_prefetch(&tx);
+      hopper::tma_prefetch(&tdy);
+      hopper::tma_prefetch(&tst);
+      hopper::tma_prefetch(&tdst);
+      hopper::mbar_arrive_expect_tx(&bc_full, 2 * T::STAGE0);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        hopper::tma_load_3d(sm + T::CS + c * kBox, &tc, &bc_full, 64 * c, t0, b);
+        hopper::tma_load_3d(sm + T::BS + c * kBox, &tb, &bc_full, 64 * c, t0, b);
+      }
+      for (int gi = 0; gi < G; ++gi) {
+        const int s = gi % kStages, h = h0 + gi;
+        hopper::mbar_wait(&empty[s], ((gi / kStages) & 1) ^ 1);
+        bf16* st = sm + T::STAGE0 + s * T::STAGE;
+        hopper::mbar_arrive_expect_tx(&full[s], 2 * T::STAGE);
+        hopper::tma_load_4d(st + T::X, &tx, &full[s], 0, h, t0, b);
+        hopper::tma_load_4d(st + T::DY, &tdy, &full[s], 0, h, t0, b);
+        const int plane = ((b * p.H + h) * p.NC + k) * 2;
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          hopper::tma_load_3d(st + T::SH + c * kBox, &tst, &full[s], 64 * c, 0, plane);
+          hopper::tma_load_3d(st + T::SL + c * kBox, &tst, &full[s], 64 * c, 0, plane + 1);
+          hopper::tma_load_3d(st + T::DSH + c * kBox, &tdst, &full[s], 64 * c, 0, plane);
+          hopper::tma_load_3d(st + T::DSL + c * kBox, &tdst, &full[s], 64 * c, 0, plane + 1);
+        }
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------ consumer warpgroups
+  hopper::setmaxnreg_inc<240>();
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, tg = lane % 4;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;  // this lane's accumulator rows
+  const int cw = threadIdx.x / 32;            // consumer warp 0..7
+
+  // the heads' scalars, warp w for head w: cumsum of dt a in log2 units
+  if (cw < G) {
+    const float a2 = p.a[h0 + cw] * kLog2e;
+    const float* dtg = p.dt + (long long)b * p.S * p.H + h0 + cw;
+    const float d0 = lane < L ? dtg[(long long)(t0 + lane) * p.H] : 0.f;
+    const float d1 = 32 + lane < L ? dtg[(long long)(t0 + 32 + lane) * p.H] : 0.f;
+    float c0 = d0 * a2, c1 = d1 * a2;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_up_sync(0xffffffffu, c0, off);
+      const float u1 = __shfl_up_sync(0xffffffffu, c1, off);
+      if (lane >= off) {
+        c0 += u0;
+        c1 += u1;
+      }
+    }
+    c1 += __shfl_sync(0xffffffffu, c0, 31);
+    const float cq = __shfl_sync(0xffffffffu, c1, 31);
+    HeadScalars& hs = hsc[cw];
+    hs.cum[lane] = c0;
+    hs.cum[32 + lane] = c1;
+    hs.dt[lane] = d0;
+    hs.dt[32 + lane] = d1;
+    hs.e[lane] = exp2f(c0);
+    hs.e[32 + lane] = exp2f(c1);
+    hs.t[lane] = exp2f(cq - c0);
+    hs.t[32 + lane] = exp2f(cq - c1);
+    if (lane == 0) hs.decay = exp2f(cq);
+  }
+  hopper::named_barrier_sync(1, kChunkConsumers);
+
+  // C B^T (warpgroup 1, rows i) or B C^T (warpgroup 0, rows j), once
+  float cb[32];
+  hopper::mbar_wait(&bc_full, 0);
+  {
+    const bf16* ra = wg ? cs : bs;
+    const bf16* rb = wg ? bs : cs;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NB; ++kk)
+      hopper::wgmma_ss_n64<0, 0>(cb, kmajor(ra, 64, kk), kmajor(rb, 64, kk), kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(cb);
+  }
+
+  float grad[32 * NB];  // dB (warpgroup 0) or dC (warpgroup 1) over the group's heads
+#pragma unroll
+  for (int i = 0; i < 32 * NB; ++i) grad[i] = 0.f;
+  float acc[32], aux[32];
+  uint32_t fh[4][4], fl[4][4];
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int s = gi % kStages, h = h0 + gi;
+    const bf16* st = sm + T::STAGE0 + s * T::STAGE;
+    const bf16* xs = st + T::X;
+    const bf16* dys = st + T::DY;
+    const bf16* sh = st + T::SH;
+    const bf16* sl = st + T::SL;
+    const bf16* dsh = st + T::DSH;
+    const bf16* dsl = st + T::DSL;
+    const HeadScalars& hs = hsc[gi];
+    const float cr[2] = {hs.cum[r0], hs.cum[r1]};
+    hopper::mbar_wait(&full[s], (gi / kStages) & 1);
+
+    // DU^T = X dY^T (rows j) or DU = dY X^T (rows i), exact operands
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::wgmma_ss_n64<0, 0>(acc, kmajor(wg ? dys : xs, 64, kk), kmajor(wg ? xs : dys, 64, kk),
+                                 kk > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_operands(acc);
+
+    if (wg == 0) {
+      // ------------------------------------------ warpgroup 0: rows j
+      const float dr[2] = {hs.dt[r0], hs.dt[r1]}, tr[2] = {hs.t[r0], hs.t[r1]};
+      // D^T_ji = DU^T_ji dt_j L_ij (i >= j), and the column sums of W
+      float wsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 ci = *reinterpret_cast<const float2*>(&hs.cum[8 * jj + 2 * tg]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, i = 8 * jj + 2 * tg + (e & 1);
+          const float l = fast_exp2(i >= (r ? r1 : r0) ? ((e & 1) ? ci.y : ci.x) - cr[r] : -INFINITY);
+          const float v = acc[4 * jj + e] * dr[r] * l;
+          acc[4 * jj + e] = v;
+          wsum[r] = fmaf(v, cb[4 * jj + e], wsum[r]);
+        }
+      }
+      split_frags(acc, fh, fl);
+      wsum[0] = quad_sum(wsum[0]);
+      wsum[1] = quad_sum(wsum[1]);
+      if (tg == 0) {
+        rt.w_col[gi][r0] = wsum[0];
+        rt.w_col[gi][r1] = wsum[1];
+      }
+      // dB += D^T C, C read in place as the MN-major B operand
+      hopper::fence_operands(grad);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_mn<NB>(grad, fh[kk], mn_major(cs, kk));
+        wgmma_rs_mn<NB>(grad, fl[kk], mn_major(cs, kk));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(grad);
+      // dB += (x t dt) dS
+      scaled_frags(xs, tr[0] * dr[0], tr[1] * dr[1], fh, fl, warp, lane);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_mn<NB>(grad, fh[kk], mn_major(dsh, kk));
+        wgmma_rs_mn<NB>(grad, fh[kk], mn_major(dsl, kk));
+        wgmma_rs_mn<NB>(grad, fl[kk], mn_major(dsh, kk));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(grad);
+      // B dS^T (depth N, both K-major) into acc
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk) {
+        hopper::wgmma_ss_n64<0, 0>(acc, kmajor(bs, 64, kk), kmajor(dsh, 64, kk), kk > 0);
+        hopper::wgmma_ss_n64<0, 0>(acc, kmajor(bs, 64, kk), kmajor(dsl, 64, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(acc);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 ci = *reinterpret_cast<const float2*>(&hs.cum[8 * jj + 2 * tg]);
+        float m[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, i = 8 * jj + 2 * tg + (e & 1);
+          m[e] = cb[4 * jj + e] *
+                 fast_exp2(i >= (r ? r1 : r0) ? ((e & 1) ? ci.y : ci.x) - cr[r] : -INFINITY);
+        }
+        split_pack(m[0], m[1], fh[jj / 2][(jj % 2) * 2], fl[jj / 2][(jj % 2) * 2]);
+        split_pack(m[2], m[3], fh[jj / 2][(jj % 2) * 2 + 1], fl[jj / 2][(jj % 2) * 2 + 1]);
+      }
+      // M^T = (B C^T)∘L^T as fragments, then M^T dY, dY read in place as the
+      // MN-major B operand
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::wgmma_rs_n64<1>(aux, fh[kk], mn_major(dys, kk), kk > 0);
+        hopper::wgmma_rs_n64<1>(aux, fl[kk], mn_major(dys, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(aux);
+      // du = M^T dy + t (B dS^T): dx = du dt, sum_p du x, and the t term
+      float sx[2] = {0.f, 0.f}, sb[2] = {0.f, 0.f};
+      __nv_bfloat16* dxg = static_cast<__nv_bfloat16*>(p.dx);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 8 * jj + 2 * tg;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r ? r1 : r0;
+          const float2 xv = tile_pair(xs, row, col);
+          const float b0 = acc[4 * jj + 2 * r], b1 = acc[4 * jj + 2 * r + 1];
+          const float du0 = fmaf(tr[r], b0, aux[4 * jj + 2 * r]);
+          const float du1 = fmaf(tr[r], b1, aux[4 * jj + 2 * r + 1]);
+          sx[r] = fmaf(du0, xv.x, fmaf(du1, xv.y, sx[r]));
+          sb[r] = fmaf(b0, xv.x, fmaf(b1, xv.y, sb[r]));
+          if (dxg != nullptr && row < L && col < p.P)
+            *reinterpret_cast<uint32_t*>(dxg + (((long long)b * p.S + t0 + row) * p.H + h) * p.P + col) =
+                pack_bf16(du0 * dr[r], du1 * dr[r]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sx[r] = quad_sum(sx[r]);
+        sb[r] = quad_sum(sb[r]);
+      }
+      if (tg == 0) {
+        rt.du_x[gi][r0] = sx[0];
+        rt.du_x[gi][r1] = sx[1];
+        rt.t_term[gi][r0] = tr[0] * dr[0] * sb[0];
+        rt.t_term[gi][r1] = tr[1] * dr[1] * sb[1];
+      }
+    } else {
+      // ------------------------------------------ warpgroup 1: rows i
+      // D_ij = DU_ij dt_j L_ij (j <= i), and the row sums of W
+      float wsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const float2 cj = *reinterpret_cast<const float2*>(&hs.cum[8 * jj + 2 * tg]);
+        const float2 dj = *reinterpret_cast<const float2*>(&hs.dt[8 * jj + 2 * tg]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, j = 8 * jj + 2 * tg + (e & 1);
+          const float l = fast_exp2(j <= (r ? r1 : r0) ? cr[r] - ((e & 1) ? cj.y : cj.x) : -INFINITY);
+          const float v = acc[4 * jj + e] * ((e & 1) ? dj.y : dj.x) * l;
+          acc[4 * jj + e] = v;
+          wsum[r] = fmaf(v, cb[4 * jj + e], wsum[r]);
+        }
+      }
+      split_frags(acc, fh, fl);
+      wsum[0] = quad_sum(wsum[0]);
+      wsum[1] = quad_sum(wsum[1]);
+      if (tg == 0) {
+        rt.w_row[gi][r0] = wsum[0];
+        rt.w_row[gi][r1] = wsum[1];
+      }
+      // dC += D B, B read in place as the MN-major B operand
+      hopper::fence_operands(grad);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_mn<NB>(grad, fh[kk], mn_major(bs, kk));
+        wgmma_rs_mn<NB>(grad, fl[kk], mn_major(bs, kk));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(grad);
+      // dC += (dy e) S
+      const float er[2] = {hs.e[r0], hs.e[r1]};
+      scaled_frags(dys, er[0], er[1], fh, fl, warp, lane);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_rs_mn<NB>(grad, fh[kk], mn_major(sh, kk));
+        wgmma_rs_mn<NB>(grad, fh[kk], mn_major(sl, kk));
+        wgmma_rs_mn<NB>(grad, fl[kk], mn_major(sh, kk));
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(grad);
+      // C S^T (depth N, both K-major), for the e term
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * NB; ++kk) {
+        hopper::wgmma_ss_n64<0, 0>(aux, kmajor(cs, 64, kk), kmajor(sh, 64, kk), kk > 0);
+        hopper::wgmma_ss_n64<0, 0>(aux, kmajor(cs, 64, kk), kmajor(sl, 64, kk), 1);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operands(aux);
+      float se[2] = {0.f, 0.f};
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 8 * jj + 2 * tg;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 yv = tile_pair(dys, r ? r1 : r0, col);
+          se[r] = fmaf(yv.x, aux[4 * jj + 2 * r], fmaf(yv.y, aux[4 * jj + 2 * r + 1], se[r]));
+        }
+      }
+      se[0] = quad_sum(se[0]);
+      se[1] = quad_sum(se[1]);
+      if (tg == 0) {
+        rt.e_term[gi][r0] = er[0] * se[0];
+        rt.e_term[gi][r1] = er[1] * se[1];
+      }
+      // <dS, S>: the four tiles share one layout, so element by element
+      float dot = 0.f;
+      for (int q = tid; q < NB * kBox / 2; q += 128) {
+        const float2 a0 = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(sh)[q]);
+        const float2 a1 = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(sl)[q]);
+        const float2 b0 = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(dsh)[q]);
+        const float2 b1 = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(dsl)[q]);
+        dot = fmaf(a0.x + a1.x, b0.x + b1.x, fmaf(a0.y + a1.y, b0.y + b1.y, dot));
+      }
+      dot = warp_sum(dot);
+      if (lane == 0) rt.ds_s[gi][warp] = dot;
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);  // this warp has read the stage
+  }
+
+  // the group's partial of dB (warpgroup 0) or dC (warpgroup 1), rows past S
+  // and columns past N not stored
+  float* part = wg ? p.dc_part : p.db_part;
+  if (part != nullptr) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r ? r1 : r0;
+      if (row < L) {
+        float* out = part + (((long long)b * p.S + t0 + row) * p.parts + grp) * p.N;
+#pragma unroll
+        for (int jj = 0; jj < 8 * NB; ++jj) {
+          const int col = 8 * jj + 2 * tg;
+          if (col < p.N)
+            *reinterpret_cast<float2*>(out + col) =
+                make_float2(grad[4 * jj + 2 * r], grad[4 * jj + 2 * r + 1]);
+        }
+      }
+    }
+  }
+
+  // each warp one head: dcum, its reverse cumsum d(dt a), ddt and da's share
+  hopper::named_barrier_sync(1, kChunkConsumers);
+  if (cw < G) {
+    const int h = h0 + cw;
+    const HeadScalars& hs = hsc[cw];
+    float v0 = rt.w_row[cw][lane] - rt.w_col[cw][lane] + rt.e_term[cw][lane] - rt.t_term[cw][lane];
+    float v1 = rt.w_row[cw][32 + lane] - rt.w_col[cw][32 + lane] + rt.e_term[cw][32 + lane] -
+               rt.t_term[cw][32 + lane];
+    const float t_all = warp_sum(rt.t_term[cw][lane] + rt.t_term[cw][32 + lane]);
+    const float s_all = rt.ds_s[cw][0] + rt.ds_s[cw][1] + rt.ds_s[cw][2] + rt.ds_s[cw][3];
+    if (lane == 31) v1 += t_all + hs.decay * s_all;  // the cum_Q terms, into the last row
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u0 = __shfl_down_sync(0xffffffffu, v0, off);
+      const float u1 = __shfl_down_sync(0xffffffffu, v1, off);
+      if (lane + off < 32) {
+        v0 += u0;
+        v1 += u1;
+      }
+    }
+    v0 += __shfl_sync(0xffffffffu, v1, 0);
+    const float a = p.a[h];
+    if (p.ddt != nullptr) {
+      if (lane < L) p.ddt[((long long)b * p.S + t0 + lane) * p.H + h] = fmaf(v0, a, rt.du_x[cw][lane]);
+      if (32 + lane < L)
+        p.ddt[((long long)b * p.S + t0 + 32 + lane) * p.H + h] = fmaf(v1, a, rt.du_x[cw][32 + lane]);
+    }
+    const float share = warp_sum(fmaf(v0, hs.dt[lane], v1 * hs.dt[32 + lane]));
+    if (lane == 0 && p.da_part != nullptr) p.da_part[((long long)b * p.NC + k) * p.H + h] = share;
+  }
+}
+
 // ---------------------------------------------------------------- launch
 constexpr int kTmaError = -1000;  // kTmaError - CUresult: a tensor map the driver refused
+
+// pass 3, where db, dc or da is asked for
+template <typename T>
+int launch_reduce(const BwdParams& p, cudaStream_t stream) {
+  if (p.db || p.dc || p.da) {
+    const long long n_out = (long long)p.B * p.S * p.N;
+    const long long want = (n_out + kBwdThreads - 1) / kBwdThreads;
+    const int blocks = want < 4096 ? (int)want : 4096;
+    ssd_bwd_reduce<T><<<blocks, kBwdThreads, 0, stream>>>(p);
+  }
+  return (int)cudaGetLastError();
+}
 
 template <typename T>
 int launch_bwd(const BwdParams& p, cudaStream_t stream) {
@@ -1177,14 +1942,52 @@ int launch_bwd(const BwdParams& p, cudaStream_t stream) {
   ssd_bwd_chunk<T><<<dim3(p.NC, p.H, p.B), kBwdThreads, chunk_bytes, stream>>>(p);
   rc = cudaGetLastError();
   if (rc != cudaSuccess) return (int)rc;
-  if (p.db || p.dc || p.da) {
-    const long long n_out = (long long)p.B * p.S * p.N;
-    const long long want = (n_out + kBwdThreads - 1) / kBwdThreads;
-    const int blocks = want < 4096 ? (int)want : 4096;
-    ssd_bwd_reduce<T><<<blocks, kBwdThreads, 0, stream>>>(p);
-    rc = cudaGetLastError();
-  }
-  return (int)rc;
+  return launch_reduce<T>(p, stream);
+}
+
+template <int NB>
+int launch_bwd_tc(const BwdParams& p, cudaStream_t stream) {
+  CUtensorMap tx, tdy, tb, tc, tst, tdst, tst_ld, tdst_ld;
+  // x and dy as (P, H, S, B) in boxes of 64 columns of one head by 64 rows; b
+  // and c as (N, S, B) in boxes of 64 by 64 rows; the states' planes as (N,
+  // P, B H NC 2) in boxes of 64 by 32 rows of P (the walk's stores) or 64
+  // (the chunk pass's loads)
+  const long long x_dims[4] = {p.P, p.H, p.S, p.B};
+  const long long x_strides[3] = {p.P, (long long)p.H * p.P, (long long)p.S * p.H * p.P};
+  const int x_box[4] = {64, 1, kQ, 1};
+  const long long bc_dims[3] = {p.N, p.S, p.B};
+  const long long bc_strides[2] = {p.N, (long long)p.S * p.N};
+  const int bc_box[3] = {64, kQ, 1};
+  const long long s_dims[3] = {p.N, p.P, 2ll * p.B * p.H * p.NC};
+  const long long s_strides[2] = {p.N, (long long)p.P * p.N};
+  const int st_box[3] = {64, kBwdPT, 1}, ld_box[3] = {64, 64, 1};
+  int rc = hopper::encode_bf16(&tx, p.x, 4, x_dims, x_strides, x_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tdy, p.dy, 4, x_dims, x_strides, x_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tb, p.b, 3, bc_dims, bc_strides, bc_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tc, p.c, 3, bc_dims, bc_strides, bc_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tst, p.states, 3, s_dims, s_strides, st_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tdst, p.dstates, 3, s_dims, s_strides, st_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tst_ld, p.states, 3, s_dims, s_strides, ld_box);
+  if (rc == 0) rc = hopper::encode_bf16(&tdst_ld, p.dstates, 3, s_dims, s_strides, ld_box);
+  if (rc != 0) return kTmaError - rc;
+  cudaError_t attr = cudaFuncSetAttribute(ssd_bwd_walk_tc<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          (int)WalkTiles<NB>::SMEM);
+  if (attr == cudaSuccess)
+    attr = cudaFuncSetAttribute(ssd_bwd_walk_tc<NB>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
+  if (attr == cudaSuccess)
+    attr = cudaFuncSetAttribute(ssd_bwd_chunk_tc<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)ChunkTiles<NB>::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  ssd_bwd_walk_tc<NB><<<dim3(p.P / p.pt, p.H, 2 * p.B), kTcThreads, WalkTiles<NB>::SMEM, stream>>>(
+      tb, tc, tx, tdy, tst, tdst, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ssd_bwd_chunk_tc<NB><<<dim3(p.NC, p.parts, p.B), kChunkThreads, ChunkTiles<NB>::SMEM, stream>>>(
+      tb, tc, tx, tdy, tst_ld, tdst_ld, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return launch_reduce<__nv_bfloat16>(p, stream);
 }
 
 template <typename T>
@@ -1253,30 +2056,39 @@ extern "C" int ssd_scan_fwd(int dtype, int tensor_cores, const void* x, const vo
 // The backward of ssd_scan_fwd for the cotangents dy [B, S, H, P] (x's
 // dtype) and dstate [B, H, P, N] (float32, or null for zeros).  dtype as
 // above, for x, b, c, dy, dx, db and dc; dt, a, ddt, da and the scratch in
-// float32.  The scratch: states and dstates [B, H, ceil(S / 64), P, N];
-// db_part and dc_part [B, S, H, N] (each null where db, dc is); da_part
-// [B, ceil(S / 64), H] (null where da is).  A null output is not computed.
-// All tensors contiguous; the outputs and scratch 16-byte aligned.  Returns
-// as ssd_scan_fwd.
-extern "C" int ssd_scan_bwd(int dtype, const void* x, const void* dt, const void* a,
-                            const void* b, const void* c, const void* dy, const void* dstate,
-                            void* states, void* dstates, void* dx, void* ddt, void* db_part,
-                            void* dc_part, void* da_part, void* db, void* dc, void* da, int B,
-                            int S, int H, int P, int N, void* stream) {
+// float32.  tensor_cores: 1 for the wgmma route (bfloat16, P <= 64, P and N
+// multiples of 8), 0 for the FMA one.  parts: the partials of dB and dC per
+// row, H on the FMA route and H / G on the wgmma route, whose blocks take G
+// <= 8 heads each.  The scratch: states and dstates [B, H, ceil(S / 64), P,
+// N] (fp32; two bf16 planes per state on the wgmma route); db_part and
+// dc_part [B, S, parts, N] (each null where db, dc is); da_part [B, ceil(S /
+// 64), H] (null where da is).  A null output is not computed.  All tensors
+// contiguous; the outputs and scratch 16-byte aligned.  Returns as
+// ssd_scan_fwd.
+extern "C" int ssd_scan_bwd(int dtype, int tensor_cores, const void* x, const void* dt,
+                            const void* a, const void* b, const void* c, const void* dy,
+                            const void* dstate, void* states, void* dstates, void* dx, void* ddt,
+                            void* db_part, void* dc_part, void* da_part, void* db, void* dc,
+                            void* da, int B, int S, int H, int P, int N, int parts, void* stream) {
   if (dtype != 0 && dtype != 1) return -1;
   const int NC = S < 1 ? 0 : (S + kQ - 1) / kQ;
   if (B < 1 || S < 1 || H < 1 || 2 * B > 65535 || H > 65535 || N < 4 || N > kMaxN || N % 4 ||
       P < 4 || P % 4 || (P > kBwdPT && P % kBwdPT) || (db && !db_part) || (dc && !dc_part) ||
-      (da && !da_part))
+      (da && !da_part) || parts < 1 || H % parts)
     return -2;
   const BwdParams p{x, static_cast<const float*>(dt), static_cast<const float*>(a), b, c, dy,
                     static_cast<const float*>(dstate), static_cast<float*>(states),
                     static_cast<float*>(dstates), dx, static_cast<float*>(ddt),
                     static_cast<float*>(db_part), static_cast<float*>(dc_part),
                     static_cast<float*>(da_part), db, dc, static_cast<float*>(da),
-                    B, S, H, P, N, NC, P > kBwdPT ? kBwdPT : P};
+                    B, S, H, P, N, NC, P > kBwdPT ? kBwdPT : P, parts};
   if (P / p.pt > 65535) return -2;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tensor_cores) {
+    if (dtype != 1 || P % 8 || N % 8 || P > 64 || H / parts > kMaxG) return -2;
+    return N > 64 ? launch_bwd_tc<2>(p, st) : launch_bwd_tc<1>(p, st);
+  }
+  if (parts != H) return -2;
   return dtype == 1 ? launch_bwd<__nv_bfloat16>(p, st) : launch_bwd<float>(p, st);
 }
 

@@ -9,11 +9,15 @@ backward launches the hand-written backward kernel of the same library, or
 raises: there is no fallback.  The forward dispatches by dtype
 (``kernel.route``): bfloat16 x/b/c run on the tensor cores with the fp32
 factors split into two bf16 terms, float32 on the FMA units.  The backward
-runs in fp32 on the FMA units for both, from the saved inputs, as the JAX
-package's custom VJP (``_ssd_bwd``) recomputes through the sequential
-``reference_ssd``: it recomputes each chunk's entry state and stores no
-residuals of the forward.  Its plain version is autograd through
-``ssd_chunked``, which the tests and ``chip_smoke.py`` hold it against.
+dispatches by ``kernel.bwd_route``: bfloat16 with P at most 64 and P and N
+multiples of 8 (every shape a model gives it) on the tensor cores, its fp32
+factors in two bf16 terms as the forward's, and float32 and the other
+bfloat16 shapes in fp32 on the FMA units.  Either works from the saved
+inputs, as the JAX package's custom VJP (``_ssd_bwd``) recomputes through
+the sequential ``reference_ssd``: it recomputes each chunk's entry state
+and stores no residuals of the forward.  Its plain version is autograd
+through ``ssd_chunked``, which the tests and ``chip_smoke.py`` hold it
+against.
 """
 
 from __future__ import annotations
@@ -65,6 +69,33 @@ def _cotangent(g, dtype):
     return g if g.is_contiguous() else g.contiguous()
 
 
+def _backward(x, dt, a, b, c, gy, gstate, need, way: str | None = None):
+    """The backward kernel's (dx, ddt, da, db, dc) for the cotangents ``gy``
+    (None: zeros) and ``gstate`` (None: zeros) of ``ssd``'s outputs, each
+    None where ``need`` (five booleans) does not ask for it, on route
+    ``way`` (default ``kernel.bwd_route``).  One launch; the scratch is
+    allocated here and freed on return."""
+    gy = torch.zeros_like(x) if gy is None else _cotangent(gy, x.dtype)
+    if gstate is not None:
+        gstate = _cotangent(gstate, torch.float32)
+    bs, s, h, p = x.shape
+    n, nc = b.shape[-1], -(-s // kernel.CHUNK)
+    way = way or kernel.bwd_route(x.dtype, p, n)
+    need = dict(zip(("dx", "ddt", "da", "db", "dc"), need))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    scratch = {"states": torch.empty((bs, h, nc, p, n), **f32),
+               "dstates": torch.empty((bs, h, nc, p, n), **f32)}
+    parts = kernel.bwd_parts(way, h)
+    for name, shape in (("db", (bs, s, parts, n)), ("dc", (bs, s, parts, n)),
+                        ("da", (bs, nc, h))):
+        if need[name]:
+            scratch[f"{name}_part"] = torch.empty(shape, **f32)
+    inputs = dict(zip(("dx", "ddt", "da", "db", "dc"), (x, dt, a, b, c)))
+    grads = {k: torch.empty_like(inputs[k]) if need[k] else None for k in inputs}
+    kernel.launch_bwd(x, dt, a, b, c, gy, gstate, scratch, grads, way)
+    return grads["dx"], grads["ddt"], grads["da"], grads["db"], grads["dc"]
+
+
 class _SSD(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dt, a, b, c):
@@ -78,23 +109,7 @@ class _SSD(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy, gstate):
-        x, dt, a, b, c = ctx.saved_tensors
-        need = dict(zip(("dx", "ddt", "da", "db", "dc"), ctx.needs_input_grad))
-        gy = torch.zeros_like(x) if gy is None else _cotangent(gy, x.dtype)
-        if gstate is not None:
-            gstate = _cotangent(gstate, torch.float32)
-        bs, s, h, p = x.shape
-        n, nc = b.shape[-1], -(-s // kernel.CHUNK)
-        f32 = dict(dtype=torch.float32, device=x.device)
-        scratch = {"states": torch.empty((bs, h, nc, p, n), **f32),
-                   "dstates": torch.empty((bs, h, nc, p, n), **f32)}
-        for name, shape in (("db", (bs, s, h, n)), ("dc", (bs, s, h, n)), ("da", (bs, nc, h))):
-            if need[name]:
-                scratch[f"{name}_part"] = torch.empty(shape, **f32)
-        inputs = dict(zip(("dx", "ddt", "da", "db", "dc"), (x, dt, a, b, c)))
-        grads = {k: torch.empty_like(inputs[k]) if need[k] else None for k in inputs}
-        kernel.launch_bwd(x, dt, a, b, c, gy, gstate, scratch, grads)
-        return grads["dx"], grads["ddt"], grads["da"], grads["db"], grads["dc"]
+        return _backward(*ctx.saved_tensors, gy, gstate, ctx.needs_input_grad)
 
 
 def ssd(x, dt, a, b, c, *, chunk: int = 256):

@@ -27,6 +27,10 @@ from repro_torch.runtime.trainer import Trainer
 from repro_torch.tree import tree_leaves, tree_map
 
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the SSD backward's ddt and da, which both routes store in fp32, in bf16:
+# the wgmma route's two-term split reads about 4e-6 of each one's largest
+# value, plain bf16 factors 4e-4 to 3e-3 (test_torch_ssd_scan.py, TC_GRAD_REL)
+SSD_FP32_STORE_TOL = 1e-4
 SHAPES = [  # b, s, h, kv, d, causal, window
     (2, 256, 4, 2, 64, True, 0),
     (1, 512, 8, 8, 32, True, 0),
@@ -150,14 +154,45 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b,h,kv,s,skv,causal,need", [
+    (2, 8, 2, 300, 100, True, (True, True, True)), (2, 8, 2, 100, 300, True, (True, True, True)),
+    (2, 8, 2, 256, 256, True, (True, False, False)), (2, 8, 2, 256, 256, True, (False, True, True))],
+    ids=["skv<s", "skv>s", "dq-only", "dkdv-only"])
+def test_flash_backward_grid_takes_every_block(cuda, b, h, kv, s, skv, causal, need):
+    """The bf16 backward's one grid of dK/dV and dQ blocks: causal with S
+    past Skv (every query tile reaches the few key tiles) and with Skv past
+    S (key blocks that no query row reaches: their blocks walk no tile and
+    store zeros), and with only dq or only dk and dv asked for (the other
+    kind's blocks not launched); against ``attention_backward``, one launch
+    each."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    d = 64
+    q = torch.randn(b, s, h, d, generator=gen, device=cuda).bfloat16()
+    k, v = (torch.randn(b, skv, kv, d, generator=gen, device=cuda).bfloat16() for _ in range(2))
+    cot = torch.randn(b, s, h, d, generator=gen, device=cuda).bfloat16()
+    leaves = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), need)]
+    before = kernel.bwd_launches
+    out = ops.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, [t for t in leaves if t.requires_grad], cot)
+    assert kernel.bwd_launches == before + 1
+    o_plain, lse_plain = attention_forward(q, k, v, causal=causal)
+    want = [w for w, n in zip(attention_backward(q, k, v, o_plain, lse_plain, cot, causal=causal),
+                              need) if n]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=TOL[torch.bfloat16],
+                                   rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_ssd_gradients_on_card_match_cpu(cuda, dtype):
     """dx, ddt, da, db and dc through the forward and backward kernels on
     the card against autograd through the plain ``ssd_chunked`` on the CPU,
     with cotangents of y and of the final state, at a ragged S with rows of
     dt = 0, tiny and negative; each within 5e-4 of its largest value in fp32
-    (``tests/test_kernels.py::test_ssd_grads``), 2e-2 in bf16 (dx, db and
-    dc are stored in bf16).  One backward launch; two passes bit-identical."""
+    (``tests/test_kernels.py::test_ssd_grads``); in bf16 dx, db and dc
+    (stored in bf16) within 2e-2, ddt and da (stored in fp32) within
+    ``SSD_FP32_STORE_TOL``.  One backward launch; two passes bit-identical."""
     rng = np.random.default_rng(6)
     b, s, h, p, n = 2, 200, 4, 64, 128
     host = [rng.normal(size=(b, s, h, p)), rng.uniform(0.001, 0.2, size=(b, s, h)),
@@ -169,19 +204,52 @@ def test_ssd_gradients_on_card_match_cpu(cuda, dtype):
     dy = torch.from_numpy(rng.normal(size=(b, s, h, p)).astype(np.float32)).to(dtype)
     dh = torch.from_numpy(rng.normal(size=(b, h, p, n)).astype(np.float32))
     grads = {}
+    wgmma = dtype == torch.bfloat16  # the route bwd_route takes at P 64, N 128
+    assert ssd_kernel.bwd_route(dtype, p, n) == ("wgmma" if wgmma else "fma")
     for dev in ("cpu", cuda, cuda):
         leaves = [t.to(dev).requires_grad_() for t in host]
-        before = ssd_kernel.bwd_launches
+        before = (ssd_kernel.bwd_launches, ssd_kernel.bwd_wgmma_launches)
         y, hf = ssd_ops.ssd(*leaves, chunk=64)
         got = torch.autograd.grad([y, hf], leaves, [dy.to(dev), dh.to(dev)])
-        assert ssd_kernel.bwd_launches == before + (dev == cuda)
+        assert ssd_kernel.bwd_launches == before[0] + (dev == cuda)
+        assert ssd_kernel.bwd_wgmma_launches == before[1] + (dev == cuda and wgmma)
         grads.setdefault(str(dev), []).append([g.cpu() for g in got])
     assert all(torch.equal(u, v) for u, v in zip(*grads["cuda"]))
-    tol = 5e-4 if dtype == torch.float32 else TOL[dtype]
-    for g_card, g_cpu, x in zip(grads["cuda"][0], grads["cpu"][0], host):
+    tols = [5e-4] * 5 if dtype == torch.float32 else [TOL[dtype], *[SSD_FP32_STORE_TOL] * 2,
+                                                       TOL[dtype], TOL[dtype]]
+    for g_card, g_cpu, x, tol in zip(grads["cuda"][0], grads["cpu"][0], host, tols):
         assert g_card.dtype == x.dtype and bool(torch.isfinite(g_card.float()).all())
         scale = g_cpu.float().abs().max()
         torch.testing.assert_close(g_card.float(), g_cpu.float(), atol=tol * scale, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n", [(8, 256, 64, 64, 128), (2, 130, 3, 16, 32),
+                                       (2, 130, 4, 8, 16), (2, 100, 3, 12, 20)])
+def test_ssd_backward_routes_agree(cuda, b, s, h, p, n):
+    """bf16: the backward's route is the one ``bwd_route`` names (wgmma at
+    mamba2's train shape and at the edges of its tiles: groups of one head,
+    N of one box, P of 8; FMA at P 12, N 20), and its gradients agree with
+    the FMA route's on the same inputs, relative to each gradient's largest
+    value: dx, db and dc (stored in bf16 by both) within the bf16
+    tolerance, ddt and da (stored in fp32) within ``SSD_FP32_STORE_TOL``."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(b, s, h, p, generator=gen, device=cuda).bfloat16()
+    dt = torch.rand(b, s, h, generator=gen, device=cuda) * 0.199 + 0.001
+    a = -(torch.rand(h, generator=gen, device=cuda) * 3.5 + 0.5)
+    bc = [torch.randn(b, s, n, generator=gen, device=cuda).bfloat16() for _ in range(2)]
+    dy = torch.randn(b, s, h, p, generator=gen, device=cuda).bfloat16()
+    way = ssd_kernel.bwd_route(torch.bfloat16, p, n)
+    assert way == ("fma" if p % 8 or n % 8 else "wgmma")
+    before = ssd_kernel.bwd_wgmma_launches
+    got = ssd_ops._backward(x, dt, a, *bc, dy, None, (True,) * 5)
+    assert ssd_kernel.bwd_wgmma_launches == before + (way == "wgmma")
+    want = ssd_ops._backward(x, dt, a, *bc, dy, None, (True,) * 5, way="fma")
+    tols = [TOL[torch.bfloat16], SSD_FP32_STORE_TOL, SSD_FP32_STORE_TOL, TOL[torch.bfloat16],
+            TOL[torch.bfloat16]]
+    for g, w, tol in zip(got, want, tols):
+        scale = w.float().abs().max()
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * scale, rtol=0)
 
 
 @pytest.mark.gpu

@@ -229,6 +229,20 @@ def test_route_takes_tensor_cores_for_bf16_rows_tma_can_address():
     assert kernel.route(torch.bfloat16, 64, 20) == "fma"
 
 
+def test_backward_route_takes_tensor_cores_for_one_tile_of_p():
+    """The backward takes the wgmma route where the forward does and P fits
+    one 64-column tile of x; its partials of dB and dC are one per head on
+    the FMA route and one per group of 8, 4, 2 or 1 heads (the largest that
+    divides H) on the wgmma route."""
+    assert kernel.bwd_route(torch.bfloat16, 64, 128) == "wgmma"
+    assert kernel.bwd_route(torch.bfloat16, 8, 16) == "wgmma"
+    assert kernel.bwd_route(torch.bfloat16, 128, 128) == "fma"
+    assert kernel.bwd_route(torch.float32, 64, 128) == "fma"
+    assert kernel.bwd_route(torch.bfloat16, 12, 20) == "fma"
+    assert [kernel.bwd_parts("wgmma", h) for h in (64, 12, 6, 3)] == [8, 3, 3, 3]
+    assert kernel.bwd_parts("fma", 64) == 64
+
+
 # ---------------------------------------------------------------- backward
 GRAD_TOL = 5e-4  # tests/test_kernels.py::test_ssd_grads, of each gradient's largest value
 
@@ -364,3 +378,122 @@ def test_kernel_backward_algorithm_matches_autograd(s, edges):
             np.testing.assert_allclose(g, w, atol=1e-6)
             continue
         np.testing.assert_allclose(g, w, atol=GRAD_TOL * float(np.abs(w).max()), rtol=0)
+
+
+def _split_product(u, v, n_terms):
+    """u @ v with both fp32 factors split, as the kernel's wgmmas sum them:
+    hi hi + hi lo + lo hi for two terms (lo lo lies below both terms'
+    rounding), hi hi for one."""
+    tu, tv = _terms(u, n_terms), _terms(v, n_terms)
+    out = tu[0] @ tv[0]
+    return out if n_terms == 1 else out + tu[0] @ tv[1] + tu[1] @ tv[0]
+
+
+def _tensor_core_backward(x, dt, a, b, c, dy, dh, n_terms, q=kernel.CHUNK):
+    """The backward's wgmma route, emulated (``csrc/ssd_scan.cu``,
+    ``ssd_bwd_walk_tc``, ``ssd_bwd_chunk_tc``, ``ssd_bwd_reduce``): x, dy, b
+    and c hold bf16 values (in fp32) and enter every product exact; each
+    fp32 factor enters as ``n_terms`` bf16 terms (``_terms``), the states
+    too, as pass 1 stores them, and the products sum in fp32.  The heads'
+    dB and dC are summed in the kernel's order: within each block's group
+    of heads (``kernel.bwd_parts``), then over the groups.  Returns dx, ddt,
+    da, db, dc in fp32, before the bf16 stores of dx, db and dc."""
+    bs, s, h, p = x.shape
+    n = b.shape[-1]
+    nc = -(-s // q)
+    terms = lambda v: _terms(v, n_terms)  # noqa: E731
+
+    def rows(t, dim):  # [.., S, ..] -> [.., nc, q, ..], zeros past S
+        pad = [0, 0] * (t.dim() - 1 - dim) + [0, nc * q - s]
+        return torch.nn.functional.pad(t, pad).unflatten(dim, (nc, q))
+
+    xs, ys = rows(x.permute(0, 2, 1, 3), 2), rows(dy.permute(0, 2, 1, 3), 2)  # [B,H,nc,q,P]
+    d = rows(dt.permute(0, 2, 1), 2)  # [B,H,nc,q]
+    bc, cc = rows(b, 1)[:, None], rows(c, 1)[:, None]  # [B,1,nc,q,N]
+    cum = torch.cumsum(d * a[None, :, None, None], -1)
+    e, t, decay = torch.exp(cum), torch.exp(cum[..., -1:] - cum), torch.exp(cum[..., -1])
+    # pass 1: the walks, the state in fp32, each update's fp32 factor split
+    states, exits = [], [None] * nc
+    st = torch.zeros(bs, h, p, n)
+    for k in range(nc):
+        states.append(st)
+        st = decay[:, :, k, None, None] * st + sum(
+            v.transpose(-1, -2) @ bc[:, :, k] for v in terms(xs[:, :, k] * (t * d)[:, :, k, :, None]))
+    ds = dh if dh is not None else torch.zeros(bs, h, p, n)
+    for k in reversed(range(nc)):
+        exits[k] = ds
+        ds = decay[:, :, k, None, None] * ds + sum(
+            v.transpose(-1, -2) @ cc[:, :, k] for v in terms(ys[:, :, k] * e[:, :, k, :, None]))
+    S, dS = torch.stack(states, 2), torch.stack(exits, 2)  # [B,H,nc,P,N], stored in terms
+    # pass 2
+    mask = torch.ones(q, q, dtype=torch.bool).tril()
+    lij = torch.exp(torch.where(mask, cum[..., :, None] - cum[..., None, :], float("-inf")))
+    cb = cc @ bc.transpose(-1, -2)  # C B^T, exact operands
+    dd = (ys @ xs.transpose(-1, -2)) * d[..., None, :] * lij  # D = DU∘L
+    w = dd * cb
+    dc_h = sum(v @ bc for v in terms(dd)) + _split_product(ys * e[..., None], S, n_terms)
+    db_h = (sum(v.transpose(-1, -2) @ cc for v in terms(dd))
+            + _split_product(xs * (t * d)[..., None], dS, n_terms))
+    dub = sum(bc @ v.transpose(-1, -2) for v in terms(dS))  # B dS^T
+    du = sum(v @ ys for v in terms((cb * lij).transpose(-1, -2))) + t[..., None] * dub
+    e_term = e * (ys * sum(cc @ v.transpose(-1, -2) for v in terms(S))).sum(-1)
+    t_term = t * d * (xs * dub).sum(-1)
+    dcum = w.sum(-1) - w.sum(-2) + e_term - t_term
+    dcum[..., -1] += t_term.sum(-1) + decay * (sum(terms(dS)) * sum(terms(S))).sum((-1, -2))
+    dla = dcum.flip(-1).cumsum(-1).flip(-1)
+
+    def heads_summed(g):  # [B,H,nc,q,N] -> [B,nc,q,N], within groups, then over them
+        per = h // kernel.bwd_parts("wgmma", h)
+        total = None
+        for h0 in range(0, h, per):
+            part = g[:, h0]
+            for hh in range(h0 + 1, h0 + per):
+                part = part + g[:, hh]
+            total = part if total is None else total + part
+        return total
+
+    def back(t, dim):  # [.., nc, q, ..] -> [.., S, ..]
+        return t.flatten(dim, dim + 1).narrow(dim, 0, s)
+
+    return (back(du * d[..., None], 2).permute(0, 2, 1, 3),
+            back(dla * a[None, :, None, None] + (du * xs).sum(-1), 2).permute(0, 2, 1),
+            (dla * d).sum((0, 2, 3)), back(heads_summed(db_h), 1), back(heads_summed(dc_h), 1))
+
+
+# the wgmma backward's arithmetic against fp32 autograd, relative to each
+# gradient's largest value: two terms gave 1.4e-6 to 5.4e-6 at these shapes,
+# one term (plain bf16 factors) 4e-4 to 3.0e-3
+TC_GRAD_REL = 1e-5
+
+
+@pytest.mark.parametrize("s,edges", [(256, False), (200, True)])
+def test_tensor_core_backward_keeps_fp32_accuracy(s, edges):
+    """The backward's wgmma route at mamba2-1.3b's widths (P 64, N 128; 6
+    heads, so three groups of two in the dB and dC sums): at the train
+    length with y's cotangent alone, and at a ragged S with rows of dt = 0,
+    tiny and negative and the final state's cotangent.  With two terms each
+    gradient is within ``TC_GRAD_REL`` of autograd through the fp32
+    ``ssd_chunked``, relative to its largest value; with one term it is
+    not."""
+    bs, h, p, n = 1, 6, 64, 128
+    arrays = _inputs(bs, s, h, p, n, seed=s + 40)
+    if edges:
+        arrays[1][:, ::7] = 0.0
+        arrays[1][:, 3::11] = 1e-30
+        arrays[1][:, 5::13] = -0.01
+    dy, dh = _cotangents(bs, s, h, p, n, seed=s + 41)
+    if not edges:
+        dh = np.zeros_like(dh)  # training: no cotangent of the final state
+    bf = lambda v: np.asarray(torch.from_numpy(np.asarray(v, np.float32)).bfloat16().float())  # noqa: E731
+    arrays = [bf(v) if i in (0, 3, 4) else np.asarray(v, np.float32) for i, v in enumerate(arrays)]
+    dy = bf(dy)
+    want = _port_grads(lambda *t: ssd_chunked(*t, chunk=64), arrays, dy, dh)
+    t = [torch.from_numpy(v) for v in arrays]
+    rels = {}
+    for n_terms in (1, 2):
+        got = _tensor_core_backward(*t, torch.from_numpy(dy), torch.from_numpy(dh) if edges else None,
+                                    n_terms)
+        rels[n_terms] = [float(np.abs(g.numpy() - w).max() / np.abs(w).max())
+                         for g, w in zip(got, want)]
+    assert max(rels[2]) <= TC_GRAD_REL, rels[2]
+    assert max(rels[1]) > 100 * TC_GRAD_REL, rels[1]
