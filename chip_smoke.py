@@ -12,7 +12,9 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    attention at the shapes of the kernel sweep, of both attention paths (every
    prefill group of 1, 2 or 4 rows at every bucket of 128 to 2048 tokens:
    internlm2-1.8b at head_dim 128, granite-moe-1b-a400m at head_dim 64) and
-   of h2o-danube-1.8b, at a ragged length, and at the edges of the bf16
+   of h2o-danube-1.8b, of jamba-v0.1-52b (32 heads over 8 KV heads of 128,
+   no RoPE: one prompt at each of its exact lengths, and the 4 x 512
+   batch), at a ragged length, and at the edges of the bf16
    kernel's tiles (S of 1, 127, 129 and 1025, windows below one tile, GQA
    groups of 1 to 8, every head dim, q/k/v as views of a fused buffer), and
    at the train shapes of internlm2-1.8b and granite-moe-1b-a400m.  The
@@ -21,12 +23,16 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    JAX package's sweep, at ragged capacities around its tiles (1 to 2560),
    on strided views, at every granite expert shape of the served runs
    (gate/up and down at each capacity C; forward) and of the train runs (C
-   640 in bf16, C 80 in fp32; all three), in fp32 and bf16.  The SSD scan at the shapes of the JAX
+   640 in bf16, C 80 in fp32; all three), in fp32 and bf16, and at every
+   jamba expert shape of the served runs in bf16 (16 experts, D 4096, F
+   14336: decode C 2, C 17 to 135 for the prompts alone, C 320 for the
+   batch; 1.88 GB of weights a product).  The SSD scan at the shapes of the JAX
    package's sweep, at ragged S, at the edges of the bf16 kernel's tiles (S
    of 1 to 1000 around 64 and 128, P of 8 to 64, N of 16 to 128, a batch of
-   4, and a bf16 shape of its FMA route) and at every mamba2-1.3b shape of
-   the served runs (one prompt at each of its exact lengths, and the 4 x 512
-   batch), and at mamba2's two train shapes, in fp32 and bf16, with the
+   4, and a bf16 shape of its FMA route) and at every mamba2-1.3b and
+   jamba-v0.1-52b (128 heads of 64, state 16; bf16) shape of the served
+   runs (one prompt at each of its exact lengths, and the 4 x 512 batch),
+   and at mamba2's two train shapes, in fp32 and bf16, with the
    errors of y and of the final state apart; at the served bf16 shapes the
    state must also be within 1e-4 of the plain version relative to its
    largest value.  The SSD backward (dx, ddt, da, db, dc) against autograd
@@ -44,8 +50,11 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    ``torch.bmm``, on the same transposed views for the backward products;
    no single PyTorch call computes the SSD scan), the kernel-to-library
    ratio and the least time the card could take (bound); the grouped
-   matmul's dx and dw at granite's train shapes; the SSD scan at all nine
-   served mamba2 shapes; the SSD backward at mamba2's train shape on its
+   matmul's dx and dw at granite's train shapes; jamba's flash attention at
+   its longest prompt and the 4 x 512 batch, grouped matmul at decode (C 2)
+   and at the batch (C 320), and SSD scan at its longest prompt; the SSD
+   scan at all nine served mamba2 shapes; the SSD backward at mamba2's
+   train shape on its
    wgmma route, beside the FMA route on the same inputs (timed in turns),
    the plain backward (autograd through ``ssd_chunked``) and its bound at
    the peak of the inputs' type, and each route's device time by kernel;
@@ -55,16 +64,26 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    ``ServingEngine``: internlm2-1.8b (dense, 24 layers), granite-moe-1b-a400m
    (MoE, 24 layers, expert FFNs through the grouped matmul), then
    mamba2-1.3b (48 SSM layers, each prefill through the SSD scan, every
-   prompt prefilled alone at its exact length).  The launch counters are
+   prompt prefilled alone at its exact length), then jamba-v0.1-52b cut to
+   one pattern period of 8 layers (7 Mamba-2 layers, one attention layer,
+   4 MoE FFNs of 16 experts top-2, 13.27 B parameters; all three kernels,
+   every prompt alone at its exact length; its weights built a layer at a
+   time on the card).  Each model's weights come from seed 0, as
+   ``Model.init`` makes them.  The launch counters are
    set to 0 just before each path and read just after it, and must match
-   the path's layers, prefills and decode steps.  Then mamba2-1.3b's bf16
+   the path's layers, prefills and decode steps.  Then jamba's bf16
+   prefill of one 866-token prompt through the kernels against the same
+   weights with every kernel wrapper replaced by its plain version, within
+   the whole-model bf16 bound; then mamba2-1.3b's bf16
    prefill of one 866-token prompt at full width, cut to 4 layers, through
    the SSD kernel against the same model with the plain ``ssd_chunked`` in
    every layer, within the port's whole-model bf16 bound (5e-2 + 2e-2
    relative); and the wall and device busy time of that prefill at all 48
    layers, with the SSD kernel's part;
-5. card against CPU: each model cut to 2 layers in fp32, prefill and 8
-   ragged decode steps on both; greedy tokens equal, logits within 1e-3;
+5. card against CPU: each model cut to 2 layers in fp32 (jamba: layer 0
+   Mamba-2 with a dense FFN, layer 1 attention with MoE, 3.675 B
+   parameters), prefill and 8 ragged decode steps on both; greedy tokens
+   equal, logits within 1e-3;
 6. the train path: flash attention's backward kernel (dq, dk and dv from
    the forward kernel's o and logsumexp rows) against the plain
    ``attention_backward`` and against autograd through the plain
@@ -135,6 +154,9 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.layers import dense_init, embed_init, zeros_init  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine  # noqa: E402
@@ -160,6 +182,11 @@ BF16_LOGITS_ATOL, BF16_LOGITS_RTOL = 5e-2, 2e-2
 FP32_LOGITS_BOUND = 1e-3
 DENSE, MOE, SSM = "internlm2-1.8b", "granite-moe-1b-a400m", "mamba2-1.3b"
 ARCHS = (DENSE, MOE, SSM)
+# the hybrid, served at full width cut to one pattern period of its 32
+# layers: 13.27 B parameters, 26.5 GB in bf16 (the whole model does not fit
+# one card)
+HYBRID = "jamba-v0.1-52b"
+HYBRID_LAYERS = 8
 KERNELS = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel, "ssd_scan": ssd_kernel}
 # launch counters by kernel: each backward is a kernel of its forward's
 # library with a counter of its own
@@ -171,6 +198,7 @@ COUNTERS = {"flash_attention": (fa_kernel, "launches"),
 MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
 MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
 N_SLOTS, NEW_TOKENS = 4, 32
+PROFILE_PROMPT = 128  # the decode profile's prompts (phase 4), cut to this many tokens
 L2_BYTES = 50e6  # inputs of a timed call rotate through copies of at least 2.5x this
 # training: the launcher's batch, length and warmup rule, 8 steps.  Its
 # default lr of 3e-3 (the JAX launcher's, sized for REDUCED configs) makes
@@ -520,29 +548,62 @@ def train_shape(dtype=torch.bfloat16, b: int = TRAIN_BATCH, s: int = TRAIN_SEQ,
     return dataclasses.replace(main_shape(b, s, arch), dtype=dtype)
 
 
-def expert_shapes(c: int, dtype=torch.bfloat16) -> list[GmmShape]:
-    """granite's three grouped matmuls at capacity ``c``: gate and up share
+def expert_shapes(c: int, dtype=torch.bfloat16, arch: str = MOE) -> list[GmmShape]:
+    """``arch``'s three grouped matmuls at capacity ``c``: gate and up share
     one shape, then down."""
-    cfg = get_config(MOE)
+    cfg = get_config(arch)
     e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert_ff
     return [GmmShape(e, c, d, f, dtype), GmmShape(e, c, f, d, dtype)]
 
 
 def train_gmm_shapes(dtype=torch.bfloat16, b: int = TRAIN_BATCH,
-                     s: int = TRAIN_SEQ) -> list[GmmShape]:
-    """Every grouped matmul of a granite train step on b x s tokens: each
-    expert shape's forward, dx and dw (C = 640 at B 8 S 256)."""
-    c = capacity(get_config(MOE), b * s)
-    return [dataclasses.replace(sh, layout=lay) for sh in expert_shapes(c, dtype)
+                     s: int = TRAIN_SEQ, arch: str = MOE) -> list[GmmShape]:
+    """Every grouped matmul of an ``arch`` train step on b x s tokens: each
+    expert shape's forward, dx and dw (granite: C = 640 at B 8 S 256)."""
+    c = capacity(get_config(arch), b * s)
+    return [dataclasses.replace(sh, layout=lay) for sh in expert_shapes(c, dtype, arch)
             for lay in GMM_LAYOUTS]
 
 
-def main_capacities() -> list[int]:
-    """Every capacity granite's served runs can give the kernel on 4 slots:
-    decode, and prefill groups of 1 to 4 rows at buckets of 128 to 2048."""
-    cfg = get_config(MOE)
-    return sorted({capacity(cfg, N_SLOTS)}
-                  | {capacity(cfg, g * b) for g in MAIN_ROWS for b in MAIN_BUCKETS})
+def served_groups(arch: str) -> list[tuple[int, int]]:
+    """(rows, tokens) of every prefill ``arch``'s served runs can make on 4
+    slots: groups of 1 to 4 rows at power-of-two buckets of 128 to 2048
+    (the 4 x 512 one-shot batch among them); for a stack with SSM layers
+    each prompt of the traffic alone at its exact length, and the one-shot
+    batch."""
+    if not layer_kinds(get_config(arch))[2]:
+        return [(g, b) for g in MAIN_ROWS for b in MAIN_BUCKETS]
+    lens, _, batch = traffic(get_config(arch).vocab)
+    return sorted({(1, int(n)) for n in lens} | {batch.shape})
+
+
+def main_capacities(arch: str = MOE) -> list[int]:
+    """Every capacity ``arch``'s served runs can give the grouped matmul on
+    4 slots: decode, and each prefill of ``served_groups``."""
+    cfg = get_config(arch)
+    return sorted({capacity(cfg, N_SLOTS)} | {capacity(cfg, g * b) for g, b in served_groups(arch)})
+
+
+def longest_prompt() -> int:
+    """The longest prompt of the served traffic (its lengths do not depend
+    on the vocab)."""
+    return int(traffic(get_config(HYBRID).vocab)[0].max())
+
+
+def main_flash_shapes(arch: str) -> list[Shape]:
+    """Every flash attention shape ``arch``'s served prefills give the kernel."""
+    return [main_shape(g, b, arch) for g, b in served_groups(arch)]
+
+
+def profile_shapes(arch: str) -> tuple[list[Shape], list[GmmShape], list[SsdShape]]:
+    """The kernels' shapes in the prefills of phase 4's decode profile of a
+    stack with SSM layers: one prompt of ``PROFILE_PROMPT`` tokens alone
+    (a pure-attention stack's profile prefills fall in its served groups)."""
+    cfg = get_config(arch)
+    n_attn, n_moe, _ = layer_kinds(cfg)
+    return ([main_shape(1, PROFILE_PROMPT, arch)] if n_attn else [],
+            expert_shapes(capacity(cfg, PROFILE_PROMPT), arch=arch) if n_moe else [],
+            [ssm_shape(1, PROFILE_PROMPT, arch=arch)])
 
 
 def _check(name: str, shape, out, ref, tol: float, phase: int = 2) -> float:
@@ -561,8 +622,8 @@ def _check(name: str, shape, out, ref, tol: float, phase: int = 2) -> float:
 def phase_check_flash() -> tuple[float, set[Shape]]:
     """Flash kernel against its plain version; returns the max error at the
     main-path shapes and the main-path shapes checked."""
-    main = [main_shape(b, s, arch) for arch in (DENSE, MOE)
-            for b in MAIN_ROWS for s in MAIN_BUCKETS]
+    main = [sh for arch in (DENSE, MOE, HYBRID) for sh in main_flash_shapes(arch)]
+    main += profile_shapes(HYBRID)[0]
     main += [train_shape(dt, b, s, arch) for arch in (DENSE, MOE)
              for dt, b, s in ((torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ),
                               (torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))]
@@ -608,9 +669,11 @@ def sweep_of(dt):
 def phase_check_gmm() -> tuple[float, set[GmmShape]]:
     """Grouped matmul against its plain version, its forward and both
     backward products (the sweep, ragged C and strided views in every
-    layout); returns the max error at the main-path (granite bf16) shapes
-    and every shape checked."""
-    main = [s for c in main_capacities() for s in expert_shapes(c)] + train_gmm_shapes()
+    layout); returns the max error at the main-path (granite and jamba
+    bf16) shapes and every shape checked."""
+    hybrid = [s for c in main_capacities(HYBRID) for s in expert_shapes(c, arch=HYBRID)]
+    hybrid += profile_shapes(HYBRID)[1]
+    main = [s for c in main_capacities() for s in expert_shapes(c)] + train_gmm_shapes() + hybrid
     checked = set()
     main_err = 0.0
     for dt in (torch.float32, torch.bfloat16):
@@ -626,7 +689,9 @@ def phase_check_gmm() -> tuple[float, set[GmmShape]]:
                     for lay in GMM_LAYOUTS[1:]]
         train = (train_gmm_shapes() if dt == torch.bfloat16
                  else train_gmm_shapes(dt, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))
-        for shape in dict.fromkeys(sweep + ragged + strided + granite + backward + train):
+        # jamba's served shapes, bf16 only: 1.88 GB of weights a shape
+        served = hybrid if dt == torch.bfloat16 else []
+        for shape in dict.fromkeys(sweep + ragged + strided + granite + backward + train + served):
             x, w = shape.inputs()
             out = gmm_ops.gmm(x, w)
             torch.cuda.synchronize()
@@ -635,6 +700,8 @@ def phase_check_gmm() -> tuple[float, set[GmmShape]]:
                 main_err = max(main_err, err)
             checked.add(shape)
             del x, w, out
+            if shape in served:
+                torch.cuda.empty_cache()
         torch.cuda.empty_cache()
     return main_err, checked
 
@@ -656,6 +723,8 @@ def phase_time_flash() -> list[dict]:
               for b in MAIN_ROWS for s in MAIN_BUCKETS]
     shapes += [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
                Shape(2, 128, 16, 8, 128, torch.float32)]
+    # jamba: the longest prompt served alone, and the one-shot batch
+    shapes += [main_shape(1, longest_prompt(), HYBRID), main_shape(4, 512, HYBRID)]
     for shape in shapes:
         q, k, v = shape.inputs(seed=1)
         kern = lambda: fa_ops.flash_attention(q, k, v, causal=shape.causal,  # noqa: E731
@@ -683,15 +752,20 @@ def _rotating(fn, sets):
 
 
 def phase_time_gmm() -> list[dict]:
-    """The grouped matmul at granite's served shapes, and its dx and dw at
-    the train shapes (C 640; the library call ``torch.bmm`` on the same
-    transposed views).  Each timed call reads inputs that the previous calls
+    """The grouped matmul at granite's served shapes, its dx and dw at the
+    train shapes (C 640; the library call ``torch.bmm`` on the same
+    transposed views), and jamba's at decode (C 2) and at the one-shot
+    batch (C 320).  Each timed call reads inputs that the previous calls
     did not (copies rotate through at least 2.5x the 50 MB L2), as in
-    serving, where 72 calls a step stream 2.4 GB of weights."""
+    serving, where granite's 72 calls a step stream 2.4 GB of weights and
+    jamba's 12 calls a step of one period 22.5 GB."""
     rows = []
     shapes = [s for c in main_capacities() for s in expert_shapes(c)]
     shapes += [s for s in train_gmm_shapes() if s.layout != "fwd"]
     shapes += expert_shapes(capacity(get_config(MOE), 2 * 128), torch.float32)[:1]
+    jamba = get_config(HYBRID)
+    shapes += [s for t in (N_SLOTS, 4 * 512)
+               for s in expert_shapes(capacity(jamba, t), arch=HYBRID)]
     for shape in shapes:
         n_sets = max(1, min(8, math.ceil(2.5 * L2_BYTES / shape.nbytes())))
         sets = [shape.inputs(seed=i) for i in range(n_sets)]
@@ -721,19 +795,18 @@ def traffic(vocab: int):
     return lens, prompts, batch
 
 
-def ssm_shape(b: int, s: int, dtype=torch.bfloat16) -> SsdShape:
-    """The SSD scan's shape in a prefill of mamba2-1.3b: b rows of s tokens."""
-    cfg = get_config(SSM)
+def ssm_shape(b: int, s: int, dtype=torch.bfloat16, arch: str = SSM) -> SsdShape:
+    """The SSD scan's shape in a prefill of ``arch``: b rows of s tokens."""
+    cfg = get_config(arch)
     c = cfg.ssm
     return SsdShape(b, s, c.expand * cfg.d_model // c.head_dim, c.head_dim, c.state_dim, dtype,
                     chunk=c.chunk_size)
 
 
-def main_ssd_shapes(dtype=torch.bfloat16) -> list[SsdShape]:
-    """Every shape mamba2's served runs give the kernel: each prompt alone at
-    its exact length, and the one-shot 4 x 512 batch."""
-    lens = traffic(get_config(SSM).vocab)[0]
-    return [ssm_shape(1, int(n), dtype) for n in lens] + [ssm_shape(4, 512, dtype)]
+def main_ssd_shapes(dtype=torch.bfloat16, arch: str = SSM) -> list[SsdShape]:
+    """Every shape ``arch``'s served runs give the kernel: each prompt alone
+    at its exact length, and the one-shot 4 x 512 batch."""
+    return [ssm_shape(g, b, dtype, arch) for g, b in served_groups(arch)]
 
 
 def train_ssd_shapes() -> list[SsdShape]:
@@ -779,8 +852,8 @@ def _check_ssd(shape: SsdShape, out, ref, served: bool) -> float:
 
 def phase_check_ssd() -> tuple[float, set[SsdShape]]:
     """SSD scan against its plain version; returns the max error at the
-    main-path (mamba2 bf16) shapes and every shape checked."""
-    main = main_ssd_shapes()
+    main-path (mamba2 and jamba bf16) shapes and every shape checked."""
+    main = main_ssd_shapes() + main_ssd_shapes(arch=HYBRID)
     checked = set()
     main_err = 0.0
     for dt in (torch.float32, torch.bfloat16):
@@ -788,10 +861,15 @@ def phase_check_ssd() -> tuple[float, set[SsdShape]]:
                  SsdShape(1, 64, 8, 16, 128, dt, 16)]
         ragged = [SsdShape(2, 77, 3, 16, 32, dt, 32), SsdShape(1, 1, 4, 64, 128, dt, 64),
                   SsdShape(3, 130, 2, 8, 16, dt, 64), SsdShape(1, 1000, 8, 64, 128, dt, 256)]
-        card_vs_cpu = [ssm_shape(1, 100, dt), ssm_shape(1, 77, dt)]  # phase 5's prefills
-        served = main_ssd_shapes(dt)
+        card_vs_cpu = [ssm_shape(1, n, dt, arch) for arch in (SSM, HYBRID)  # phase 5's prefills
+                       for n in (100, 77)]
+        served = main_ssd_shapes(dt) + (main_ssd_shapes(arch=HYBRID) if dt == torch.bfloat16
+                                         else [])
+        profile = ([sh for arch in (SSM, HYBRID) for sh in profile_shapes(arch)[2]]
+                   if dt == torch.bfloat16 else [])
         train = [sh for sh in train_ssd_shapes() if sh.dtype == dt]  # phase 6's
-        for shape in sweep + ragged + ssd_edges(dt) + card_vs_cpu + served + train:
+        for shape in dict.fromkeys(sweep + ragged + ssd_edges(dt) + card_vs_cpu + served + train
+                                   + profile):
             args = shape.inputs()
             out = ssd_ops.ssd(*args)  # (y, final state)
             torch.cuda.synchronize()
@@ -922,9 +1000,11 @@ def phase_time_ssd_backward() -> dict:
 
 def phase_time_ssd() -> list[dict]:
     """The SSD scan at all nine served mamba2 shapes (each prompt at its
-    exact length, and the one-shot batch), bf16, and one fp32 shape; inputs
-    rotate through at least 2.5x the L2 as in ``phase_time_gmm``."""
-    shapes = main_ssd_shapes() + [ssm_shape(1, 100, torch.float32)]
+    exact length, and the one-shot batch), bf16, one fp32 shape, and
+    jamba's longest prompt served alone; inputs rotate through at least
+    2.5x the L2 as in ``phase_time_gmm``."""
+    shapes = main_ssd_shapes() + [ssm_shape(1, 100, torch.float32),
+                                  ssm_shape(1, longest_prompt(), arch=HYBRID)]
     rows = []
     for shape in shapes:
         n_sets = max(1, min(8, math.ceil(2.5 * L2_BYTES / shape.nbytes())))
@@ -969,19 +1049,50 @@ def _reset_launches() -> None:
         setattr(mod, attr, 0)
 
 
+def init_loaded(model, seed: int = 0) -> dict:
+    """``model.load(model.init(gen))`` with a generator on the model's
+    device seeded ``seed``, one layer at a time: the same draws in the same
+    order, so the same values, with at most one layer's fp32 copy alive
+    beside the loaded weights (jamba's MoE layer is 11.3 GB in fp32, one
+    period of its layers 53 GB)."""
+    cfg = model.cfg
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    dtype = getattr(torch, cfg.param_dtype)
+    top = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, dtype),
+           "final_norm": zeros_init(gen, (cfg.d_model,), dtype)}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
+    params = model.load(top)
+    del top
+    params["layers"] = [model.load(tf.block_init(gen, cfg, i, dtype))
+                        for i in range(cfg.n_layers)]
+    return params
+
+
 def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape],
-                ssd_checked: set[SsdShape]) -> dict:
-    """One main path at full width; returns the launches it made by kernel.
-    Fails if a launch count does not match the path, or if the path ran a
-    kernel at a shape phase 2 did not check."""
+                ssd_checked: set[SsdShape], n_layers: int | None = None) -> dict:
+    """One main path at full width (cut to ``n_layers`` layers when given);
+    returns the launches it made by kernel.  Fails if a launch count does
+    not match the path, or if the path ran a kernel at a shape phase 2 did
+    not check.  For the hybrid, then its bf16 prefill against the plain
+    versions on the same weights (``check_prefill_vs_plain``)."""
     cfg = get_config(arch)
+    cut = ""
+    if n_layers:
+        cut = f" (cut from {cfg.n_layers})"
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = model.load(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    params = init_loaded(model)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"phase 4 init: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, "
-        f"{cfg.compute_dtype} on {model.device} in {time.perf_counter() - t0:.1f} s")
+    n_attn, n_moe, n_ssm = layer_kinds(cfg)
+    log(f"phase 4 init: {cfg.name} {cfg.n_layers} layers{cut} ({n_attn} attention, {n_ssm} "
+        f"SSM, {n_moe} MoE), {n_params / 1e9:.3f} B params, {cfg.compute_dtype} on "
+        f"{model.device} in {time.perf_counter() - t0:.1f} s (built a layer at a time), "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     lens, prompts, batch = traffic(cfg.vocab)
     engine = ContinuousBatchingEngine(model, params, n_slots=N_SLOTS,
@@ -1013,7 +1124,6 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
         if len(o) != NEW_TOKENS or o.min() < 0 or o.max() >= cfg.vocab:
             raise SystemExit(f"bad token stream {o}")
     engine.pool.check()
-    n_attn, n_moe, n_ssm = layer_kinds(cfg)
     groups = [(g, b) for g, b, _ in m.prefill_walls] + [batch.shape]
     if n_attn:
         served = {main_shape(g, b, arch) for g, b in groups}
@@ -1022,7 +1132,7 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
                              f"check: {', '.join(map(str, served - flash_checked))}")
     if n_moe:
         tokens = [g * b for g, b in groups] + [N_SLOTS, batch.shape[0]]  # prefills, decodes
-        served_gmm = {s for t in tokens for s in expert_shapes(capacity(cfg, t))}
+        served_gmm = {s for t in tokens for s in expert_shapes(capacity(cfg, t), arch=arch)}
         if not served_gmm <= gmm_checked:
             raise SystemExit("the main path launched moe_gmm at shapes phase 2 did not "
                              f"check: {', '.join(map(str, served_gmm - gmm_checked))}")
@@ -1031,7 +1141,7 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
         if len(exact) != m.prefills or exact != sorted(int(n) for n in lens):
             raise SystemExit(f"{cfg.name}: prompts not prefilled one at a time at their exact "
                              f"length: {[(g, b) for g, b, _ in m.prefill_walls]}")
-        served_ssd = {ssm_shape(g, b) for g, b in groups}
+        served_ssd = {ssm_shape(g, b, arch=arch) for g, b in groups}
         if not served_ssd <= ssd_checked:
             raise SystemExit("the main path launched ssd_scan at shapes phase 2 did not "
                              f"check: {', '.join(map(str, served_ssd - ssd_checked))}")
@@ -1054,6 +1164,10 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
         f" = {one.size / one_s:.1f} tok/s; max_memory_allocated {peak_gb:.2f} GiB; "
         f"launches of both runs {launches}")
     profile_decode(cfg.name, engine, prompts)
+    if arch == HYBRID:
+        check_prefill_vs_plain(model, params, longest_prompt())
+    del engine, one_shot, params, model
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -1061,7 +1175,7 @@ def profile_decode(name: str, engine, prompts, steps: int = 12) -> None:
     """Device busy share of decode: 4 slots decoding, ``steps`` engine steps
     under torch.profiler (after the launch counts were read)."""
     for p in prompts[:4]:
-        engine.submit(p[:128], steps + 2)
+        engine.submit(p[:PROFILE_PROMPT], steps + 2)
     engine.step()  # admission and the first decode step stay outside the window
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -1088,15 +1202,120 @@ def profile_decode(name: str, engine, prompts, steps: int = 12) -> None:
                     f"x{e.count // steps}" for e in top))
 
 
-def _prefill_logits(model, params, toks, ssd=None) -> torch.Tensor:
-    """Prefill logits in fp32, with ``ssd`` in place of ``ops.ssd`` in every
-    SSM layer when given."""
-    kernel_ssd = ssd_ops.ssd
-    ssd_ops.ssd = ssd or kernel_ssd
+def plain_expert_ffn(params: dict, buckets: torch.Tensor) -> torch.Tensor:
+    """``gmm_ops.expert_ffn`` with each product its plain version, as the
+    wrapper computes it on the CPU."""
+    dt = buckets.dtype
+    wg, wu, wd = (params[k].to(dt) for k in ("w_gate", "w_up", "w_down"))
+    h = F.silu(reference_grouped_matmul(buckets, wg)) * reference_grouped_matmul(buckets, wu)
+    return reference_grouped_matmul(h, wd)
+
+
+# the plain version of each kernel wrapper the model calls, by (module, name)
+PLAIN = {
+    (fa_ops, "flash_attention"): lambda q, k, v, *, causal=True, window=0: reference_attention(
+        q, k, v, causal=causal, window=window),
+    (gmm_ops, "expert_ffn"): plain_expert_ffn,
+    (ssd_ops, "ssd"): lambda x, dt, a, b, c, *, chunk=256: ssd_chunked(x, dt, a, b, c, chunk),
+}
+
+
+def _prefill_logits(model, params, toks, swaps=None) -> torch.Tensor:
+    """Prefill logits in fp32, with the functions of ``swaps`` ({(module,
+    name): function}) in place of the wrappers they name, in every layer."""
+    swaps = swaps or {}
+    kept = {key: getattr(*key) for key in swaps}
+    for (mod, name), fn in swaps.items():
+        setattr(mod, name, fn)
     try:
         return model.prefill(params, toks)[0].float()
     finally:
-        ssd_ops.ssd = kernel_ssd
+        for (mod, name), fn in kept.items():
+            setattr(mod, name, fn)
+
+
+class Routing:
+    """``router_topk`` that records the experts each MoE layer picks, in
+    call order.  Given the picks of another run (``replay``), it counts the
+    tokens whose pick differs from that run's, by call; with ``pin`` it
+    then picks that run's experts instead, weighted by its own router
+    probabilities at them."""
+
+    def __init__(self, replay: list | None = None, pin: bool = False):
+        self.picks, self.replay, self.pin, self.flips = [], replay, pin, []
+
+    def __call__(self, router_w, x_flat, top_k):
+        weights, experts, aux = ROUTER_TOPK(router_w, x_flat, top_k)
+        self.picks.append(experts)
+        if self.replay is None:
+            return weights, experts, aux
+        want = self.replay[len(self.picks) - 1]
+        self.flips.append(int((want.sort(-1).values != experts.sort(-1).values).any(-1).sum()))
+        if not self.pin:
+            return weights, experts, aux
+        probs = torch.softmax((x_flat @ router_w.to(x_flat.dtype)).float(), dim=-1)
+        w = probs.gather(1, want)
+        return w / w.sum(-1, keepdim=True).clamp_min(1e-9), want, aux
+
+
+ROUTER_TOPK = moe_mod.router_topk
+
+
+def check_prefill_vs_plain(model, params, seq: int) -> None:
+    """One bf16 prefill of ``seq`` tokens through ``model`` with its kernels
+    (each wrapper's launches counted), then on the same weights with every
+    kernel wrapper replaced by its plain version (no launch) and the MoE
+    layers routing each token to the experts the kernel run picked: the
+    same greedy token, and the logits within the port's whole-model bf16
+    bound, 5e-2 + 2e-2 relative, the relative term taken against the
+    largest logit (elements over the bound taken element by element are
+    counted in the log line).  Routing is pinned because it is not a kernel
+    and is not continuous: the kernels' bf16 roundings (a grouped matmul
+    output in 1e-2 to 1e-3 differs from its plain version's by one bf16
+    step, as ``torch.bmm``'s does) move the router's inputs, a near-tie then
+    sends a token to another expert (an output thousands away at these
+    random weights), and the SSM layers carry that token's state on to
+    every later one.  Pinned, the one-step differences still grow through
+    the MoE layers, whose outputs reach about 10^4 here, to several 1e-2 in
+    the logits.  A third run, plain and routing freely, gives the unpinned
+    gap and the tokens whose routing moved, which are logged and not
+    held."""
+    cfg = model.cfg
+    toks = torch.as_tensor(np.random.default_rng(2).integers(1, cfg.vocab, (1, seq)),
+                           device=model.device)
+    record = Routing()
+    before = _launches()
+    lk = _prefill_logits(model, params, toks, {(moe_mod, "router_topk"): record})
+    made = {k: n - before[k] for k, n in _launches().items()}
+    pinned = Routing(record.picks, pin=True)
+    lp = _prefill_logits(model, params, toks, {**PLAIN, (moe_mod, "router_topk"): pinned})
+    free = Routing(record.picks)
+    lf = _prefill_logits(model, params, toks, {**PLAIN, (moe_mod, "router_topk"): free})
+    plain_made = {k: n - before[k] - made[k] for k, n in _launches().items()}
+    want = expected_launches(cfg, 1, 0)
+    if made != want or any(plain_made.values()) or len(free.flips) != layer_kinds(cfg)[1]:
+        raise SystemExit(f"{cfg.name} prefill vs plain: kernel launches {made} (want {want}), "
+                         f"plain runs {plain_made} (want none), {len(pinned.flips)} MoE calls")
+    gap = (lk - lp).abs()
+    bound = BF16_LOGITS_ATOL + BF16_LOGITS_RTOL * lp.abs().max().item()
+    same = torch.equal(lk.argmax(-1), lp.argmax(-1))
+    ok = bool(torch.isfinite(lk).all()) and gap.max().item() <= bound and same
+    per_element = int((gap > BF16_LOGITS_ATOL + BF16_LOGITS_RTOL * lp.abs()).sum())
+    free_gap = (lk - lf).abs()
+    over = int((free_gap > BF16_LOGITS_ATOL + BF16_LOGITS_RTOL * lf.abs()).sum())
+    launched = ", ".join(f"{k} {n}" for k, n in made.items() if n)
+    log(f"phase 4 check {cfg.name} bf16 full width, {cfg.n_layers} layers, prefill 1 x {seq}: "
+        f"kernels ({launched}) vs plain versions (reference_attention, reference_grouped_matmul, "
+        f"ssd_chunked) routed as the kernel run: max logit gap {gap.max().item():.3e} (bound "
+        f"{BF16_LOGITS_ATOL:g} + {BF16_LOGITS_RTOL:g} x the largest logit "
+        f"{lp.abs().max().item():.3f} = {bound:.3e}; {per_element} of {lp.numel()} logits over "
+        f"{BF16_LOGITS_ATOL:g} + {BF16_LOGITS_RTOL:g} x their own size), greedy token "
+        f"{'equal' if same else 'differs'} {'ok' if ok else 'FAIL'}; plain routing freely (not "
+        f"held): tokens routed otherwise by MoE layer {free.flips} of {seq}, max logit gap "
+        f"{free_gap.max().item():.3e}, {over} of {lf.numel()} logits over the bound, greedy "
+        f"token {'equal' if torch.equal(lk.argmax(-1), lf.argmax(-1)) else 'differs'}")
+    if not ok:
+        raise SystemExit(f"{cfg.name}'s bf16 prefill through the kernels is off its plain versions")
 
 
 def phase_ssm_prefill_vs_plain(seq: int = 866, layers: int = 4) -> None:
@@ -1114,8 +1333,7 @@ def phase_ssm_prefill_vs_plain(seq: int = 866, layers: int = 4) -> None:
     before = ssd_kernel.launches
     lk = _prefill_logits(model, params, toks)
     made = ssd_kernel.launches - before
-    lp = _prefill_logits(model, params, toks,
-                         lambda x, dt, a, b, c, *, chunk=256: ssd_chunked(x, dt, a, b, c, chunk))
+    lp = _prefill_logits(model, params, toks, {(ssd_ops, "ssd"): PLAIN[(ssd_ops, "ssd")]})
     if ssd_kernel.launches - before != made or made != layers:
         raise SystemExit(f"the bf16 prefill check launched the SSD kernel {made} times")
     gap = (lk - lp).abs()
@@ -1172,15 +1390,17 @@ def _greedy_run(model, params, toks, lens, capacity, steps):
     steps; returns (tokens [B, steps + 1], logits of every step)."""
     dev = model.device
     true_len = torch.as_tensor(lens, device=dev)
-    if layer_kinds(model.cfg)[2]:
-        rows = [model.prefill(params, torch.as_tensor(toks[i:i + 1, :n], device=dev))
-                for i, n in enumerate(lens)]
+    if layer_kinds(model.cfg)[2]:  # each row re-laid alone, as KVPool.write installs it
+        rows = []
+        for i, n in enumerate(lens):
+            lg, c = model.prefill(params, torch.as_tensor(toks[i:i + 1, :n], device=dev))
+            rows.append((lg, model.prepare_decode_caches(model.mask_prompt_cache(c, n), capacity)))
         logits = torch.cat([r[0] for r in rows])
         caches = {k: torch.cat([r[1][k] for r in rows], dim=1) for k in rows[0][1]}
     else:
         logits, caches = model.prefill(params, torch.as_tensor(toks, device=dev),
                                        last_pos=true_len - 1)
-    caches = model.prepare_decode_caches(model.mask_prompt_cache(caches, true_len), capacity)
+        caches = model.prepare_decode_caches(model.mask_prompt_cache(caches, true_len), capacity)
     pos = true_len.clone()
     out_toks, out_logits = [logits[:, 0].argmax(-1)], [logits[:, 0].float().cpu()]
     for _ in range(steps):
@@ -1192,10 +1412,28 @@ def _greedy_run(model, params, toks, lens, capacity, steps):
     return torch.stack([t.cpu() for t in out_toks], 1), torch.stack(out_logits, 1)
 
 
-def phase_card_vs_cpu(arch: str, steps: int = 8) -> None:
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32")
+def hybrid_cut():
+    """jamba at full widths cut to 2 layers, one of each kind: layer 0
+    Mamba-2 with a dense FFN, layer 1 attention with MoE."""
+    cfg = get_config(HYBRID)
+    return dataclasses.replace(cfg, n_layers=2, attn_period=2, attn_offset=1,
+                               moe=dataclasses.replace(cfg.moe, layer_period=2, layer_offset=1))
+
+
+def phase_card_vs_cpu(arch: str, steps: int = 8, cfg=None) -> None:
+    """``arch`` (or the config ``cfg``) cut to 2 layers in fp32, from the
+    same params on the card and the CPU: prefill, then ``steps`` ragged
+    greedy decode steps; equal greedy tokens, logits within
+    ``FP32_LOGITS_BOUND``."""
+    cfg = dataclasses.replace(cfg or get_config(arch), n_layers=2, compute_dtype="float32")
     cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    t0 = time.perf_counter()
     params = cpu_model.init(torch.Generator().manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    kinds = ", ".join(f"layer {i} {tf.mixer_kind(cfg, i)} + "
+                      + ("MoE" if cfg.layer_is_moe(i) else "dense FFN" if cfg.d_ff else "no FFN")
+                      for i in range(cfg.n_layers))
+    t_init = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     lens = np.array([100, 77])
     toks = rng.integers(1, cfg.vocab, (2, 128))
@@ -1206,12 +1444,16 @@ def phase_card_vs_cpu(arch: str, steps: int = 8) -> None:
     prefills = len(lens) if layer_kinds(cfg)[2] else 1
     if made != expected_launches(cfg, prefills, steps):
         raise SystemExit(f"the card's run did not go through the kernels: launches {made}")
+    t0 = time.perf_counter()
     t_cpu, l_cpu = _greedy_run(cpu_model, cpu_model.load(params), toks, lens, 144, steps)
+    cpu_s = time.perf_counter() - t0
     gap = (l_gpu - l_cpu).abs().max().item()
     same = torch.equal(t_gpu, t_cpu)
-    log(f"phase 5 card vs cpu ({cfg.name} 2 layers fp32, prefill + {steps} decode steps): "
-        f"greedy tokens {'equal' if same else 'DIFFER'}, max logit gap {gap:.3e} "
-        f"(bound {FP32_LOGITS_BOUND:g}); card launches {made}")
+    log(f"phase 5 card vs cpu ({cfg.name} 2 layers fp32: {kinds}; {n_params / 1e9:.3f} B params, "
+        f"initialised on the cpu in {t_init:.1f} s; prompts {lens[0]} and {lens[1]}, prefill + "
+        f"{steps} decode steps, {cpu_s:.1f} s on the cpu): greedy tokens "
+        f"{'equal' if same else 'DIFFER'}, max logit gap {gap:.3e} (bound "
+        f"{FP32_LOGITS_BOUND:g}); card launches {made}")
     if not same or gap > FP32_LOGITS_BOUND:
         raise SystemExit("card and CPU disagree")
 
@@ -1639,10 +1881,12 @@ def main() -> int:
     fa_rows, gmm_rows, ssd_rows = phase_time_flash(), phase_time_gmm(), phase_time_ssd()
     ssd_bwd_rep = phase_time_ssd_backward()
     paths = {arch: phase_serve(arch, fa_checked, gmm_checked, ssd_checked) for arch in ARCHS}
+    paths[HYBRID] = phase_serve(HYBRID, fa_checked, gmm_checked, ssd_checked, HYBRID_LAYERS)
     phase_ssm_prefill_vs_plain()
     phase_prefill_profile()
     for arch in ARCHS:
         phase_card_vs_cpu(arch)
+    phase_card_vs_cpu(HYBRID, cfg=hybrid_cut())
     fa_bwd_err, fa_grad_checked = phase_check_flash_grads()
     phase_check_gmm_grads()
     fa_bwd_rep = phase_time_flash_backward()

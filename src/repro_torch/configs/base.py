@@ -139,6 +139,7 @@ _MODULES = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "mamba2-1.3b": "mamba2_1_3b",
+    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 ARCH_IDS = list(_MODULES)

@@ -1,7 +1,8 @@
 """Top-level decoder-only model: embeddings + transformer stack + LM head.
 
 Counterpart of the JAX package's ``models/model.py`` for decoder-only dense
-and MoE configs and attention-free SSM (Mamba-2) ones.  Parameters are a
+and MoE configs, attention-free SSM (Mamba-2) ones and hybrids of the two
+(jamba: Mamba-2 and attention layers, dense and MoE FFNs).  Parameters are a
 plain dict::
 
     {"embed": [V, D], "final_norm": [D], "lm_head": [D, V],
@@ -27,8 +28,8 @@ The entry points take the reference's parameters in its order.  ``impl``
 ("xla" or "pallas") does not choose a path: the port takes its kernels on
 the card and their plain versions on the CPU either way.  ``mesh`` must be
 None (one device) and ``key`` is unused (no dropout).  Encoder-decoder,
-multimodal frontends, MLA and hybrid attention/SSM stacks wait for later
-slices and raise ``NotImplementedError``.
+multimodal frontends and MLA wait for later slices and raise
+``NotImplementedError``, as does a stack with SSM layers and no SSM config.
 """
 
 from __future__ import annotations
@@ -72,19 +73,21 @@ class Model:
     (``cuda`` unless asked otherwise)."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device | None = None):
+        # a layer that is not attention is an SSM layer, whose parameters
+        # come from cfg.ssm (src/repro/models/transformer.py:58-70)
+        ssm_layers = any(not cfg.layer_is_attention(i) for i in range(cfg.n_layers))
         unsupported = [
             name for name, on in (
                 ("encoder-decoder", cfg.enc_dec), ("frontend", cfg.frontend is not None),
                 ("MLA", cfg.attn_type == "mla"),
-                ("hybrid attention/SSM stack (attn_period > 1)", cfg.attn_period > 1),
-                ("attention-free stack without an SSM config",
-                 cfg.attn_period == 0 and cfg.ssm is None),
+                ("a stack with SSM layers without an SSM config", ssm_layers and cfg.ssm is None),
             ) if on
         ]
         if unsupported:
             raise NotImplementedError(
-                f"{cfg.name}: {', '.join(unsupported)} not ported yet; the port "
-                "runs decoder-only GQA models, dense or MoE, and attention-free SSM models"
+                f"{cfg.name}: the port does not run {', '.join(unsupported)}; it runs "
+                "decoder-only GQA models, dense or MoE, attention-free SSM models and "
+                "hybrid attention/SSM stacks"
             )
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -140,7 +143,7 @@ class Model:
         load-balancing loss summed over the layers (0 without them); for an
         MoE config the returned loss adds ``0.01 * aux_loss`` to the cross
         entropy, which ``metrics["loss"]`` holds alone, as in the reference.
-        Dense, MoE and attention-free SSM stacks."""
+        Dense, MoE, attention-free SSM and hybrid attention/SSM stacks."""
         _one_device(impl, mesh)
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()

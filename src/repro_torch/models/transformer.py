@@ -1,5 +1,5 @@
 """Transformer stack for decoder-only dense, MoE and attention-free SSM
-models.
+models, and hybrids that interleave attention and SSM layers (jamba).
 
 Counterpart of the JAX package's ``models/transformer.py``.  Block = norm ->
 mixer -> residual -> norm -> FFN -> residual.  The mixer is GQA attention on

@@ -574,3 +574,94 @@ def test_mamba2_prefill_and_decode_on_card_match_cpu(cuda):
         runs.append(torch.stack(out, 1))
     torch.testing.assert_close(runs[1], runs[0], atol=1e-4, rtol=1e-4)
     assert torch.equal(runs[1].argmax(-1), runs[0].argmax(-1))
+
+
+# ---------------------------------------------------------------- jamba-v0.1-52b
+JAMBA = get_config("jamba-v0.1-52b")
+
+
+@pytest.mark.gpu
+def test_jamba_shapes_of_each_kernel_match_plain_versions(cuda):
+    """jamba-v0.1-52b's full-width shape of each kernel, bf16, against its
+    plain version: flash attention at one prompt of 114 tokens (32 heads
+    over 8 KV heads of 128, no window); the grouped matmul at the decode
+    capacity C 2 of 16 experts, gate/up [16, 2, 4096] x [16, 4096, 14336]
+    and down [16, 2, 14336] x [16, 14336, 4096] (one layer's weights, 1.88
+    GB a product); the SSD scan at 128 heads of 64, state 16, on its wgmma
+    route, the state also within 1e-4 of its largest value."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    bf16, s = torch.bfloat16, 114
+    h, kv, d = JAMBA.n_heads, JAMBA.n_kv_heads, JAMBA.head_dim
+    q = torch.randn(1, s, h, d, generator=gen, device=cuda).to(bf16)
+    k, v = (torch.randn(1, s, kv, d, generator=gen, device=cuda).to(bf16) for _ in range(2))
+    before = kernel.launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    torch.testing.assert_close(out.float(), reference_attention(q, k, v, causal=True).float(),
+                               atol=TOL[bf16], rtol=TOL[bf16])
+
+    e, dm, f = JAMBA.moe.n_experts, JAMBA.d_model, JAMBA.moe.d_expert_ff
+    c = max(int(JAMBA.moe.capacity_factor * 4 * JAMBA.moe.top_k / e), JAMBA.moe.top_k)
+    assert c == 2  # 4 decode slots
+    for din, dout in ((dm, f), (f, dm)):
+        x = torch.randn(e, c, din, generator=gen, device=cuda).to(bf16)
+        w = (torch.randn(e, din, dout, generator=gen, device=cuda) / din**0.5).to(bf16)
+        before = gmm_kernel.launches
+        out = gmm_ops.gmm(x, w)
+        torch.cuda.synchronize()
+        assert gmm_kernel.launches == before + 1
+        tol = 5 * TOL[bf16]
+        torch.testing.assert_close(out.float(), reference_grouped_matmul(x, w).float(),
+                                   atol=tol, rtol=tol)
+        del x, w, out
+        torch.cuda.empty_cache()
+
+    ssm = JAMBA.ssm
+    nh = ssm.expand * dm // ssm.head_dim
+    x = torch.randn(1, s, nh, ssm.head_dim, generator=gen, device=cuda).to(bf16)
+    dt = torch.rand(1, s, nh, generator=gen, device=cuda) * 0.2 + 0.001
+    a = -(torch.rand(nh, generator=gen, device=cuda) * 3.5 + 0.5)
+    bb, cc = (torch.randn(1, s, ssm.state_dim, generator=gen, device=cuda).to(bf16)
+              for _ in range(2))
+    assert ssd_kernel.route(bf16, ssm.head_dim, ssm.state_dim) == "wgmma"
+    before = ssd_kernel.launches
+    y, hf = ssd_ops.ssd(x, dt, a, bb, cc)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 1
+    yr, hr = ssd_chunked(x, dt, a, bb, cc, ssm.chunk_size)
+    tol = 20 * TOL[bf16]
+    torch.testing.assert_close(y.float(), yr.float(), atol=tol, rtol=tol)
+    assert ((hf - hr).abs().max() / hr.abs().max()).item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_hybrid_prefill_and_decode_on_card_match_cpu(cuda):
+    """fp32 REDUCED jamba (8 layers: 7 Mamba-2 and one attention layer, MoE
+    on the odd ones): the card (all three kernels) and the CPU (their plain
+    versions) give the same greedy tokens and logits within 1e-4, each
+    prompt prefilled alone at its exact length."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b", reduced=True),
+                              compute_dtype="float32")
+    cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(1, cfg.vocab, (1, 96)))
+    runs = []
+    for model in (cpu_model, gpu_model):
+        p = model.load(params)
+        before = (kernel.launches, gmm_kernel.launches, ssd_kernel.launches)
+        logits, caches = model.prefill(p, toks)
+        made = (kernel.launches - before[0], gmm_kernel.launches - before[1],
+                ssd_kernel.launches - before[2])
+        assert made == ((1, 12, 7) if model is gpu_model else (0, 0, 0))
+        caches = model.prepare_decode_caches(caches, 128)
+        out = [logits[:, 0].cpu()]
+        pos = torch.full((1,), 96, device=model.device)
+        for _ in range(4):
+            tok = out[-1].argmax(-1)[:, None].to(model.device)
+            logits, caches = model.decode_step(p, caches, tok, pos, ragged=True)
+            out.append(logits[:, 0].cpu())
+            pos = pos + 1
+        runs.append(torch.stack(out, 1))
+    torch.testing.assert_close(runs[1], runs[0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(runs[1].argmax(-1), runs[0].argmax(-1))

@@ -357,9 +357,21 @@ def test_mamba2_load_keeps_ssm_constants_in_fp32():
 
 
 def test_hybrid_stacks_are_refused_by_name():
+    """Hybrid attention/SSM stacks are ported; what the port still refuses,
+    each by name: a stack with SSM layers and no SSM config (hybrid and
+    attention-free alike: the reference has no SSM parameters to build for
+    it), MLA, a frontend and encoder-decoder."""
+    from repro_torch.configs.base import FrontendConfig
+
     cfg = dataclasses.replace(get_config(SSM, reduced=True), attn_period=2, n_heads=4,
                               n_kv_heads=2)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        build_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="without an SSM config"):
-        build_model(dataclasses.replace(cfg, attn_period=0, ssm=None), device="cpu")
+    assert build_model(cfg, device="cpu").cfg is cfg  # a hybrid with an SSM config builds
+    for bad in (dict(ssm=None), dict(attn_period=0, ssm=None)):
+        with pytest.raises(NotImplementedError, match="SSM layers without an SSM config"):
+            build_model(dataclasses.replace(cfg, **bad), device="cpu")
+    dense = get_config("internlm2-1.8b", reduced=True)
+    for bad, name in ((dict(attn_type="mla"), "MLA"),
+                      (dict(frontend=FrontendConfig("vision", 64, 16)), "frontend"),
+                      (dict(enc_dec=True), "encoder-decoder")):
+        with pytest.raises(NotImplementedError, match=name):
+            build_model(dataclasses.replace(dense, **bad), device="cpu")
