@@ -17,30 +17,33 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    batch), at a ragged length, and at the edges of the bf16
    kernel's tiles (S of 1, 127, 129 and 1025, windows below one tile, GQA
    groups of 1 to 8, every head dim, q/k/v as views of a fused buffer), and
-   at the train shapes of internlm2-1.8b and granite-moe-1b-a400m.  The
+   at the train shapes of internlm2-1.8b, granite-moe-1b-a400m and
+   jamba-v0.1-52b (B 8 x S 256; fp32 B 2 x S 128).  The
    grouped matmul, its forward and both backward products (dx = g w^T and
    dw = x^T g, the transposed operand read in place), at the shapes of the
    JAX package's sweep, at ragged capacities around its tiles (1 to 2560),
    on strided views, at every granite expert shape of the served runs
    (gate/up and down at each capacity C; forward) and of the train runs (C
-   640 in bf16, C 80 in fp32; all three), in fp32 and bf16, and at every
+   640 in bf16, C 80 in fp32; all three), in fp32 and bf16, at every
    jamba expert shape of the served runs in bf16 (16 experts, D 4096, F
    14336: decode C 2, C 17 to 135 for the prompts alone, C 320 for the
-   batch; 1.88 GB of weights a product).  The SSD scan at the shapes of the JAX
+   batch; 1.88 GB of weights a product) and at jamba's train shapes (C 320
+   in bf16, and C 160 of the card-vs-CPU run's 4 experts in fp32; all
+   three).  The SSD scan at the shapes of the JAX
    package's sweep, at ragged S, at the edges of the bf16 kernel's tiles (S
    of 1 to 1000 around 64 and 128, P of 8 to 64, N of 16 to 128, a batch of
    4, and a bf16 shape of its FMA route) and at every mamba2-1.3b and
    jamba-v0.1-52b (128 heads of 64, state 16; bf16) shape of the served
    runs (one prompt at each of its exact lengths, and the 4 x 512 batch),
-   and at mamba2's two train shapes, in fp32 and bf16, with the
+   and at mamba2's and jamba's two train shapes, in fp32 and bf16, with the
    errors of y and of the final state apart; at the served bf16 shapes the
    state must also be within 1e-4 of the plain version relative to its
    largest value.  The SSD backward (dx, ddt, da, db, dc) against autograd
    through the plain ``ssd_chunked``, each gradient within 5e-4 (fp32) or
    2e-2 (bf16) of its largest value, on the route ``bwd_route`` names (the
    tensor cores for bf16 with P <= 64 and P, N multiples of 8; the FMA
-   units otherwise): at mamba2's train shapes (bf16 B 8 x S 256, fp32 B 2 x
-   S 128), at a ragged S with the final state's cotangent, with rows of dt
+   units otherwise): at mamba2's and jamba's train shapes (bf16 B 8 x S
+   256, fp32 B 2 x S 128), at a ragged S with the final state's cotangent, with rows of dt
    = 0, tiny and negative, at the JAX package's gradient-test shape, at the
    edges of the wgmma route's tiles and at a bf16 shape of the FMA route.
    Phases 4 and 6 fail if they launched a kernel at a shape this phase did
@@ -50,11 +53,11 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    ``torch.bmm``, on the same transposed views for the backward products;
    no single PyTorch call computes the SSD scan), the kernel-to-library
    ratio and the least time the card could take (bound); the grouped
-   matmul's dx and dw at granite's train shapes; jamba's flash attention at
-   its longest prompt and the 4 x 512 batch, grouped matmul at decode (C 2)
-   and at the batch (C 320), and SSD scan at its longest prompt; the SSD
-   scan at all nine served mamba2 shapes; the SSD backward at mamba2's
-   train shape on its
+   matmul's dx and dw at granite's and jamba's train shapes; jamba's flash
+   attention at its longest prompt and the 4 x 512 batch, grouped matmul at
+   decode (C 2) and at the batch (C 320), and SSD scan at its longest
+   prompt and its train shape; the SSD scan at all nine served mamba2
+   shapes; the SSD backward at mamba2's and jamba's train shapes on the
    wgmma route, beside the FMA route on the same inputs (timed in turns),
    the plain backward (autograd through ``ssd_chunked``) and its bound at
    the peak of the inputs' type, and each route's device time by kernel;
@@ -89,18 +92,23 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    ``attention_backward`` and against autograd through the plain
    ``reference_attention`` on the card, and the forward kernel's logsumexp
    rows against the plain ``attention_forward``'s: at the train shapes of
-   internlm2-1.8b (D 128) and granite-moe-1b-a400m (D 64), a windowed
+   internlm2-1.8b (D 128), granite-moe-1b-a400m (D 64) and jamba-v0.1-52b
+   (H 32 over KV 8, D 128, no RoPE), a windowed
    shape, qwen3-32b's group of 8 query heads per kv head, a ragged S, a
    non-causal shape, every head dim, fused-qkv views, and in fp32 at the
    card-vs-CPU train shapes; the grouped matmul's and the expert FFN's
    gradients (every product through the kernel, the transposed operands
    read in place) against autograd through the plain versions, in bf16 and
-   fp32; at both train shapes flash's forward beside SDPA's, and its
-   backward kernel beside ``attention_backward``, the old recompute
-   (autograd through ``reference_attention``) and SDPA's backward, each
-   with its bound; then internlm2-1.8b, granite-moe-1b-a400m and
-   mamba2-1.3b at full width (bf16 compute, fp32 master weights, random
-   weights from seed 0) each trained 8 steps through ``Trainer`` on
+   fp32; at the three train shapes flash's forward (without and with its
+   logsumexp rows) beside SDPA's, and its backward kernel beside
+   ``attention_backward``, the old recompute (autograd through
+   ``reference_attention``) and SDPA's backward, each with its bound; then
+   internlm2-1.8b, granite-moe-1b-a400m and mamba2-1.3b at full width, and
+   jamba-v0.1-52b at full width cut to 2 layers (layer 0 Mamba-2 with a
+   dense FFN, layer 1 attention with MoE: 3.675 B parameters; the whole
+   8-layer period would need about 212 GB at 16 bytes a parameter), bf16
+   compute, fp32 master weights, random weights from seed 0, each trained
+   8 steps through ``Trainer`` on
    ``SyntheticLM`` batches (B 8, S 256, seed 0): flash attention launched
    twice per attention layer and step (forward and remat recompute) and its
    backward once, the grouped matmul 12 times per MoE layer and step (3
@@ -110,12 +118,21 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    gradient for every parameter, two gradient passes of one batch that are
    bit-identical, step wall,
    tokens/s, peak memory and one profiled step; then each model cut to 2
-   layers in fp32 trained 3 steps on the card and on the CPU, gradients
-   within 1e-4 of each leaf's largest value, losses within 1e-4 relative
-   and params within 1e-4;
-7. a JSON line of the kernels (the flash and SSD backwards beside the
+   layers in fp32 (jamba's with 4 of its 16 experts, every width kept: the
+   host holds both runs' state) trained 3 steps on the card and on the
+   CPU, gradients within 1e-4 of each leaf's largest value, losses within
+   1e-4 relative and params within 1e-4;
+7. checkpoints and restarts: granite-moe-1b-a400m cut to 2 layers at full
+   width trained 6 steps straight, then 6 steps through
+   ``run_with_restarts`` with a checkpoint every 2 steps and one failure
+   injected after step 3's update; params, moments, step and losses
+   bit-identical to the straight run; an ``AsyncCheckpointer`` save of the
+   final state passes ``verify_checkpoint``; the bytes and seconds of a
+   save and a restore (the directory, under ``build/``, is removed);
+8. a JSON line of the kernels (the flash and SSD backwards beside the
    three forward kernels; the SSD backward's launches by route and its FMA
-   route's time beside), and as the last line
+   route's time beside; launches by path, the train paths and the
+   checkpoint phase among them), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
@@ -129,8 +146,11 @@ import itertools
 import json
 import math
 import re
+import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -140,6 +160,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.checkpoint.checkpointing import (  # noqa: E402
+    AsyncCheckpointer, verify_checkpoint)
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
@@ -159,6 +181,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.layers import dense_init, embed_init, zeros_init  # noqa: E402
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update  # noqa: E402
+from repro_torch.runtime.fault_tolerance import run_with_restarts  # noqa: E402
 from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, value_and_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -215,6 +238,13 @@ TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS, TRAIN_CPU_LR = 2, 128, 3, 3e-4
 # relative on the losses and on each gradient leaf's largest value; max abs
 # on the params
 TRAIN_CPU_TOL = 1e-4
+# the hybrid's card-vs-CPU train run keeps 4 of its 16 experts (every width
+# kept): with all 16 the two runs' fp32 params, moments, gradients and the
+# copies compared hold about 117 GB on a host of 96 GiB
+TRAIN_CPU_HYBRID_EXPERTS = 4
+# the checkpoint phase: steps, a checkpoint every CKPT_EVERY steps, and one
+# failure injected after this step's update (after the step-2 checkpoint)
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 6, 2, 3
 # flash dq/dk/dv against autograd through the plain version
 FLASH_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the forward kernel's logsumexp rows against the plain version's: both sum
@@ -548,20 +578,22 @@ def train_shape(dtype=torch.bfloat16, b: int = TRAIN_BATCH, s: int = TRAIN_SEQ,
     return dataclasses.replace(main_shape(b, s, arch), dtype=dtype)
 
 
-def expert_shapes(c: int, dtype=torch.bfloat16, arch: str = MOE) -> list[GmmShape]:
-    """``arch``'s three grouped matmuls at capacity ``c``: gate and up share
-    one shape, then down."""
-    cfg = get_config(arch)
+def expert_shapes(c: int, dtype=torch.bfloat16, arch: str = MOE, cfg=None) -> list[GmmShape]:
+    """``arch``'s (or ``cfg``'s) three grouped matmuls at capacity ``c``:
+    gate and up share one shape, then down."""
+    cfg = cfg or get_config(arch)
     e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_expert_ff
     return [GmmShape(e, c, d, f, dtype), GmmShape(e, c, f, d, dtype)]
 
 
 def train_gmm_shapes(dtype=torch.bfloat16, b: int = TRAIN_BATCH,
-                     s: int = TRAIN_SEQ, arch: str = MOE) -> list[GmmShape]:
-    """Every grouped matmul of an ``arch`` train step on b x s tokens: each
-    expert shape's forward, dx and dw (granite: C = 640 at B 8 S 256)."""
-    c = capacity(get_config(arch), b * s)
-    return [dataclasses.replace(sh, layout=lay) for sh in expert_shapes(c, dtype, arch)
+                     s: int = TRAIN_SEQ, arch: str = MOE, cfg=None) -> list[GmmShape]:
+    """Every grouped matmul of an ``arch`` (or ``cfg``) train step on b x s
+    tokens: each expert shape's forward, dx and dw (granite: C = 640 at B 8
+    S 256; jamba: C = 320)."""
+    cfg = cfg or get_config(arch)
+    c = capacity(cfg, b * s)
+    return [dataclasses.replace(sh, layout=lay) for sh in expert_shapes(c, dtype, arch, cfg)
             for lay in GMM_LAYOUTS]
 
 
@@ -624,7 +656,7 @@ def phase_check_flash() -> tuple[float, set[Shape]]:
     main-path shapes and the main-path shapes checked."""
     main = [sh for arch in (DENSE, MOE, HYBRID) for sh in main_flash_shapes(arch)]
     main += profile_shapes(HYBRID)[0]
-    main += [train_shape(dt, b, s, arch) for arch in (DENSE, MOE)
+    main += [train_shape(dt, b, s, arch) for arch in (DENSE, MOE, HYBRID)
              for dt, b, s in ((torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ),
                               (torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))]
     other = [Shape(1, 8192, 32, 8, 80, torch.bfloat16, window=4096),
@@ -674,6 +706,7 @@ def phase_check_gmm() -> tuple[float, set[GmmShape]]:
     hybrid = [s for c in main_capacities(HYBRID) for s in expert_shapes(c, arch=HYBRID)]
     hybrid += profile_shapes(HYBRID)[1]
     main = [s for c in main_capacities() for s in expert_shapes(c)] + train_gmm_shapes() + hybrid
+    main += train_gmm_shapes(arch=HYBRID)
     checked = set()
     main_err = 0.0
     for dt in (torch.float32, torch.bfloat16):
@@ -687,8 +720,11 @@ def phase_check_gmm() -> tuple[float, set[GmmShape]]:
         granite = [s for c in main_capacities() for s in expert_shapes(c, dt)]
         backward = [dataclasses.replace(s, layout=lay) for s in sweep + ragged + strided
                     for lay in GMM_LAYOUTS[1:]]
-        train = (train_gmm_shapes() if dt == torch.bfloat16
-                 else train_gmm_shapes(dt, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))
+        # granite's and jamba's train shapes (bf16 C 640 and C 320), and
+        # their card-vs-CPU ones (fp32 C 80, and C 160 of jamba's 4 experts)
+        train = (train_gmm_shapes() + train_gmm_shapes(arch=HYBRID) if dt == torch.bfloat16
+                 else train_gmm_shapes(dt, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)
+                 + train_gmm_shapes(dt, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, cfg=hybrid_cpu_cut()))
         # jamba's served shapes, bf16 only: 1.88 GB of weights a shape
         served = hybrid if dt == torch.bfloat16 else []
         for shape in dict.fromkeys(sweep + ragged + strided + granite + backward + train + served):
@@ -700,7 +736,7 @@ def phase_check_gmm() -> tuple[float, set[GmmShape]]:
                 main_err = max(main_err, err)
             checked.add(shape)
             del x, w, out
-            if shape in served:
+            if shape.d * shape.f >= 4096 * 14336:  # jamba's: 0.94 to 1.88 GB of weights
                 torch.cuda.empty_cache()
         torch.cuda.empty_cache()
     return main_err, checked
@@ -753,15 +789,16 @@ def _rotating(fn, sets):
 
 def phase_time_gmm() -> list[dict]:
     """The grouped matmul at granite's served shapes, its dx and dw at the
-    train shapes (C 640; the library call ``torch.bmm`` on the same
-    transposed views), and jamba's at decode (C 2) and at the one-shot
-    batch (C 320).  Each timed call reads inputs that the previous calls
+    train shapes (granite C 640, jamba C 320; the library call
+    ``torch.bmm`` on the same transposed views), and jamba's at decode (C 2)
+    and at the one-shot batch (C 320).  Each timed call reads inputs that the previous calls
     did not (copies rotate through at least 2.5x the 50 MB L2), as in
     serving, where granite's 72 calls a step stream 2.4 GB of weights and
     jamba's 12 calls a step of one period 22.5 GB."""
     rows = []
     shapes = [s for c in main_capacities() for s in expert_shapes(c)]
-    shapes += [s for s in train_gmm_shapes() if s.layout != "fwd"]
+    shapes += [s for arch in (MOE, HYBRID) for s in train_gmm_shapes(arch=arch)
+               if s.layout != "fwd"]
     shapes += expert_shapes(capacity(get_config(MOE), 2 * 128), torch.float32)[:1]
     jamba = get_config(HYBRID)
     shapes += [s for t in (N_SLOTS, 4 * 512)
@@ -809,11 +846,12 @@ def main_ssd_shapes(dtype=torch.bfloat16, arch: str = SSM) -> list[SsdShape]:
     return [ssm_shape(g, b, dtype, arch) for g, b in served_groups(arch)]
 
 
-def train_ssd_shapes() -> list[SsdShape]:
-    """The SSD scan's shapes on mamba2's train paths: the full-width run
-    (bf16 B 8 x S 256) and the card-vs-CPU run (fp32 B 2 x S 128)."""
-    return [ssm_shape(TRAIN_BATCH, TRAIN_SEQ),
-            ssm_shape(TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, torch.float32)]
+def train_ssd_shapes(arch: str = SSM) -> list[SsdShape]:
+    """The SSD scan's shapes on ``arch``'s train paths: the full-width run
+    (bf16 B 8 x S 256) and the card-vs-CPU run (fp32 B 2 x S 128); mamba2
+    H64 P64 N128, jamba H128 P64 N16."""
+    return [ssm_shape(TRAIN_BATCH, TRAIN_SEQ, arch=arch),
+            ssm_shape(TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, torch.float32, arch=arch)]
 
 
 def ssd_edges(dt):
@@ -867,7 +905,8 @@ def phase_check_ssd() -> tuple[float, set[SsdShape]]:
                                          else [])
         profile = ([sh for arch in (SSM, HYBRID) for sh in profile_shapes(arch)[2]]
                    if dt == torch.bfloat16 else [])
-        train = [sh for sh in train_ssd_shapes() if sh.dtype == dt]  # phase 6's
+        train = [sh for arch in (SSM, HYBRID) for sh in train_ssd_shapes(arch)
+                 if sh.dtype == dt]  # phase 6's
         for shape in dict.fromkeys(sweep + ragged + ssd_edges(dt) + card_vs_cpu + served + train
                                    + profile):
             args = shape.inputs()
@@ -893,15 +932,15 @@ def _ssd_grads(fn, args, dy, dh=None):
 
 def ssd_grad_cases() -> list[tuple[SsdShape, bool]]:
     """Phase 2's backward cases, (shape, with the final state's cotangent):
-    mamba2's train shapes (bf16 B 8 x S 256, the card-vs-CPU fp32 B 2 x S
-    128) with the cotangent of y only, as training gives it; the JAX
+    mamba2's and jamba's train shapes (bf16 B 8 x S 256, the card-vs-CPU
+    fp32 B 2 x S 128) with the cotangent of y only, as training gives it; the JAX
     package's gradient-test shape; a ragged S (200 rows: a last chunk of 8)
     with the final state's cotangent, and with rows of dt = 0, tiny and
     negative, in both dtypes; and in bf16 the wgmma route's edges (N of one
     box, P of 8 and 16, three heads, which make groups of one) and a shape
     it does not take (P 12, N 20: the FMA route)."""
     bf16 = torch.bfloat16
-    cases = [(sh, False) for sh in train_ssd_shapes()]
+    cases = [(sh, False) for arch in (SSM, HYBRID) for sh in train_ssd_shapes(arch)]
     cases += [(SsdShape(1, 64, 2, 16, 16, torch.float32, 32), False)]
     for dt in (torch.float32, bf16):
         cases += [(SsdShape(2, 200, 4, 64, 128, dt, 64), True),
@@ -964,12 +1003,17 @@ def phase_check_ssd_grads() -> tuple[float, set[SsdShape]]:
 
 
 def phase_time_ssd_backward() -> dict:
-    """The SSD backward at mamba2's train shape: the kernels of the route it
+    """The SSD backward at mamba2's and jamba's train shapes
+    (``time_ssd_backward``); returns mamba2's row."""
+    return [time_ssd_backward(train_ssd_shapes(arch)[0]) for arch in (SSM, HYBRID)][0]
+
+
+def time_ssd_backward(shape: SsdShape) -> dict:
+    """The SSD backward at a train shape: the kernels of the route it
     takes (``ops._backward``: the launch and its scratch; the wgmma route),
     the FMA route's kernels on the same inputs, timed in turns (FMA, wgmma,
     wgmma, FMA), the plain backward (autograd through ``ssd_chunked``), and
     the bound; no PyTorch call computes it."""
-    shape = train_ssd_shapes()[0]
     args = [t.detach() for t in shape.inputs(seed=1)]
     dy = torch.randn(args[0].shape, device="cuda").to(shape.dtype)
     need = (True,) * 5
@@ -1000,11 +1044,12 @@ def phase_time_ssd_backward() -> dict:
 
 def phase_time_ssd() -> list[dict]:
     """The SSD scan at all nine served mamba2 shapes (each prompt at its
-    exact length, and the one-shot batch), bf16, one fp32 shape, and
-    jamba's longest prompt served alone; inputs rotate through at least
-    2.5x the L2 as in ``phase_time_gmm``."""
+    exact length, and the one-shot batch), bf16, one fp32 shape, jamba's
+    longest prompt served alone and jamba's train shape (B 8 x S 256);
+    inputs rotate through at least 2.5x the L2 as in ``phase_time_gmm``."""
     shapes = main_ssd_shapes() + [ssm_shape(1, 100, torch.float32),
-                                  ssm_shape(1, longest_prompt(), arch=HYBRID)]
+                                  ssm_shape(1, longest_prompt(), arch=HYBRID),
+                                  train_ssd_shapes(HYBRID)[0]]
     rows = []
     for shape in shapes:
         n_sets = max(1, min(8, math.ceil(2.5 * L2_BYTES / shape.nbytes())))
@@ -1414,10 +1459,35 @@ def _greedy_run(model, params, toks, lens, capacity, steps):
 
 def hybrid_cut():
     """jamba at full widths cut to 2 layers, one of each kind: layer 0
-    Mamba-2 with a dense FFN, layer 1 attention with MoE."""
+    Mamba-2 with a dense FFN, layer 1 attention with MoE (3.675 B
+    parameters)."""
     cfg = get_config(HYBRID)
     return dataclasses.replace(cfg, n_layers=2, attn_period=2, attn_offset=1,
                                moe=dataclasses.replace(cfg.moe, layer_period=2, layer_offset=1))
+
+
+def hybrid_cpu_cut():
+    """The hybrid's cut for the card-vs-CPU train run: ``hybrid_cut`` with
+    ``TRAIN_CPU_HYBRID_EXPERTS`` of its 16 experts (top-2 kept), every width
+    kept."""
+    cfg = hybrid_cut()
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=TRAIN_CPU_HYBRID_EXPERTS))
+
+
+def layer_list(cfg) -> str:
+    """Each layer's mixer and FFN, for the logs."""
+    return ", ".join(f"layer {i} {tf.mixer_kind(cfg, i)} + "
+                     + ("MoE" if cfg.layer_is_moe(i) else "dense FFN" if cfg.d_ff else "no FFN")
+                     for i in range(cfg.n_layers))
+
+
+def host_init(cfg, seed: int = 0) -> dict:
+    """``Model.init`` of ``cfg`` drawn on the card from ``seed`` and copied to
+    the host: the card's generator draws jamba's 3.675 B parameters in well
+    under a second, the CPU's in tens of seconds."""
+    params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(seed))
+    return tree_map(lambda t: t.cpu(), params)
 
 
 def phase_card_vs_cpu(arch: str, steps: int = 8, cfg=None) -> None:
@@ -1428,11 +1498,9 @@ def phase_card_vs_cpu(arch: str, steps: int = 8, cfg=None) -> None:
     cfg = dataclasses.replace(cfg or get_config(arch), n_layers=2, compute_dtype="float32")
     cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     t0 = time.perf_counter()
-    params = cpu_model.init(torch.Generator().manual_seed(0))
+    params = host_init(cfg)
     n_params = sum(t.numel() for t in tree_leaves(params))
-    kinds = ", ".join(f"layer {i} {tf.mixer_kind(cfg, i)} + "
-                      + ("MoE" if cfg.layer_is_moe(i) else "dense FFN" if cfg.d_ff else "no FFN")
-                      for i in range(cfg.n_layers))
+    kinds = layer_list(cfg)
     t_init = time.perf_counter() - t0
     rng = np.random.default_rng(1)
     lens = np.array([100, 77])
@@ -1450,7 +1518,8 @@ def phase_card_vs_cpu(arch: str, steps: int = 8, cfg=None) -> None:
     gap = (l_gpu - l_cpu).abs().max().item()
     same = torch.equal(t_gpu, t_cpu)
     log(f"phase 5 card vs cpu ({cfg.name} 2 layers fp32: {kinds}; {n_params / 1e9:.3f} B params, "
-        f"initialised on the cpu in {t_init:.1f} s; prompts {lens[0]} and {lens[1]}, prefill + "
+        f"initialised on the card and copied to the cpu in {t_init:.1f} s; prompts {lens[0]} and "
+        f"{lens[1]}, prefill + "
         f"{steps} decode steps, {cpu_s:.1f} s on the cpu): greedy tokens "
         f"{'equal' if same else 'DIFFER'}, max logit gap {gap:.3e} (bound "
         f"{FP32_LOGITS_BOUND:g}); card launches {made}")
@@ -1469,14 +1538,15 @@ def _flash_grads(shape: Shape, q, k, v, cot, plain: bool):
 
 
 def flash_grad_shapes() -> list[Shape]:
-    """Phase 6's backward shapes: the train shapes of internlm2 (D 128) and
-    granite (D 64) first, then a windowed shape (window < S), qwen3-32b's
+    """Phase 6's backward shapes: the train shapes of internlm2 (D 128),
+    granite (D 64) and jamba (H 32 over KV 8, D 128) first, then a windowed
+    shape (window < S), qwen3-32b's
     group of 8 query heads per kv head, a ragged S (a short last tile of
     each kernel), S of 1, non-causal shapes, every head dim at a small shape,
     fused-qkv views, and the card-vs-CPU train shapes in fp32."""
     bf16 = torch.bfloat16
     cfg = get_config("qwen3-32b")
-    return ([train_shape(), train_shape(arch=MOE),
+    return ([train_shape(), train_shape(arch=MOE), train_shape(arch=HYBRID),
              Shape(2, 512, 16, 8, 128, bf16, window=128),
              Shape(1, 512, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, bf16),
              Shape(2, 200, 16, 8, 128, bf16), Shape(2, 1, 16, 8, 64, bf16),
@@ -1487,7 +1557,7 @@ def flash_grad_shapes() -> list[Shape]:
             + [Shape(2, 333, 16, 8, 128, bf16, fused=True),
                Shape(1, 129, 32, 8, 80, torch.float32, window=64, fused=True)]
             + [train_shape(torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, arch)
-               for arch in (DENSE, MOE)])
+               for arch in (DENSE, MOE, HYBRID)])
 
 
 def phase_check_flash_grads() -> tuple[float, set[Shape]]:
@@ -1588,16 +1658,18 @@ def phase_check_gmm_grads() -> None:
 
 
 def phase_time_flash_backward() -> dict:
-    """At the train shapes of internlm2 and granite: the forward kernel beside
-    SDPA's forward, and the backward kernel (autograd's backward of
+    """At the train shapes of internlm2, granite and jamba: the forward
+    kernel, without and with its logsumexp rows (as training runs it),
+    beside SDPA's forward, and the backward kernel (autograd's backward of
     ``ops.flash_attention``: its scratch, outputs and one launch: the
-    pre-pass and the grid of dK/dV and dQ blocks behind it) beside the plain ``attention_backward``, the recompute it
+    pre-pass and the grid of dK/dV and dQ blocks behind it) beside the
+    plain ``attention_backward``, the recompute it
     replaced (autograd through ``reference_attention``, forward included, as
     the port's backward ran before) and SDPA's backward, each with its
     bound (``Shape.bound``, ``Shape.bwd_bound``).  Returns internlm2's
     backward row."""
     rows = []
-    for arch in (DENSE, MOE):
+    for arch in (DENSE, MOE, HYBRID):
         shape = train_shape(arch=arch)
         q, k, v = (t.detach().requires_grad_() for t in shape.inputs(seed=1))
         cot = torch.randn(q.shape, device="cuda", dtype=shape.dtype)
@@ -1607,6 +1679,7 @@ def phase_time_flash_backward() -> dict:
         fwd = lambda: fa_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
         with torch.no_grad():
             ms, lib_ms = cuda_ms(fwd, iters=20), cuda_ms(sdpa, iters=20)
+            lse_ms = cuda_ms(lambda: fa_ops._forward(q, k, v, True, 0, True), iters=20)
             o_plain, lse_plain = attention_forward(q, k, v, causal=True)
             plain_ms = cuda_ms(lambda: attention_backward(q, k, v, o_plain, lse_plain, cot,
                                                           causal=True), iters=10, warmup=1)
@@ -1619,8 +1692,9 @@ def phase_time_flash_backward() -> dict:
                                                          retain_graph=True), iters=20)
         bound_ms, bound_by = shape.bound()
         bwd_bound, bwd_by = shape.bwd_bound()
-        log(f"phase 6 time flash_attention {shape} forward: kernel {ms:.4f} ms, library (sdpa) "
-            f"{lib_ms:.4f} ms, kernel/library {ms / lib_ms:.2f}, bound {bound_ms:.4f} ms "
+        log(f"phase 6 time flash_attention {shape} forward: kernel {ms:.4f} ms (with its "
+            f"logsumexp rows {lse_ms:.4f} ms), library (sdpa) {lib_ms:.4f} ms, kernel/library "
+            f"{ms / lib_ms:.2f} ({lse_ms / lib_ms:.2f} with the rows), bound {bound_ms:.4f} ms "
             f"({bound_by})")
         log(f"phase 6 time flash_attention_bwd {shape}: kernel {bwd_ms:.4f} ms, plain "
             f"(attention_backward) {plain_ms:.4f} ms, recompute (autograd through "
@@ -1706,23 +1780,30 @@ def train_launches(cfg, passes: int) -> dict:
 
 def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Shape],
                 gmm_checked: set[GmmShape], ssd_checked: set[SsdShape],
-                ssd_grad_checked: set[SsdShape]) -> dict:
-    """``arch`` at full width trained ``TRAIN_STEPS`` steps through
-    ``Trainer``; returns the launches the run made by kernel.  Fails unless
-    every kernel ran as often as ``train_launches`` says, at shapes phases 2
-    and 6 checked (the backwards' too), the loss is finite and falls, every
-    parameter gets a finite, non-zero gradient and two gradient passes of
-    one batch are bit-identical; for an MoE model also unless its
-    load-balancing loss is finite and positive."""
-    cfg = get_config(arch)
+                ssd_grad_checked: set[SsdShape], cfg=None) -> dict:
+    """``arch`` at full width (``cfg`` where given: the hybrid's 2-layer cut)
+    trained ``TRAIN_STEPS`` steps through ``Trainer``; returns the launches
+    the run made by kernel.  Fails unless every kernel ran as often as
+    ``train_launches`` says, at shapes phases 2 and 6 checked (the
+    backwards' too), the loss is finite and falls, every parameter gets a
+    finite, non-zero gradient and two gradient passes of one batch are
+    bit-identical (the first pass's gradients wait on the host: the
+    hybrid's cut has no room for two sets on the card); for an MoE model
+    also unless its load-balancing loss is finite and positive."""
+    cfg = cfg or get_config(arch)
+    full_n = get_config(arch).n_layers
+    cut = cfg.n_layers != full_n
+    layers = f"{cfg.n_layers} layers" + (f" (cut from {full_n})" if cut else "")
     model = build_model(cfg)
     trainer = Trainer(model, _train_opt(TRAIN_STEPS, TRAIN_LR))
     t0 = time.perf_counter()
     params, opt = trainer.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"phase 6 init: {cfg.name} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params (fp32 "
-        f"master, {cfg.compute_dtype} compute) on {model.device} in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 6 init: {cfg.name} {layers}, {n_params / 1e9:.3f} B params (fp32 master, "
+        f"{cfg.compute_dtype} compute) on {model.device} in {time.perf_counter() - t0:.1f} s"
+        + (f" ({layer_list(cfg)})" if cut else "") + f"; params and AdamW moments "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
     batches = [pipe.global_batch_arrays(i) for i in range(TRAIN_STEPS + 1)]
     n_attn, n_moe, n_ssm = layer_kinds(cfg)
@@ -1751,13 +1832,13 @@ def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Sh
         raise SystemExit(f"training launched flash_attention (forward and backward) at "
                          f"{train_shape(arch=arch)}, which phases 2 and 6 did not check in both "
                          "directions")
-    ssd_train = train_ssd_shapes()[0]
+    ssd_train = train_ssd_shapes(arch)[0] if n_ssm else None
     if n_ssm and not (ssd_train in ssd_checked and ssd_train in ssd_grad_checked):
         raise SystemExit(f"training launched ssd_scan (forward and backward) at {ssd_train}, "
                          "which phase 2 did not check in both directions")
-    if moe and not set(train_gmm_shapes()) <= gmm_checked:
+    if moe and not set(train_gmm_shapes(arch=arch)) <= gmm_checked:
         raise SystemExit("training launched moe_gmm at shapes phase 2 did not check: "
-                         + ", ".join(map(str, set(train_gmm_shapes()) - gmm_checked)))
+                         + ", ".join(map(str, set(train_gmm_shapes(arch=arch)) - gmm_checked)))
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise SystemExit(f"{cfg.name} training: loss not finite or not falling: {losses}")
     grads, _ = value_and_grads(model, params, batches[0])
@@ -1767,16 +1848,19 @@ def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Sh
     if bad:
         raise SystemExit(f"{bad} of {n_leaves} parameter leaves got a zero or non-finite "
                          "gradient")
+    first = [g.cpu() for g in tree_leaves(grads)]
+    del grads
     median = float(np.median(walls))
-    log(f"phase 6 train {cfg.name} full width, B{TRAIN_BATCH} S{TRAIN_SEQ}, {TRAIN_STEPS} steps: "
+    log(f"phase 6 train {cfg.name} full width, {layers}, B{TRAIN_BATCH} S{TRAIN_SEQ}, "
+        f"{TRAIN_STEPS} steps: "
         f"loss " + " ".join(f"{x:.4f}" for x in losses) + " (finite, falling) ok; gnorm "
         + " ".join(f"{x:.3f}" for x in gnorms))
     # the same batch again: the flash backward's sums over query tiles and
     # heads, the MoE backward's gathers and products (models/moe.py) and the
     # SSD backward's sums over heads and chunks must repeat bit for bit
     again, _ = value_and_grads(model, params, batches[0])
-    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(again)))
-    del again
+    same = all(torch.equal(a, b.cpu()) for a, b in zip(first, tree_leaves(again)))
+    del again, first
     if not same:
         raise SystemExit(f"{cfg.name}: two gradient passes of batch 0 differ")
     log(f"phase 6 train {cfg.name}: two gradient passes of batch 0 bit-identical ok")
@@ -1788,7 +1872,6 @@ def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Sh
             f"{'ok' if math.isfinite(aux) and aux > 0 else 'FAIL'}")
         if not (math.isfinite(aux) and aux > 0):
             raise SystemExit(f"{cfg.name}: a bad aux loss {aux}")
-    del grads
     per_step = {k: n // TRAIN_STEPS for k, n in launches.items() if n}
     log(f"phase 6 train {cfg.name}: step wall median {1e3 * median:.1f} ms (min "
         f"{1e3 * min(walls):.1f}, max {1e3 * max(walls):.1f}; host clock, ends in a sync), "
@@ -1802,17 +1885,36 @@ def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Sh
     return launches
 
 
-def phase_train_card_vs_cpu(arch: str) -> None:
-    """``arch`` cut to 2 layers of full width, in fp32, from the same params
-    on the card and on the CPU: the gradients of the first batch, each leaf
-    within 1e-4 of its largest value; then ``TRAIN_CPU_STEPS`` Trainer steps
-    on the same batches, losses within 1e-4 relative and params within
-    1e-4."""
-    cfg = dataclasses.replace(get_config(arch), n_layers=2, compute_dtype="float32")
+def _host_gib(field: str = "MemAvailable") -> float:
+    """A field of the host's /proc/meminfo, in GiB."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith(field + ":"):
+            return int(line.split()[1]) / 2**20
+    return float("nan")
+
+
+def phase_train_card_vs_cpu(arch: str, cfg=None) -> None:
+    """``arch`` (or ``cfg``) cut to 2 layers of full width, in fp32, from the
+    same params on the card and on the CPU: the gradients of the first
+    batch, each leaf within 1e-4 of its largest value; then
+    ``TRAIN_CPU_STEPS`` Trainer steps on the same batches, losses within
+    1e-4 relative and params within 1e-4."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(cfg or full, n_layers=2, compute_dtype="float32")
+    cut = ""
+    if cfg.moe and cfg.moe.n_experts != full.moe.n_experts:
+        cut = (f"; {layer_list(cfg)}; experts cut from {full.moe.n_experts} to "
+               f"{cfg.moe.n_experts} (top-{cfg.moe.top_k}) for the host's memory, every width "
+               f"kept; host memory available {_host_gib():.1f} of {_host_gib('MemTotal'):.1f} GiB")
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ, global_batch=TRAIN_CPU_BATCH,
                        seed=0)
     batches = [pipe.global_batch_arrays(i) for i in range(TRAIN_CPU_STEPS)]
+    # drawn on the CPU: the param bound below holds for this draw; a draw on
+    # the card (host_init) left granite's params 1.15e-4 to 1.37e-4 apart in
+    # two runs (PERF.md section 7), AdamW's steps of near-zero gradients
+    # taking other signs on the two devices
     init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    n_params = sum(t.numel() for t in tree_leaves(init))
     runs = {}
     for dev in ("cuda", "cpu"):
         model = build_model(cfg, device=dev)
@@ -1839,16 +1941,132 @@ def phase_train_card_vs_cpu(arch: str) -> None:
     want_launches = train_launches(cfg, TRAIN_CPU_STEPS + 1)  # + the gradient pass
     ok = (g_rel <= TRAIN_CPU_TOL and loss_rel <= TRAIN_CPU_TOL and p_gap <= TRAIN_CPU_TOL
           and n_gpu == want_launches)
-    log(f"phase 6 train card vs cpu ({cfg.name} 2 layers fp32, B{TRAIN_CPU_BATCH} "
-        f"S{TRAIN_CPU_SEQ}, lr {TRAIN_CPU_LR:g}): gradients of batch 0 within {g_rel:.3e} of "
+    log(f"phase 6 train card vs cpu ({cfg.name} 2 layers fp32, {n_params / 1e9:.3f} B params"
+        f"{cut}; B{TRAIN_CPU_BATCH} S{TRAIN_CPU_SEQ}, lr {TRAIN_CPU_LR:g}): gradients of batch 0 "
+        f"within {g_rel:.3e} of "
         f"each leaf's largest value; {TRAIN_CPU_STEPS} steps, losses card "
         + " ".join(f"{x:.6f}" for x in l_gpu) + " cpu " + " ".join(f"{x:.6f}" for x in l_cpu)
         + f", max loss gap {loss_rel:.3e} relative, max param gap {p_gap:.3e} ({over} of "
         f"{sum(g.numel() for g in gaps)} elements over 1e-5); bound {TRAIN_CPU_TOL:g}; card "
         f"launches {n_gpu} (want {want_launches}), cpu {n_cpu}; {s_gpu:.1f} s card, "
-        f"{s_cpu:.1f} s cpu {'ok' if ok else 'FAIL'}")
+        f"{s_cpu:.1f} s cpu; host peak rss {_peak_rss_gib():.1f} GiB {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("training on the card and on the CPU disagree")
+
+
+def _peak_rss_gib() -> float:
+    """This process's peak resident memory on the host, in GiB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _bit_identical(a, b) -> bool:
+    """Two trees of tensors and Python numbers, leaf for leaf."""
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else type(x) is type(y) and x == y
+        for x, y in zip(la, lb))
+
+
+def phase_checkpoint() -> dict:
+    """Checkpoints and restarts on the card: granite-moe-1b-a400m cut to 2
+    layers at full width (bf16 compute, fp32 master params and moments;
+    flash and gmm forward and backward) trained ``CKPT_STEPS`` steps
+    straight, then again from the same seed through ``run_with_restarts``
+    with a checkpoint every ``CKPT_EVERY`` steps and one failure injected
+    after step ``CKPT_FAIL_AT``'s update (after the step-2 checkpoint: the
+    loop restores it and runs step 3 again).  The final params, moments,
+    optimizer step and losses must equal the straight run's bit for bit and
+    the restarted run's launches those of ``CKPT_STEPS`` + 1 steps.  Then an
+    ``AsyncCheckpointer`` save of the final state must pass
+    ``verify_checkpoint``; the save, the verification and the restart's
+    restore are timed, and the directory is removed.  Returns the
+    restarted run's launches."""
+    cfg = dataclasses.replace(get_config(MOE), n_layers=2)
+    model = build_model(cfg)
+    trainer = Trainer(model, _train_opt(CKPT_STEPS, TRAIN_LR))
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
+    batches = [pipe.global_batch_arrays(i) for i in range(CKPT_STEPS)]
+    build_dir = Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt_smoke_", dir=build_dir))
+    try:
+        params, opt = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        t0 = time.perf_counter()
+        losses = []
+        for batch in batches:
+            params, opt, m = trainer.step(params, opt, batch)
+            losses.append(float(m["loss"]))
+        straight_s = time.perf_counter() - t0
+
+        state = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+        got, restored_at, failed_at = {}, [], []
+
+        def step_fn(state, step):
+            p, o, m = trainer.step(*state, batches[step])
+            got[step] = float(m["loss"])
+            if step == CKPT_FAIL_AT and not failed_at:
+                failed_at.append(time.perf_counter())
+                raise RuntimeError(f"injected failure after step {step}'s update")
+            return p, o
+
+        def on_restore(n, step):  # the restore's seconds: from the failure to here
+            torch.cuda.synchronize()
+            restored_at.append((step, time.perf_counter() - failed_at[-1]))
+
+        torch.cuda.synchronize()
+        _reset_launches()
+        t0 = time.perf_counter()
+        (params2, opt2), restarts = run_with_restarts(
+            step_fn, state, CKPT_STEPS, str(root / "restarts"), ckpt_every=CKPT_EVERY,
+            on_restore=on_restore)
+        torch.cuda.synchronize()
+        restarts_s = time.perf_counter() - t0
+        launches = _launches()
+        del state
+        want = train_launches(cfg, CKPT_STEPS + 1)
+        same = (_bit_identical((params, opt), (params2, opt2)) and opt2["step"] == CKPT_STEPS
+                and [got[i] for i in range(CKPT_STEPS)] == losses)
+        ok = (same and restarts == 1 and [s for s, _ in restored_at] == [CKPT_FAIL_AT]
+              and launches == want)
+        log(f"phase 7 checkpoint {cfg.name} 2 layers full width ({n_params / 1e9:.3f} B params, "
+            f"fp32 master and moments, {cfg.compute_dtype} compute), B{TRAIN_BATCH} S{TRAIN_SEQ}: "
+            f"{CKPT_STEPS} steps straight in {straight_s:.1f} s, losses "
+            + " ".join(f"{x:.4f}" for x in losses) + f"; through run_with_restarts (a checkpoint "
+            f"every {CKPT_EVERY} steps, a failure after step {CKPT_FAIL_AT}'s update) in "
+            f"{restarts_s:.1f} s: {restarts} restart, resumed at step "
+            f"{[s for s, _ in restored_at]}; params, "
+            f"moments, step and losses {'bit-identical' if same else 'DIFFER'}; launches "
+            f"{launches} (want {want}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the restarted run does not repeat the straight run")
+
+        tree, step = (params2, opt2), CKPT_STEPS - 1
+        with AsyncCheckpointer() as saver:
+            t0 = time.perf_counter()
+            saver.save(str(root / "async"), step, tree)
+            snap_s = time.perf_counter() - t0
+            saver.wait()
+            async_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        intact = verify_checkpoint(str(root / "async"), step)
+        verify_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in (root / "async" / f"step_{step:010d}").iterdir())
+        restore_s = restored_at[0][1]
+        log(f"phase 7 checkpoint {cfg.name}: {nbytes / 1e9:.3f} GB a checkpoint (params and "
+            f"AdamW state, {len(tree_leaves(tree))} leaves); save: AsyncCheckpointer.save "
+            f"returned after {snap_s:.2f} s (the host copy), written after {async_s:.2f} s "
+            f"({nbytes / 1e9 / async_s:.2f} GB/s: host copy, npz, sha256); verify_checkpoint "
+            f"{'ok' if intact else 'FAIL'} in {verify_s:.2f} s; restore in run_with_restarts, "
+            f"failure to resumed state on the card, {restore_s:.2f} s "
+            f"({nbytes / 1e9 / restore_s:.2f} GB/s: read, sha256, to the card)")
+        if not intact:
+            raise SystemExit("an AsyncCheckpointer save of the final state does not verify")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params, opt, params2, opt2, tree, model, trainer
+    torch.cuda.empty_cache()
+    return launches
 
 
 def _kernel_entry(name, mod, replaces, launches, err, rep) -> dict:
@@ -1893,8 +2111,12 @@ def main() -> int:
     for arch in ARCHS:
         paths[f"train {arch}"] = phase_train(arch, fa_checked, fa_grad_checked, gmm_checked,
                                              ssd_checked, ssd_grad_checked)
+    paths[f"train {HYBRID}"] = phase_train(HYBRID, fa_checked, fa_grad_checked, gmm_checked,
+                                           ssd_checked, ssd_grad_checked, cfg=hybrid_cut())
     for arch in ARCHS:
         phase_train_card_vs_cpu(arch)
+    phase_train_card_vs_cpu(HYBRID, cfg=hybrid_cpu_cut())
+    paths[f"checkpoint {MOE}"] = phase_checkpoint()
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)
     gmm_rep = next(r for r in gmm_rows if r["shape"] == str(expert_shapes(decode_c)[0]))

@@ -31,7 +31,11 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert {"repro_torch.runtime.serving", "repro_torch.launch.serve",
             "repro_torch.launch.train", "repro_torch.optim.adamw",
-            "repro_torch.runtime.trainer", "repro_torch.data.pipeline"} <= set(mods)
+            "repro_torch.runtime.trainer", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.checkpointing", "repro_torch.runtime.fault_tolerance",
+            "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
+            "repro_torch.obs.calibration", "repro_torch.obs.provenance",
+            "repro_torch.obs.logging"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -402,13 +402,16 @@ def test_moe_trainer_loss_curve_matches_jax():
     assert got[-1][0] < got[0][0]
 
 
-@pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m", SSM])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "granite-moe-1b-a400m", SSM,
+                                  "jamba-v0.1-52b"])
 def test_decay_mask_matches_the_reference_on_its_stacked_tree(arch):
     """The reference's ``_decay_mask`` (``ndim >= 2``) on its own tree, where
     the layers are stacked over the pattern's repeats, equals
     ``Model.decay_mask`` leaf by leaf; with one layer nothing is stacked and
-    the 1-D leaves are not decayed."""
-    for n_layers in (None, 1):
+    the 1-D leaves are not decayed.  jamba's pattern (attention every 8th
+    layer, MoE on the odd ones) has a period of 8: REDUCED's 8 layers are
+    one period, not stacked, and 16 layers stack two."""
+    for n_layers in (None, 1) + ((16,) if arch == "jamba-v0.1-52b" else ()):
         mj, pj, mt = make_pair(arch)
         if n_layers:
             cfg_j = dataclasses.replace(mj.cfg, n_layers=n_layers)
@@ -424,6 +427,8 @@ def test_decay_mask_matches_the_reference_on_its_stacked_tree(arch):
             assert not mask["layers"][0]["ln1"]
         elif arch == SSM:
             assert mask["layers"][0]["mixer"]["a_log"] and mask["layers"][0]["mixer"]["dt_bias"]
+        elif arch == "jamba-v0.1-52b":  # layer 0 is Mamba-2; its a_log stacks at 16 layers
+            assert mask["layers"][0]["mixer"]["a_log"] == (n_layers == 16)
 
 
 def test_trainer_refuses_a_mesh_and_a_parallel_config():
