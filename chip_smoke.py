@@ -18,7 +18,8 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    kernel's tiles (S of 1, 127, 129 and 1025, windows below one tile, GQA
    groups of 1 to 8, every head dim, q/k/v as views of a fused buffer), and
    at the train shapes of internlm2-1.8b, granite-moe-1b-a400m and
-   jamba-v0.1-52b (B 8 x S 256; fp32 B 2 x S 128).  The
+   jamba-v0.1-52b (B 8 x S 256; fp32 B 2 x S 128), and at internlm2's
+   prefill groups in fp32 (phase 8's cold resumes).  The
    grouped matmul, its forward and both backward products (dx = g w^T and
    dw = x^T g, the transposed operand read in place), at the shapes of the
    JAX package's sweep, at ragged capacities around its tiles (1 to 2560),
@@ -129,11 +130,31 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    bit-identical to the straight run; an ``AsyncCheckpointer`` save of the
    final state passes ``verify_checkpoint``; the bytes and seconds of a
    save and a restore (the directory, under ``build/``, is removed);
-8. a JSON line of the kernels (the flash and SSD backwards beside the
+8. multi-turn sessions through the tiered KV pool, on phase 4's weights
+   right after their path (internlm2-1.8b's and jamba-v0.1-52b's): the
+   same 8 prompts, greedy, as sessions of two turns of 16 tokens (the
+   second turn resubmits each history), each run held bit for bit against
+   a never-demoted run of the prompts for 32 tokens on as many slots.
+   internlm2 on 4 slots in bf16 with 4 host and 4 pooled sessions (turn 2
+   wakes 4 rows from host and refills 4 from pooled, no prefill), then in
+   fp32 (its weights built again from seed 0) with no tier capacity
+   (every session dropped and re-prefilled cold through the fp32 flash
+   route: 8 rows); jamba's period on 1 slot, so that no two rows share an
+   expert's capacity, with 4 host and 4 pooled sessions in bf16 (its
+   Mamba-2 conv and SSM state and its attention ring through the
+   hierarchy).  ``pool.check()`` after each turn; the launches equal the
+   engines' prefills and decode steps (none per wakeup), at shapes phase 2
+   checked; the spans (``Obs()`` on every tiered run) match the engine's
+   counters.  Printed: each model's row bytes by leaf, demote and promote
+   walls per row and their GB/s from the calibration ledger beside the
+   modeled prices, ``extract_all`` of 4 rows against 4 ``extract`` calls
+   (and ``insert_all`` against ``insert``), each with the card's name and
+   power limit;
+9. a JSON line of the kernels (the flash and SSD backwards beside the
    three forward kernels; the SSD backward's launches by route and its FMA
-   route's time beside; launches by path, the train paths and the
-   checkpoint phase among them), and as the last line
-   ``{"ok": true, "device": {...}}``.
+   route's time beside; launches by path, the train paths, the
+   checkpoint phase and the session paths among them), and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
 """
@@ -182,7 +203,9 @@ from repro_torch.models.layers import dense_init, embed_init, zeros_init  # noqa
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.runtime.fault_tolerance import run_with_restarts  # noqa: E402
-from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine  # noqa: E402
+from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.runtime.serving import (  # noqa: E402
+    ContinuousBatchingEngine, KVPool, ServingEngine, TierConfig)
 from repro_torch.runtime.trainer import Trainer, value_and_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -221,6 +244,8 @@ COUNTERS = {"flash_attention": (fa_kernel, "launches"),
 MAIN_ROWS = (1, 2, 4)  # prefill group sizes on 4 slots
 MAIN_BUCKETS = (128, 256, 512, 1024, 2048)  # power-of-two prompt buckets
 N_SLOTS, NEW_TOKENS = 4, 32
+# phase 8: two turns of 16 tokens a session, on pools of phase 4's capacity
+SESSION_TURN, SESSION_CAPACITY = NEW_TOKENS // 2, 1000 + NEW_TOKENS + 8
 PROFILE_PROMPT = 128  # the decode profile's prompts (phase 4), cut to this many tokens
 L2_BYTES = 50e6  # inputs of a timed call rotate through copies of at least 2.5x this
 # training: the launcher's batch, length and warmup rule, 8 steps.  Its
@@ -509,11 +534,16 @@ class SsdShape:
         return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_card_and_build() -> tuple[str, str]:
-    smi = subprocess.run(
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_card_and_build() -> tuple[str, str]:
+    smi = _smi()
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -655,7 +685,7 @@ def phase_check_flash() -> tuple[float, set[Shape]]:
     """Flash kernel against its plain version; returns the max error at the
     main-path shapes and the main-path shapes checked."""
     main = [sh for arch in (DENSE, MOE, HYBRID) for sh in main_flash_shapes(arch)]
-    main += profile_shapes(HYBRID)[0]
+    main += profile_shapes(HYBRID)[0] + session_flash_shapes()
     main += [train_shape(dt, b, s, arch) for arch in (DENSE, MOE, HYBRID)
              for dt, b, s in ((torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ),
                               (torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))]
@@ -1115,12 +1145,15 @@ def init_loaded(model, seed: int = 0) -> dict:
 
 
 def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape],
-                ssd_checked: set[SsdShape], n_layers: int | None = None) -> dict:
+                ssd_checked: set[SsdShape], n_layers: int | None = None,
+                sessions: dict | None = None) -> dict:
     """One main path at full width (cut to ``n_layers`` layers when given);
     returns the launches it made by kernel.  Fails if a launch count does
     not match the path, or if the path ran a kernel at a shape phase 2 did
     not check.  For the hybrid, then its bf16 prefill against the plain
-    versions on the same weights (``check_prefill_vs_plain``)."""
+    versions on the same weights (``check_prefill_vs_plain``).  With
+    ``sessions``, then phase 8 on the same weights, its launches stored
+    there under ``sessions <arch>``."""
     cfg = get_config(arch)
     cut = ""
     if n_layers:
@@ -1140,8 +1173,7 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     lens, prompts, batch = traffic(cfg.vocab)
-    engine = ContinuousBatchingEngine(model, params, n_slots=N_SLOTS,
-                                      max_len=1000 + NEW_TOKENS + 8)
+    engine = ContinuousBatchingEngine(model, params, n_slots=N_SLOTS, max_len=SESSION_CAPACITY)
     one_shot = ServingEngine(model, params, max_len=512 + NEW_TOKENS + 8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1211,7 +1243,12 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     profile_decode(cfg.name, engine, prompts)
     if arch == HYBRID:
         check_prefill_vs_plain(model, params, longest_prompt())
-    del engine, one_shot, params, model
+    del engine, one_shot
+    if sessions is not None:
+        torch.cuda.empty_cache()
+        sessions[f"sessions {arch}"] = phase_sessions(arch, model, params, flash_checked,
+                                                      gmm_checked, ssd_checked)
+    del params, model
     torch.cuda.empty_cache()
     return launches
 
@@ -1885,6 +1922,208 @@ def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Sh
     return launches
 
 
+def session_flash_shapes() -> list[Shape]:
+    """The flash kernel's shapes in phase 8's fp32 internlm2 runs: prefill
+    groups of 1 to 4 rows at every bucket, the prompts' and the cold
+    resumes' histories (16 tokens longer) among them."""
+    return [dataclasses.replace(main_shape(g, b, DENSE), dtype=torch.float32)
+            for g in MAIN_ROWS for b in MAIN_BUCKETS]
+
+
+def _two_turns(engine, prompts) -> tuple[list, list, int, int]:
+    """Phase 8's session schedule on ``engine``: every prompt a session of
+    ``SESSION_TURN`` new tokens, run; then every history resubmitted for
+    ``SESSION_TURN`` more, run; ``pool.check()`` after each turn.  Returns
+    (each session's two turns, the second turn's wall, its prefill groups,
+    the rows they prefilled)."""
+    rids = [engine.submit(p, SESSION_TURN, session_id=i) for i, p in enumerate(prompts)]
+    out = engine.run()
+    first = [out[r] for r in rids]
+    engine.pool.check()
+    groups = len(engine.metrics.prefill_walls)
+    t0 = time.perf_counter()
+    rids = [engine.submit(np.concatenate([p, f]), SESSION_TURN, session_id=i)
+            for i, (p, f) in enumerate(zip(prompts, first))]
+    out = engine.run()
+    wall = time.perf_counter() - t0
+    engine.pool.check()
+    later = engine.metrics.prefill_walls[groups:]
+    return ([(f, out[r]) for f, r in zip(first, rids)], wall, len(later),
+            sum(g for g, _, _ in later))
+
+
+def _tier_figures(ob, nbytes: int, smi: str) -> str:
+    """The calibration ledger's tier_transfer (demote, hbm->host) and
+    wakeup (promote) records: counts, predicted and observed seconds, the
+    observed wall per row and its GB/s."""
+    parts = []
+    for kind, what in (("tier_transfer", "demote"), ("wakeup", "promote")):
+        recs = [r for r in ob.calibration.records if r.kind == kind]
+        pred = sum(r.predicted_s for r in recs)
+        seen = [r.observed_s for r in recs]
+        per = float(np.median(seen))
+        parts.append(f"{what} ({kind}) x{len(recs)}: predicted {1e3 * pred:.3f} ms, observed "
+                     f"{1e3 * sum(seen):.3f} ms, median {1e3 * per:.3f} ms a row = "
+                     f"{nbytes / per / 1e9:.2f} GB/s")
+    return "; ".join(parts) + f" [{smi}]"
+
+
+def _span_counts(ob) -> dict:
+    counts = {}
+    for e in ob.tracer.events:
+        key = e["name"] if e["ph"] == "X" else f"{e['name']} instant"
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def time_wire_format(model, slots: int = N_SLOTS, reps: int = 3) -> str:
+    """``extract_all`` of ``slots`` rows against as many ``extract`` calls,
+    and ``insert_all`` against as many ``insert`` calls, on a pool of the
+    session runs' capacity (medians of ``reps``, host clock; each ends in
+    its copy or a sync); the batched rows must equal the single ones."""
+    pool = KVPool(model, slots, SESSION_CAPACITY)
+    ids = [pool.allocate(r) for r in range(slots)]
+    for t in pool.caches.values():
+        t.copy_(torch.arange(t.numel(), device=t.device).reshape(t.shape).to(t.dtype))
+
+    def timed(fn):
+        walls = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return float(np.median(walls)), out
+
+    all_s, rows = timed(lambda: pool.extract_all(ids))
+    one_s, singles = timed(lambda: [pool.extract(s) for s in ids])
+    same = all(np.array_equal(a[n], b[n]) for a, b in zip(rows, singles) for n in a)
+    ins_all_s, _ = timed(lambda: pool.insert_all(ids, rows))
+    ins_one_s, _ = timed(lambda: [pool.insert(s, r) for s, r in zip(ids, rows)])
+    nbytes = slots * sum(leaf.nbytes for leaf in rows[0].values())
+    if not same:
+        raise SystemExit(f"{model.cfg.name}: extract_all disagrees with extract")
+    del pool
+    torch.cuda.empty_cache()
+    return (f"extract_all of {slots} rows {1e3 * all_s:.2f} ms ({nbytes / all_s / 1e9:.2f} GB/s) "
+            f"against {slots} extract calls {1e3 * one_s:.2f} ms ({nbytes / one_s / 1e9:.2f} "
+            f"GB/s), rows equal; insert_all {1e3 * ins_all_s:.2f} ms "
+            f"({nbytes / ins_all_s / 1e9:.2f} GB/s) against {slots} insert calls "
+            f"{1e3 * ins_one_s:.2f} ms ({nbytes / ins_one_s / 1e9:.2f} GB/s)")
+
+
+def phase_sessions(arch: str, model, params, flash_checked: set[Shape],
+                   gmm_checked: set[GmmShape], ssd_checked: set[SsdShape]) -> dict:
+    """Phase 8, multi-turn sessions through the tiered KV pool at full width
+    on phase 4's bf16 weights of ``arch``, on the served traffic (8 prompts,
+    greedy), each run held against a never-demoted run of the same prompts
+    for ``NEW_TOKENS`` tokens on as many slots.  internlm2-1.8b on 4 slots:
+    run 1 in bf16 with 4 host and 4 pooled sessions (the second turn wakes 4
+    sessions from host and refills 4 from pooled, with no prefill), run 2 in
+    fp32 (weights built again from the same seed) with no tier capacity
+    (every session dropped, its history re-prefilled cold through the fp32
+    flash route).  jamba on 1 slot, so that no two rows share an expert's
+    capacity, with 4 host and 4 pooled sessions in bf16.  Streams must be
+    equal bit for bit; the launches those of the engines' prefills and
+    decode steps (a wakeup launches nothing), at shapes phase 2 checked.
+    Returns the launches of the phase's runs."""
+    cfg = model.cfg
+    smi = _smi()
+    lens, prompts, _ = traffic(cfg.vocab)
+    hybrid = arch == HYBRID
+    slots = 1 if hybrid else N_SLOTS
+    runs = [("bf16", model, params, TierConfig(host_sessions=4, pooled_sessions=4))]
+    if not hybrid:
+        runs.append(("fp32", None, None, TierConfig(host_sessions=0, pooled_sessions=0)))
+    # (prefills, decode steps) of every engine, and every prefill's length
+    counts, lengths, flash_groups = [], set(), set()
+    _reset_launches()
+    t_phase = time.perf_counter()
+    for label, m, p, tiers in runs:
+        if m is None:
+            cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+            m = build_model(cfg32)
+            p = init_loaded(m)
+        ref = ContinuousBatchingEngine(m, p, n_slots=slots, max_len=SESSION_CAPACITY)
+        t0 = time.perf_counter()
+        full = ref.generate(prompts, NEW_TOKENS)
+        ref_s = time.perf_counter() - t0
+        ob = Obs()
+        eng = ContinuousBatchingEngine(m, p, n_slots=slots, max_len=SESSION_CAPACITY,
+                                       tiers=tiers, obs=ob)
+        t0 = time.perf_counter()
+        turns, wake_s, groups2, rows2 = _two_turns(eng, prompts)
+        tiered_s = time.perf_counter() - t0
+        for e in (ref, eng):
+            counts.append((e.metrics.prefills, e.metrics.decode_steps))
+            lengths |= {b for _, b, _ in e.metrics.prefill_walls}
+            flash_groups |= {dataclasses.replace(main_shape(g, b, arch), dtype=m.compute_dtype)
+                             for g, b, _ in e.metrics.prefill_walls}
+        pool, mt = eng.pool, eng.metrics
+        equal = all(np.array_equal(np.concatenate(t), f) for t, f in zip(turns, full))
+        n = len(prompts)
+        cold = tiers.host_sessions + tiers.pooled_sessions == 0
+        # (wakeups, cold resumes, refills, rows re-prefilled in turn 2, drops:
+        # every demotion of both turns when no tier holds a row)
+        want = ((0, n, 0, n, 2 * n) if cold
+                else (n, 0, min(n - tiers.host_sessions, tiers.pooled_sessions), 0, 0))
+        got = (mt.wakeups, mt.cold_resumes, pool.n_refill, rows2, pool.n_drop)
+        spans = _span_counts(ob)
+        spans_ok = (spans.get("prefill", 0) == mt.prefills
+                    and spans.get("decode", 0) == mt.decode_steps
+                    and spans.get("wakeup", 0) == mt.wakeups
+                    and spans.get("demote instant", 0) == mt.demotions == 2 * n)
+        ok = equal and got == want and spans_ok and mt.demotions == pool.n_demote
+        leaf_bytes = {nm: nb for nm, _, nb, _ in pool._layout}
+        nbytes = sum(leaf_bytes.values())
+        log(f"phase 8 sessions {cfg.name} {label} ({cfg.n_layers} layers, {slots} slot"
+            f"{'s' if slots > 1 else ''}, {tiers}): {n} sessions x 2 turns of {SESSION_TURN} "
+            f"tokens against a never-demoted run of {NEW_TOKENS} ({ref_s:.2f} s); tiered "
+            f"{tiered_s:.2f} s, turn 2 {wake_s:.2f} s; wakeups {mt.wakeups}, refills "
+            f"{pool.n_refill}, cold resumes {mt.cold_resumes} ({rows2} rows re-prefilled in "
+            f"{groups2} groups), drops {pool.n_drop}, spills {pool.n_spill}, demotions "
+            f"{mt.demotions}; modeled_tier_s {pool.modeled_tier_s:.6f}; streams "
+            f"{'bit-identical' if equal else 'DIFFER'} {'ok' if ok else 'FAIL'}")
+        log(f"phase 8 {cfg.name} {label} spans: {spans} (prefill groups {mt.prefills}, decode "
+            f"steps {mt.decode_steps})")
+        if not cold:
+            log(f"phase 8 {cfg.name} {label} row {nbytes / 1e6:.3f} MB ("
+                + ", ".join(f"{nm} {nb / 1e6:.3f}" for nm, nb in leaf_bytes.items())
+                + f" MB); {_tier_figures(ob, nbytes, smi)}")
+        else:
+            recs = [r for r in ob.calibration.records if r.kind == "cold_prefill"]
+            log(f"phase 8 {cfg.name} {label} cold_prefill x{len(recs)}: predicted "
+                f"{1e3 * sum(r.predicted_s for r in recs):.3f} ms, observed "
+                f"{1e3 * sum(r.observed_s for r in recs):.3f} ms [{smi}]")
+        if not ok:
+            raise SystemExit(f"{cfg.name} {label} sessions: streams equal {equal}, (wakeups, "
+                             f"cold resumes, refills, rows re-prefilled, drops) {got} want "
+                             f"{want}, spans {spans}")
+        del ref, eng, m, p
+    launches = _launches()
+    want = {k: sum(expected_launches(cfg, *c)[k] for c in counts) for k in launches}
+    if launches != want:
+        raise SystemExit(f"{cfg.name} sessions: launches {launches}, want {want}")
+    n_attn, n_moe, n_ssm = layer_kinds(cfg)
+    if n_attn and not flash_groups <= flash_checked:
+        raise SystemExit("the sessions path launched flash_attention at shapes phase 2 did not "
+                         f"check: {', '.join(map(str, flash_groups - flash_checked))}")
+    if hybrid:
+        if not lengths <= {int(x) for x in lens}:
+            raise SystemExit(f"{cfg.name} sessions: prefills at lengths {sorted(lengths)}")
+        tokens = list(lengths) + [slots]
+        served_gmm = {s for t in tokens for s in expert_shapes(capacity(cfg, t), arch=arch)}
+        served_ssd = {ssm_shape(1, b, arch=arch) for b in lengths}
+        if not served_gmm <= gmm_checked or not served_ssd <= ssd_checked:
+            raise SystemExit(f"{cfg.name} sessions: gmm or ssd_scan shapes phase 2 did not check")
+    log(f"phase 8 {cfg.name} wire format: {time_wire_format(model)} [{smi}]")
+    log(f"phase 8 sessions {cfg.name}: launches {launches} (= the engines' prefills and decode "
+        f"steps; none per wakeup) in {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _host_gib(field: str = "MemAvailable") -> float:
     """A field of the host's /proc/meminfo, in GiB."""
     for line in Path("/proc/meminfo").read_text().splitlines():
@@ -2098,8 +2337,12 @@ def main() -> int:
     ssd_bwd_err, ssd_grad_checked = phase_check_ssd_grads()
     fa_rows, gmm_rows, ssd_rows = phase_time_flash(), phase_time_gmm(), phase_time_ssd()
     ssd_bwd_rep = phase_time_ssd_backward()
-    paths = {arch: phase_serve(arch, fa_checked, gmm_checked, ssd_checked) for arch in ARCHS}
-    paths[HYBRID] = phase_serve(HYBRID, fa_checked, gmm_checked, ssd_checked, HYBRID_LAYERS)
+    # phase 8 runs on phase 4's weights, right after their path
+    sessions = {}
+    paths = {arch: phase_serve(arch, fa_checked, gmm_checked, ssd_checked,
+                               sessions=sessions if arch == DENSE else None) for arch in ARCHS}
+    paths[HYBRID] = phase_serve(HYBRID, fa_checked, gmm_checked, ssd_checked, HYBRID_LAYERS,
+                                sessions=sessions)
     phase_ssm_prefill_vs_plain()
     phase_prefill_profile()
     for arch in ARCHS:
@@ -2117,6 +2360,7 @@ def main() -> int:
         phase_train_card_vs_cpu(arch)
     phase_train_card_vs_cpu(HYBRID, cfg=hybrid_cpu_cut())
     paths[f"checkpoint {MOE}"] = phase_checkpoint()
+    paths.update(sessions)
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)
     gmm_rep = next(r for r in gmm_rows if r["shape"] == str(expert_shapes(decode_c)[0]))

@@ -2,9 +2,13 @@
 
 A pure-Python copy of the fields of the JAX package's
 ``core/collectives.py::CollectiveCostModel`` and of the hooks the
-``cost_aware`` scheduler calls.  The constants describe the TPU machine of
-that package (ICI and DCN links), not an H100: on one card they only order
-admission, as they do there.
+``cost_aware`` scheduler and the tiered KV pool call.  The constants
+describe the TPU machine of that package (ICI and DCN links), not an H100:
+on one card they only order admission, as they do there.  The tier prices
+(``hbm_host_*``, a PCIe-class staging link; ``host_pooled_*``, a CXL-class
+far-memory fabric) are modeled prices too, not measurements of this card's
+host link: the tiered pool bills its transfers with them, and the
+calibration ledger sets them beside the walls the transfers took.
 """
 
 from __future__ import annotations
@@ -48,6 +52,24 @@ class CollectiveCostModel:
             else 0.0
         )
         return stage1 + stage2
+
+    _KV_TIERS = ("hbm", "host", "pooled")
+
+    def tier_transfer_cost(self, nbytes: float, src: str, dst: str) -> float:
+        """Modeled seconds to move ``nbytes`` of cache between memory tiers.
+        Adjacent hops are hbm<->host and host<->pooled; an hbm<->pooled move
+        pays both hops (store and forward)."""
+        order = self._KV_TIERS
+        if src not in order or dst not in order:
+            raise ValueError(f"unknown tier in {src!r} -> {dst!r}; tiers are {order}")
+        i, j = order.index(src), order.index(dst)
+        hop_bw = (self.hbm_host_bw, self.host_pooled_bw)
+        hop_lat = (self.hbm_host_latency, self.host_pooled_latency)
+        return sum(nbytes / hop_bw[h] + hop_lat[h] for h in range(min(i, j), max(i, j)))
+
+    def wakeup_cost(self, nbytes: float, tier: str = "host") -> float:
+        """Modeled seconds to page a demoted session's cache row back into HBM."""
+        return self.tier_transfer_cost(nbytes, tier, "hbm")
 
     def cold_prefill_cost(self, prompt_tokens: int) -> float:
         """Modeled seconds to build a cache by prefilling from scratch."""

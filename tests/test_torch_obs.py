@@ -3,20 +3,32 @@ train launcher's ``--trace`` and ``--metrics``: counterparts of the
 single-device tests of ``tests/test_obs.py`` (trace round trips, the inert
 ``NULL_OBS``, ``set_obs``, the registry, the calibration summary, the
 disabled path's allocation guard, provenance, log levels), the copy held
-against the JAX package's on the same inputs, and the launcher's trace
-smoke."""
+against the JAX package's on the same inputs, the launchers' trace smokes,
+and the tiered serving engine's spans, instants and calibration records
+held against the JAX engine's on the same weights."""
 
+import dataclasses
 import gc
 import json
 import os
 import tracemalloc
 
+import jax
+import numpy as np
 import pytest
 import torch
 
 from repro import obs as jax_obs
+from repro.configs.base import get_config as jax_get_config
+from repro.models import build_model as jax_build_model
+from repro.runtime import serving as jax_serving
 from repro_torch import obs as obslib
+from repro_torch.bridge import from_jax_params
+from repro_torch.configs.base import get_config
+from repro_torch.launch import serve as serve_launcher
 from repro_torch.launch import train as train_launcher
+from repro_torch.models import build_model
+from repro_torch.runtime.serving import ContinuousBatchingEngine, TierConfig
 from repro_torch.obs import NULL_OBS, NULL_SPAN, Obs, get_obs, log, provenance, set_obs
 from repro_torch.obs.calibration import CalibrationLedger, summarize_records
 from repro_torch.obs.metrics import MetricsRegistry
@@ -227,3 +239,94 @@ def test_train_launcher_trace_smoke(tmp_path, capsys):
     assert "trace written" in out.err
     metrics = json.loads(out.out[out.out.index("{"):out.out.index('{\n  "calibration"')])
     assert metrics["train.step_ms"]["count"] == 3 and metrics["train.straggler_steps"] == 0
+
+
+def _two_session_turns(engine, vocab):
+    """Two sessions, two turns each, the second waking both."""
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, vocab, (5,)).astype(np.int32) for _ in range(2)]
+    rids = [engine.submit(p, 3, session_id=i) for i, p in enumerate(prompts)]
+    out = engine.run()
+    for i in range(2):
+        engine.submit(np.concatenate([prompts[i], out[rids[i]]]), 2, session_id=i)
+    engine.run()
+
+
+def _events(ob):
+    """(span or instant name, phase) -> count, calibration kind -> count."""
+    names, kinds = {}, {}
+    for e in ob.tracer.events:
+        names[(e["name"], e["ph"])] = names.get((e["name"], e["ph"]), 0) + 1
+    for r in ob.calibration.records:
+        kinds[r.kind] = kinds.get(r.kind, 0) + 1
+    return names, kinds
+
+
+def test_tiered_serving_records_wakeup_and_tier_transfer():
+    """Two session turns through the tiered pool, in both packages on the
+    same weights: the same prefill, decode and wakeup spans, demote and
+    shed instants and cold_prefill, tier_transfer and wakeup calibration
+    records, each closed with an observed wall; every wakeup record priced
+    against the cold prefill it displaced; the pool's counters absorbed
+    into ``serve.pool.*``, last write winning."""
+    over = dict(compute_dtype="float32", remat=False, n_layers=2)
+    cfg_j = dataclasses.replace(jax_get_config("internlm2-1.8b", reduced=True), **over)
+    cfg_t = dataclasses.replace(get_config("internlm2-1.8b", reduced=True), **over)
+    mj = jax_build_model(cfg_j)
+    pj = mj.init(jax.random.PRNGKey(1))
+    mt = build_model(cfg_t, device="cpu")
+    pt = from_jax_params(cfg_t, jax.tree.map(np.asarray, pj))
+
+    ref_ob, ob = jax_obs.Obs(), Obs()
+    ref = jax_serving.ContinuousBatchingEngine(
+        mj, pj, n_slots=2, max_len=32, seed=0, policy="fcfs",
+        tiers=jax_serving.TierConfig(host_sessions=8), obs=ref_ob)
+    eng = ContinuousBatchingEngine(mt, pt, n_slots=2, max_len=32, seed=0, policy="fcfs",
+                                   tiers=TierConfig(host_sessions=8), obs=ob)
+    for e in (ref, eng):
+        _two_session_turns(e, cfg_t.vocab)
+        e.submit(np.ones((4,), np.int32), 2)
+        e.submit(np.ones((4,), np.int32), 2, deadline=-1.0)  # dropped at the next step
+        e.run(clock=lambda: 0.0)
+        e.shed_queue(0)  # nothing queued: no instant
+    assert _events(ob) == _events(ref_ob)
+    names, kinds = _events(ob)
+    assert kinds["wakeup"] == 2 and kinds["tier_transfer"] == 4 and names[("shed", "i")] == 1
+    assert {("prefill", "X"), ("decode", "X"), ("wakeup", "X"), ("demote", "i")} <= set(names)
+    for r in ob.calibration.records:
+        assert r.observed_s is not None and r.observed_s >= 0
+        if r.kind == "wakeup":
+            assert r.alternative_s is not None and r.chosen == "wakeup"
+    assert eng.metrics.wakeups == 2 and eng.metrics.deadline_drops == 1
+
+    eng.absorb_pool_metrics()
+    reg = ob.registry
+    assert reg["serve.pool.n_demote"].value == eng.pool.n_demote == 4
+    assert reg["serve.engine.wakeups"].value == 2
+    eng.absorb_pool_metrics()  # idempotent, not additive
+    assert reg["serve.pool.n_demote"].value == 4
+    ref.absorb_pool_metrics()
+    assert {k: v for k, v in reg.as_dict().items() if k.startswith("serve.pool.")} == \
+        {k: v for k, v in ref_ob.registry.as_dict().items() if k.startswith("serve.pool.")}
+
+
+def test_serve_launcher_tiered_trace_smoke(tmp_path, capsys):
+    """``--tiered --turns 2 --trace --metrics`` at ``--reduced`` on the CPU:
+    the tiers line, a trace with prefill, decode and wakeup spans and demote
+    instants (with the JSONL beside it), and the metrics with the pool's
+    counters absorbed."""
+    trace = tmp_path / "serve_trace.json"
+    serve_launcher.main(["--reduced", "--device", "cpu", "--tiered", "--turns", "2",
+                         "--requests", "4", "--slots", "2", "--prompt-len", "8",
+                         "--new-tokens", "4", "--host-sessions", "2", "--pooled-sessions", "1",
+                         "--trace", str(trace), "--metrics"])
+    names = {e["name"] for e in load_chrome(str(trace))}
+    assert {"prefill", "decode", "wakeup", "demote"} <= names
+    assert (tmp_path / "serve_trace.jsonl").exists()
+    out = capsys.readouterr()
+    assert "trace written" in out.err
+    tiers = next(line for line in out.out.splitlines() if line.startswith("tiers:"))
+    assert "demotions=8" in tiers and "wakeups=3" in tiers and "cold_resumes=1" in tiers
+    metrics = json.loads(out.out[out.out.index("{"):out.out.index('{\n  "calibration"')])
+    assert metrics["serve.pool.n_demote"] == 8 and metrics["serve.engine.wakeups"] == 3
+    assert metrics["serve.pool.n_drop"] >= 1

@@ -24,6 +24,7 @@ from repro_torch.core import CollectiveCostModel
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
+from repro_torch.obs import Obs
 from repro_torch.runtime.serving import (
     SHED,
     ContinuousBatchingEngine,
@@ -33,6 +34,9 @@ from repro_torch.runtime.serving import (
     Scheduler,
     SchedulerConfig,
     ServingEngine,
+    SessionRecord,
+    TierConfig,
+    TieredKVPool,
 )
 
 
@@ -241,21 +245,69 @@ def test_one_shot_engine_matches_reference_greedy_streams(pair):
     np.testing.assert_array_equal(got, want)
 
 
+def _default(value):
+    """A default as the test compares it: a dataclass instance (the pools'
+    ``TierConfig()``) by its class name and fields."""
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return type(value).__name__, dataclasses.asdict(value)
+    return value
+
+
 def _params_of(fn):
     """(name, default) of every parameter after ``self``."""
-    return [(p.name, p.default) for p in list(inspect.signature(fn).parameters.values())[1:]]
+    return [(p.name, _default(p.default))
+            for p in list(inspect.signature(fn).parameters.values())[1:]]
 
 
-@pytest.mark.parametrize("port,ref", [
-    (ContinuousBatchingEngine.__init__, jax_serving.ContinuousBatchingEngine.__init__),
-    (ContinuousBatchingEngine.submit, jax_serving.ContinuousBatchingEngine.submit),
-    (Model.prefill, JaxModel.prefill),
-    (Model.decode_step, JaxModel.decode_step),
-    (Model.train_loss, JaxModel.train_loss),
-], ids=["engine", "submit", "prefill", "decode_step", "train_loss"])
+_ENGINE, _JAX_ENGINE = ContinuousBatchingEngine, jax_serving.ContinuousBatchingEngine
+_SIGNATURES = {
+    "engine": (_ENGINE.__init__, _JAX_ENGINE.__init__),
+    "submit": (_ENGINE.submit, _JAX_ENGINE.submit),
+    "prefill": (Model.prefill, JaxModel.prefill),
+    "decode_step": (Model.decode_step, JaxModel.decode_step),
+    "train_loss": (Model.train_loss, JaxModel.train_loss),
+    "shed_queue": (_ENGINE.shed_queue, _JAX_ENGINE.shed_queue),
+    "absorb_pool_metrics": (_ENGINE.absorb_pool_metrics, _JAX_ENGINE.absorb_pool_metrics),
+    "run": (_ENGINE.run, _JAX_ENGINE.run),
+    "admission_cost": (Scheduler.admission_cost, jax_serving.Scheduler.admission_cost),
+}
+for _name in ("__init__", "write", "extract", "insert", "extract_all", "insert_all",
+              "allocate", "free", "active_slots", "check"):
+    _SIGNATURES[f"KVPool.{_name}"] = (getattr(KVPool, _name), getattr(jax_serving.KVPool, _name))
+for _name in ("__init__", "demote", "promote", "claim_dropped", "adopt", "session_tier",
+              "lookup"):
+    _SIGNATURES[f"TieredKVPool.{_name}"] = (getattr(TieredKVPool, _name),
+                                            getattr(jax_serving.TieredKVPool, _name))
+
+
+@pytest.mark.parametrize("port,ref", list(_SIGNATURES.values()), ids=list(_SIGNATURES))
 def test_entry_points_take_the_reference_signature(port, ref):
     """The reference's parameters, in its order, with its defaults."""
     assert _params_of(port) == _params_of(ref)
+
+
+@pytest.mark.parametrize("port,ref", [(Request, jax_serving.Request),
+                                      (TierConfig, jax_serving.TierConfig),
+                                      (SessionRecord, jax_serving.SessionRecord)],
+                         ids=["Request", "TierConfig", "SessionRecord"])
+def test_records_take_the_reference_fields(port, ref):
+    """The dataclasses' fields in the reference's order with its defaults,
+    so that a positional construction means the same (C3: ``session_id``
+    is ``Request``'s eighth field, ``deadline`` its ninth)."""
+    def fields(cls):
+        return [(f.name, f.default, f.default_factory) for f in dataclasses.fields(cls)]
+
+    assert fields(port) == fields(ref)
+    assert public_properties(port) == public_properties(ref)
+    if port is Request:
+        args = (3, np.ones((4,), np.int32), 5, 0.5, 2, 1.0, 7.0, 11, 9.0)
+        a, b = port(*args), ref(*args)
+        assert (a.session_id, a.deadline) == (b.session_id, b.deadline) == (11, 9.0)
+        assert a.sample_rid is None and a.idx_base == 0 and a.resume_bytes == 0
+
+
+def public_properties(cls):
+    return sorted(k for k, v in vars(cls).items() if isinstance(v, property))
 
 
 def test_engines_take_the_reference_parameter_order(pair):
@@ -266,8 +318,9 @@ def test_engines_take_the_reference_parameter_order(pair):
     pad_id, temperature, seed) and (prompts, max_new_tokens, temperature,
     eos_id); submit (..., now, session_id, deadline); prefill (params,
     batch, impl, mesh, last_pos); decode_step (params, caches, tokens, pos,
-    impl, mesh, ragged).  What is not ported raises: a mesh, audit, tiers,
-    obs, a session id, an impl that is neither "xla" nor "pallas"."""
+    impl, mesh, ragged).  audit, tiers, obs and a session id are taken in
+    their places; what is not ported raises: a mesh, an impl that is
+    neither "xla" nor "pallas"."""
     mj, pj, mt, pt = pair
     rng = np.random.default_rng(8)
     prompts = _prompts(rng, mt.cfg.vocab, [5, 9, 13, 3])
@@ -290,16 +343,24 @@ def test_engines_take_the_reference_parameter_order(pair):
     eng = ContinuousBatchingEngine(mt, pt, 3, 48, None, None, None, "fcfs", 0, 0, 8, False,
                                    None, 1, None)
     assert eng.max_queue_depth == 1 and eng.min_prompt_bucket == 8
-    for i, value in ((11, True), (12, object()), (14, object())):  # audit, tiers, obs
+    assert not eng.audit_enabled and not eng.pool.tiered and eng.tiers is None
+    # audit (12th), tiers (13th) and obs (15th) in their places, and taken
+    ob = Obs()
+    for i, value, took in (
+            (11, True, lambda e: e.audit_enabled and e.audit == []),
+            (12, TierConfig(2, 3), lambda e: e.pool.tiered and e.pool.tiers == TierConfig(2, 3)),
+            (14, ob, lambda e: e.metrics.registry is ob.registry)):
         args = [mt, pt, 3, 48, None, None, None, "fcfs", 0, 0, 8, False, None, None, None]
         args[i] = value
-        with pytest.raises(NotImplementedError, match="A5"):
-            ContinuousBatchingEngine(*args)
+        assert took(ContinuousBatchingEngine(*args))
     # submit's tail: (..., now, session_id, deadline)
     rid = eng.submit(prompts[0], 4, 0.0, None, None, None, 1.0, None, 2.5)
     assert eng.requests[rid].deadline == 2.5 and eng.requests[rid].t_submit == 1.0
-    with pytest.raises(NotImplementedError, match="session_id"):
-        eng.submit(prompts[0], 4, 0.0, None, None, None, 1.0, 7)
+    tiered = ContinuousBatchingEngine(mt, pt, 3, 48, tiers=TierConfig())
+    rid = tiered.submit(prompts[0], 4, 0.0, None, None, None, 1.0, 7)
+    assert tiered.requests[rid].session_id == 7 and tiered.requests[rid].deadline is None
+    tiered.run()
+    assert tiered.pool.session_tier(7) == "host"
 
     # prefill and decode_step: impl and mesh before last_pos and ragged
     toks = torch.as_tensor(np.stack([np.pad(p, (0, 13 - len(p))) for p in prompts]))
@@ -468,6 +529,11 @@ def test_launcher_runs_on_cpu(capsys):
     serve.main(["--reduced", "--device", "cpu", "--one-shot", "--batch", "2",
                 "--prompt-len", "8", "--new-tokens", "3"])
     assert "generated 6 tokens" in capsys.readouterr().out
+    # a deadline that passes before the first step: every request dropped
+    serve.main(["--reduced", "--device", "cpu", "--requests", "3", "--slots", "2",
+                "--prompt-len", "12", "--new-tokens", "4", "--deadline-s", "1e-9"])
+    out = capsys.readouterr().out
+    assert "served 3 ragged requests / 0 tokens" in out and "prefills=0" in out
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "olmoe-1b-7b"])
@@ -544,3 +610,106 @@ def test_launcher_serves_mamba2_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "served 3 ragged requests" in out and "prefills=3" in out
     assert "mamba2-1.3b: 4 layers" in out
+
+
+# ---------------------------------------------------------------- serving control
+def _control_scenario(name, engine_cls, model, params, vocab):
+    """One of the reference's shedding scenarios (``tests/test_serving.py``)
+    on ``engine_cls``; returns what the test compares."""
+    rng = np.random.default_rng(9)
+    if name == "deadline":
+        eng = engine_cls(model, params, n_slots=2, max_len=32, policy="fcfs", seed=0)
+        p_live, p_dead = _prompts(rng, vocab, [4, 4])
+        r_live = eng.submit(p_live, 3)
+        r_dead = eng.submit(p_dead, 3, deadline=1.0)
+        out = eng.run(clock=lambda: 5.0)  # virtual now is past the deadline
+        rids = [r_live, r_dead]
+    elif name == "shed_queue":
+        eng = engine_cls(model, params, n_slots=1, max_len=32, policy="fcfs", seed=0)
+        rids = [eng.submit(p, 2) for p in _prompts(rng, vocab, [4] * 5)]
+        shed = (eng.shed_queue(keep_depth=2), eng.shed_queue(keep_depth=2))
+        assert shed == (3, 0)  # the newest three, then nothing at the floor
+        out = eng.run()
+    else:  # a rejected tiered submit reserves no session
+        tiers = (TierConfig() if engine_cls is ContinuousBatchingEngine
+                 else jax_serving.TierConfig())
+        eng = engine_cls(model, params, n_slots=1, max_len=32, seed=0, tiers=tiers,
+                         max_queue_depth=1)
+        p = np.ones((4,), np.int32)
+        rids = [eng.submit(p, 2, session_id=0), eng.submit(p, 2, session_id=1)]
+        eng.run()
+        rids.append(eng.submit(p, 2, session_id=1))  # legal: never reserved
+        out = eng.run()
+    m = eng.metrics
+    return ([eng.requests[r].state for r in rids], {r: out[r].tolist() for r in out},
+            (m.rejected, m.deadline_drops, m.shed_tokens, eng.pool.n_alloc, eng.pool.n_evict,
+             len(eng.queue)))
+
+
+@pytest.mark.parametrize("name", ["deadline", "shed_queue", "rejected_session"])
+def test_shedding_matches_reference(pair, name):
+    """Deadline drops, ``shed_queue`` turning the newest arrivals away, and
+    a rejected submit that reserves no session: the states, streams and
+    counters of the port's engine equal the reference engine's."""
+    mj, pj, mt, pt = pair
+    want = _control_scenario(name, jax_serving.ContinuousBatchingEngine, mj, pj, mt.cfg.vocab)
+    got = _control_scenario(name, ContinuousBatchingEngine, mt, pt, mt.cfg.vocab)
+    assert got == want
+    if name == "shed_queue":
+        assert got[0] == ["finished"] * 2 + [SHED] * 3 and got[2][0] == 3
+
+
+def test_pause_and_resume_admission(tiny):
+    """Paused, the engine admits nothing: ``run`` returns with nothing
+    active and the queue intact; requests already decoding go on to their
+    end.  Resumed, the queue drains."""
+    model, params = tiny
+    rng = np.random.default_rng(12)
+    prompts = _prompts(rng, model.cfg.vocab, [5, 7, 6])
+    eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=32, policy="fcfs")
+    first = eng.submit(prompts[0], 4)
+    eng.step()
+    assert [r.rid for r in eng.active_requests()] == [first]
+    eng.pause_admission()
+    queued = [eng.submit(p, 3) for p in prompts[1:]]
+    out = eng.run()
+    assert set(out) == {first} and len(out[first]) == 4
+    assert eng.active_requests() == [] and len(eng.queue) == 2
+    assert all(eng.requests[r].state == "queued" for r in queued)
+    assert eng.pool.n_alloc == 1
+    eng.resume_admission()
+    out = eng.run()
+    assert set(out) == {first, *queued} and len(eng.queue) == 0
+    eng.pool.check()
+
+
+def test_absorb_pool_metrics_updates_in_place(tiny):
+    """``serve.pool.*`` counters from the live pool, in the engine's
+    registry (or a given one); absorbing again overwrites, never adds."""
+    model, params = tiny
+    ob = Obs()
+    eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=32,
+                                   tiers=TierConfig(host_sessions=1, pooled_sessions=1), obs=ob)
+    p = np.arange(1, 6, dtype=np.int32)
+    eng.submit(p, 2, session_id=0)
+    eng.submit(p + 1, 2, session_id=1)
+    eng.run()
+    eng.absorb_pool_metrics()
+    reg = ob.registry
+    pool = eng.pool
+    assert eng.metrics.registry is reg and reg["serve.engine.demotions"].value == 2
+    for name in ("n_slots", "n_alloc", "n_evict", "high_water", "n_demote", "n_promote",
+                 "n_spill", "n_refill", "n_drop", "modeled_tier_s", "resident_sessions",
+                 "demoted_sessions"):
+        assert reg[f"serve.pool.{name}"].value == getattr(pool, name)
+    assert reg["serve.pool.n_spill"].value == 1
+    eng.absorb_pool_metrics()
+    assert reg["serve.pool.n_demote"].value == 2
+    eng.submit(p + 2, 2)
+    eng.run()
+    eng.absorb_pool_metrics()
+    assert reg["serve.pool.n_alloc"].value == 3 and reg["serve.pool.n_demote"].value == 2
+    plain = ContinuousBatchingEngine(model, params, n_slots=2, max_len=32)
+    other = Obs().registry
+    plain.absorb_pool_metrics(other)
+    assert "serve.pool.n_demote" not in other and other["serve.pool.n_slots"].value == 2
