@@ -19,7 +19,11 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    groups of 1 to 8, every head dim, q/k/v as views of a fused buffer), and
    at the train shapes of internlm2-1.8b, granite-moe-1b-a400m and
    jamba-v0.1-52b (B 8 x S 256; fp32 B 2 x S 128), and at internlm2's
-   prefill groups in fp32 (phase 8's cold resumes).  The
+   prefill groups in fp32 (phase 8's cold resumes), and at phase 9's shapes:
+   phi-3-vision-4.2b (32 heads over 32 KV heads of 96) in every prefill
+   group, its frontend prefill (B 2 x S 832) and its train shapes, and
+   seamless-m4t-large-v2's decoder (16 over 16 of 64) in its prefill (B 4
+   x S 64) and its train shapes.  The
    grouped matmul, its forward and both backward products (dx = g w^T and
    dw = x^T g, the transposed operand read in place), at the shapes of the
    JAX package's sweep, at ragged capacities around its tiles (1 to 2560),
@@ -55,7 +59,9 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    no single PyTorch call computes the SSD scan), the kernel-to-library
    ratio and the least time the card could take (bound); the grouped
    matmul's dx and dw at granite's and jamba's train shapes; jamba's flash
-   attention at its longest prompt and the 4 x 512 batch, grouped matmul at
+   attention at its longest prompt and the 4 x 512 batch, phi-3-vision's
+   at its frontend prefill and the 4 x 512 batch and seamless's at its
+   prefill, grouped matmul at
    decode (C 2) and at the batch (C 320), and SSD scan at its longest
    prompt and its train shape; the SSD scan at all nine served mamba2
    shapes; the SSD backward at mamba2's and jamba's train shapes on the
@@ -65,9 +71,10 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 4. the three main paths at full width (random weights from a seed, bf16),
    each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
-   ``ServingEngine``: internlm2-1.8b (dense, 24 layers), granite-moe-1b-a400m
-   (MoE, 24 layers, expert FFNs through the grouped matmul), then
-   mamba2-1.3b (48 SSM layers, each prefill through the SSD scan, every
+   ``ServingEngine``, each at half its depth (``EARLIER_LAYERS``):
+   internlm2-1.8b (dense, 12 of 24 layers), granite-moe-1b-a400m
+   (MoE, 12 of 24 layers, expert FFNs through the grouped matmul), then
+   mamba2-1.3b (24 of 48 SSM layers, each prefill through the SSD scan, every
    prompt prefilled alone at its exact length), then jamba-v0.1-52b cut to
    one pattern period of 8 layers (7 Mamba-2 layers, one attention layer,
    4 MoE FFNs of 16 experts top-2, 13.27 B parameters; all three kernels,
@@ -82,8 +89,9 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    prefill of one 866-token prompt at full width, cut to 4 layers, through
    the SSD kernel against the same model with the plain ``ssd_chunked`` in
    every layer, within the port's whole-model bf16 bound (5e-2 + 2e-2
-   relative); and the wall and device busy time of that prefill at all 48
-   layers, with the SSD kernel's part;
+   relative); and the wall and device busy time of that prefill at 24
+   layers, with the SSD kernel's part; each path's decode profiled over 6
+   engine steps;
 5. card against CPU: each model cut to 2 layers in fp32 (jamba: layer 0
    Mamba-2 with a dense FFN, layer 1 attention with MoE, 3.675 B
    parameters), prefill and 8 ragged decode steps on both; greedy tokens
@@ -93,18 +101,21 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    ``attention_backward`` and against autograd through the plain
    ``reference_attention`` on the card, and the forward kernel's logsumexp
    rows against the plain ``attention_forward``'s: at the train shapes of
-   internlm2-1.8b (D 128), granite-moe-1b-a400m (D 64) and jamba-v0.1-52b
-   (H 32 over KV 8, D 128, no RoPE), a windowed
+   internlm2-1.8b (D 128), granite-moe-1b-a400m (D 64), jamba-v0.1-52b
+   (H 32 over KV 8, D 128, no RoPE), phi-3-vision-4.2b (H 32 over KV 32,
+   D 96) and seamless-m4t-large-v2's decoder (H 16 over KV 16, D 64), a
+   windowed
    shape, qwen3-32b's group of 8 query heads per kv head, a ragged S, a
    non-causal shape, every head dim, fused-qkv views, and in fp32 at the
    card-vs-CPU train shapes; the grouped matmul's and the expert FFN's
    gradients (every product through the kernel, the transposed operands
    read in place) against autograd through the plain versions, in bf16 and
-   fp32; at the three train shapes flash's forward (without and with its
+   fp32; at the five train shapes flash's forward (without and with its
    logsumexp rows) beside SDPA's, and its backward kernel beside
    ``attention_backward``, the old recompute (autograd through
    ``reference_attention``) and SDPA's backward, each with its bound; then
-   internlm2-1.8b, granite-moe-1b-a400m and mamba2-1.3b at full width, and
+   internlm2-1.8b, granite-moe-1b-a400m and mamba2-1.3b at full width and
+   phase 4's depth, and
    jamba-v0.1-52b at full width cut to 2 layers (layer 0 Mamba-2 with a
    dense FFN, layer 1 attention with MoE: 3.675 B parameters; the whole
    8-layer period would need about 212 GB at 16 bytes a parameter), bf16
@@ -120,7 +131,7 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    bit-identical, step wall,
    tokens/s, peak memory and one profiled step; then each model cut to 2
    layers in fp32 (jamba's with 4 of its 16 experts, every width kept: the
-   host holds both runs' state) trained 3 steps on the card and on the
+   host holds both runs' state) trained 2 steps on the card and on the
    CPU, gradients within 1e-4 of each leaf's largest value, losses within
    1e-4 relative and params within 1e-4;
 7. checkpoints and restarts: granite-moe-1b-a400m cut to 2 layers at full
@@ -131,7 +142,8 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    final state passes ``verify_checkpoint``; the bytes and seconds of a
    save and a restore (the directory, under ``build/``, is removed);
 8. multi-turn sessions through the tiered KV pool, on phase 4's weights
-   right after their path (internlm2-1.8b's and jamba-v0.1-52b's): the
+   right after their path (internlm2-1.8b's 12 layers and jamba-v0.1-52b's
+   period): the
    same 8 prompts, greedy, as sessions of two turns of 16 tokens (the
    second turn resubmits each history), each run held bit for bit against
    a never-demoted run of the prompts for 32 tokens on as many slots.
@@ -150,11 +162,35 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    modeled prices, ``extract_all`` of 4 rows against 4 ``extract`` calls
    (and ``insert_all`` against ``insert``), each with the card's name and
    power limit;
-9. a JSON line of the kernels (the flash and SSD backwards beside the
-   three forward kernels; the SSD backward's launches by route and its FMA
-   route's time beside; launches by path, the train paths, the
-   checkpoint phase and the session paths among them), and as the last
-   line ``{"ok": true, "device": {...}}``.
+9. the MLA, vision-frontend and encoder-decoder families at full width, bf16, random
+   weights from seed 0: minicpm3-4b (62 layers of multi-head latent
+   attention, 4.26 B parameters) served as phase 4 serves (its path
+   launches no kernel: the reference runs MLA outside its kernels) and
+   through phase 8's two-turn sessions (4 host, 4 pooled, bit-identical to
+   a never-demoted run; its row bytes); phi-3-vision-4.2b (32 layers) served
+   on text as phase 4 serves (flash 32 times per prefill group), then
+   ``Model.prefill`` on 2 rows of 576 patch rows of width 1024 and 256
+   text tokens and 32 greedy ``decode_step``s; seamless-m4t-large-v2 (24
+   encoder and 24 decoder layers), whose engines refuse it with the
+   reference's messages, through ``Model.prefill`` on 4 rows of 512
+   encoder frames of width 160 and a 64-token prompt (flash 24 times,
+   the decoder's self-attention) and 32 greedy decode steps; both
+   prefills through the kernel against the plain version on the same
+   weights (logits within phase 4's bound; on every row the plain logit
+   at the kernel's greedy token within twice the row's gap of the plain
+   maximum, and the tokens equal where the plain top-2 margin exceeds
+   twice the gap); each model cut to 2
+   layers (seamless 2 + 2) in fp32 on the card against the CPU, 16 greedy
+   steps, and one gradient pass held to phase 6's rule (each leaf within
+   1e-4 of its largest value); and each trained 8 steps as phase
+   6 trains (minicpm3 and phi-3-vision cut to 8 layers, seamless whole;
+   phi-3-vision's batches carry 128 frontend rows, seamless's 256 encoder
+   frames), with the launches, peak memory and a step profile;
+10. the walls by phase and path, a JSON line of the kernels (the flash and SSD
+   backwards beside the three forward kernels; the SSD backward's launches
+   by route and its FMA route's time beside; launches by path, the train
+   paths, the checkpoint phase, the session paths and phase 9's paths
+   among them), and as the last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
 """
@@ -228,11 +264,29 @@ BF16_LOGITS_ATOL, BF16_LOGITS_RTOL = 5e-2, 2e-2
 FP32_LOGITS_BOUND = 1e-3
 DENSE, MOE, SSM = "internlm2-1.8b", "granite-moe-1b-a400m", "mamba2-1.3b"
 ARCHS = (DENSE, MOE, SSM)
+# phase 9: the MLA, vision-frontend and encoder-decoder families
+MLA, VLM, ENCDEC = "minicpm3-4b", "phi-3-vision-4.2b", "seamless-m4t-large-v2"
+FAMILIES = (MLA, VLM, ENCDEC)
+# phase 9's training cuts: minicpm3 (4.26 B parameters) and phi-3-vision
+# (3.82 B) need 68 and 61 GB of fp32 params and AdamW moments at full
+# depth, before activations; seamless (2.04 B, 33 GB) trains whole
+FAMILY_TRAIN_LAYERS = {MLA: 8, VLM: 8, ENCDEC: None}
+# phi-3-vision's frontend prefill: 576 patch rows of width 1024, then 256
+# text tokens (S 832), 2 rows; seamless's: 512 encoder frames of width 160
+# and a 64-token decoder prompt, 4 rows; then greedy decode steps
+VLM_PATCHES, VLM_TEXT, VLM_ROWS = 576, 256, 2
+ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_ROWS = 512, 64, 4
+FAMILY_DECODE_STEPS = 32
 # the hybrid, served at full width cut to one pattern period of its 32
 # layers: 13.27 B parameters, 26.5 GB in bf16 (the whole model does not fit
 # one card)
 HYBRID = "jamba-v0.1-52b"
 HYBRID_LAYERS = 8
+# phases 4, 6 and 8 run the three one-family models at half their depth,
+# every width kept (internlm2-1.8b and granite-moe-1b-a400m 12 of 24
+# layers, mamba2-1.3b 24 of 48), so that the whole script stays near 11
+# minutes beside phase 9
+EARLIER_LAYERS = {DENSE: 12, MOE: 12, SSM: 24}
 KERNELS = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel, "ssd_scan": ssd_kernel}
 # launch counters by kernel: each backward is a kernel of its forward's
 # library with a counter of its own
@@ -259,7 +313,7 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 8, 1e-3
 # devices can flip its step: at 1e-3 the params drifted 1.1e-4 apart (104 of
 # 505 M elements over 1e-5) while the losses agreed within 1e-7 (PERF.md
 # section 6)
-TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS, TRAIN_CPU_LR = 2, 128, 3, 3e-4
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, TRAIN_CPU_STEPS, TRAIN_CPU_LR = 2, 128, 2, 3e-4
 # relative on the losses and on each gradient leaf's largest value; max abs
 # on the params
 TRAIN_CPU_TOL = 1e-4
@@ -295,6 +349,17 @@ GMM_LAYOUTS = ("fwd", "dx", "dw")  # a layer's forward product and its two backw
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def wall_marks():
+    """(mark, walls): ``mark(what)`` appends (what, the seconds since the
+    previous mark) to ``walls``."""
+    t0, walls = time.perf_counter(), []
+
+    def mark(what: str) -> None:
+        walls.append((what, time.perf_counter() - t0 - sum(w for _, w in walls)))
+
+    return mark, walls
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -684,7 +749,8 @@ def _check(name: str, shape, out, ref, tol: float, phase: int = 2) -> float:
 def phase_check_flash() -> tuple[float, set[Shape]]:
     """Flash kernel against its plain version; returns the max error at the
     main-path shapes and the main-path shapes checked."""
-    main = [sh for arch in (DENSE, MOE, HYBRID) for sh in main_flash_shapes(arch)]
+    main = family_flash_shapes()
+    main += [sh for arch in (DENSE, MOE, HYBRID) for sh in main_flash_shapes(arch)]
     main += profile_shapes(HYBRID)[0] + session_flash_shapes()
     main += [train_shape(dt, b, s, arch) for arch in (DENSE, MOE, HYBRID)
              for dt, b, s in ((torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ),
@@ -706,6 +772,20 @@ def phase_check_flash() -> tuple[float, set[Shape]]:
         del q, k, v, out, ref
         torch.cuda.empty_cache()
     return main_err, set(main)
+
+
+def family_flash_shapes() -> list[Shape]:
+    """Every flash shape of phase 9's paths, new to the kernel on a main
+    path: phi-3-vision (32 heads over 32 KV heads of 96) in its served
+    prefill groups, its frontend prefill (B 2, S 832) and its train
+    forward, and seamless's decoder (16 over 16 of 64) in its prefill (B 4,
+    S 64) and its train forward; the train shapes in fp32 too (the
+    card-vs-CPU runs' B 2 x S 128, where the greedy run prefills too)."""
+    shapes = main_flash_shapes(VLM) + [main_shape(VLM_ROWS, VLM_PATCHES + VLM_TEXT, VLM),
+                                       main_shape(ENCDEC_ROWS, ENCDEC_PROMPT, ENCDEC)]
+    return shapes + [train_shape(dt, b, s, arch) for arch in (VLM, ENCDEC)
+                     for dt, b, s in ((torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ),
+                                      (torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))]
 
 
 def flash_edges(dt):
@@ -791,6 +871,10 @@ def phase_time_flash() -> list[dict]:
                Shape(2, 128, 16, 8, 128, torch.float32)]
     # jamba: the longest prompt served alone, and the one-shot batch
     shapes += [main_shape(1, longest_prompt(), HYBRID), main_shape(4, 512, HYBRID)]
+    # phase 9: phi-3-vision's frontend prefill and one-shot batch (D 96, no
+    # grouping), seamless's decoder prefill
+    shapes += [main_shape(VLM_ROWS, VLM_PATCHES + VLM_TEXT, VLM), main_shape(4, 512, VLM),
+               main_shape(ENCDEC_ROWS, ENCDEC_PROMPT, ENCDEC)]
     for shape in shapes:
         q, k, v = shape.inputs(seed=1)
         kern = lambda: fa_ops.flash_attention(q, k, v, causal=shape.causal,  # noqa: E731
@@ -1099,9 +1183,13 @@ def phase_time_ssd() -> list[dict]:
 
 
 def layer_kinds(cfg) -> tuple[int, int, int]:
-    """(attention layers, MoE layers, SSM layers)."""
-    n_attn = sum(cfg.layer_is_attention(i) for i in range(cfg.n_layers))
-    return n_attn, sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)), cfg.n_layers - n_attn
+    """(GQA attention layers, MoE layers, SSM layers) of the decoder: the
+    layers of the flash kernel, the grouped matmul and the SSD scan.  MLA
+    layers are none of them (the reference runs MLA outside its kernels),
+    nor are an encoder's (its attention is bidirectional and plain)."""
+    kinds = [tf.mixer_kind(cfg, i) for i in range(cfg.n_layers)]
+    return (kinds.count("attn"), sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers)),
+            kinds.count("ssm"))
 
 
 def expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
@@ -1137,8 +1225,13 @@ def init_loaded(model, seed: int = 0) -> dict:
            "final_norm": zeros_init(gen, (cfg.d_model,), dtype)}
     if not cfg.tie_embeddings:
         top["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab), dtype)
+    if cfg.frontend is not None:
+        top["frontend_proj"] = dense_init(gen, (cfg.frontend.d_frontend, cfg.d_model), dtype)
     params = model.load(top)
     del top
+    if cfg.enc_dec:
+        params["encoder"] = [model.load(tf.encoder_block_init(gen, cfg, dtype))
+                             for _ in range(cfg.n_encoder_layers)]
     params["layers"] = [model.load(tf.block_init(gen, cfg, i, dtype))
                         for i in range(cfg.n_layers)]
     return params
@@ -1146,7 +1239,7 @@ def init_loaded(model, seed: int = 0) -> dict:
 
 def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape],
                 ssd_checked: set[SsdShape], n_layers: int | None = None,
-                sessions: dict | None = None) -> dict:
+                sessions: dict | None = None, phase: int = 4) -> dict:
     """One main path at full width (cut to ``n_layers`` layers when given);
     returns the launches it made by kernel.  Fails if a launch count does
     not match the path, or if the path ran a kernel at a shape phase 2 did
@@ -1167,7 +1260,7 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     n_attn, n_moe, n_ssm = layer_kinds(cfg)
-    log(f"phase 4 init: {cfg.name} {cfg.n_layers} layers{cut} ({n_attn} attention, {n_ssm} "
+    log(f"phase {phase} init: {cfg.name} {cfg.n_layers} layers{cut} ({n_attn} attention, {n_ssm} "
         f"SSM, {n_moe} MoE), {n_params / 1e9:.3f} B params, {cfg.compute_dtype} on "
         f"{model.device} in {time.perf_counter() - t0:.1f} s (built a layer at a time), "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -1227,35 +1320,45 @@ def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape]
         raise SystemExit("non-finite logits at full width")
 
     walls = ", ".join(f"{g}x{b}: {1e3 * s:.1f}" for g, b, s in m.prefill_walls)
+    row_bytes = {nm: nb for nm, _, nb, _ in engine.pool._layout}
     dec = np.array([s for _, s in m.decode_walls]) * 1e3
     toks = sum(len(o) for o in outs)
-    log(f"phase 4 serve {cfg.name} continuous: {len(prompts)} requests (prompts "
+    log(f"phase {phase} serve {cfg.name} continuous: {len(prompts)} requests (prompts "
         f"{lens.min()}-{lens.max()}), {toks} tokens in {cb_s:.3f} s = {toks / cb_s:.1f} tok/s; "
         f"{m.prefills} prefills, {m.decode_steps} decode steps; launches {cb} "
         f"(per prefill {expected_launches(cfg, 1, 0)}, per decode step "
-        f"{expected_launches(cfg, 0, 1)})")
-    log(f"phase 4 {cfg.name} prefill ms per group (rows x tokens: ms): {walls}")
-    log(f"phase 4 {cfg.name} decode ms per step: median {np.median(dec):.2f}, mean "
+        f"{expected_launches(cfg, 0, 1)}); a KV row {sum(row_bytes.values()) / 1e6:.3f} MB ("
+        + ", ".join(f"{nm} {nb / 1e6:.3f}" for nm, nb in row_bytes.items()) + " MB)")
+    if not any(launches.values()):  # MLA: the reference runs it outside its kernels
+        log(f"phase {phase} {cfg.name}: no kernel launched on the path ok ({cfg.attn_type} "
+            "attention in plain PyTorch, as the JAX package computes it outside any Pallas "
+            "kernel)")
+    log(f"phase {phase} {cfg.name} prefill ms per group (rows x tokens: ms): {walls}")
+    log(f"phase {phase} {cfg.name} decode ms per step: median {np.median(dec):.2f}, mean "
         f"{dec.mean():.2f}, min {dec.min():.2f}, max {dec.max():.2f} (host clock, ends in a sync)")
-    log(f"phase 4 serve {cfg.name} one-shot: 4 x 512 prompt, {one.size} tokens in {one_s:.3f} s"
+    log(f"phase {phase} serve {cfg.name} one-shot: 4 x 512 prompt, {one.size} tokens in "
+        f"{one_s:.3f} s"
         f" = {one.size / one_s:.1f} tok/s; max_memory_allocated {peak_gb:.2f} GiB; "
         f"launches of both runs {launches}")
-    profile_decode(cfg.name, engine, prompts)
+    profile_decode(cfg.name, engine, prompts, phase=phase)
     if arch == HYBRID:
         check_prefill_vs_plain(model, params, longest_prompt())
     del engine, one_shot
     if sessions is not None:
         torch.cuda.empty_cache()
         sessions[f"sessions {arch}"] = phase_sessions(arch, model, params, flash_checked,
-                                                      gmm_checked, ssd_checked)
+                                                      gmm_checked, ssd_checked,
+                                                      phase=8 if phase == 4 else phase)
     del params, model
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_decode(name: str, engine, prompts, steps: int = 12) -> None:
+def profile_decode(name: str, engine, prompts, steps: int = 6, phase: int = 4) -> None:
     """Device busy share of decode: 4 slots decoding, ``steps`` engine steps
-    under torch.profiler (after the launch counts were read)."""
+    under torch.profiler (after the launch counts were read), and the host
+    seconds the profile took, its summary included."""
+    t_prof = time.perf_counter()
     for p in prompts[:4]:
         engine.submit(p[:PROFILE_PROMPT], steps + 2)
     engine.step()  # admission and the first decode step stay outside the window
@@ -1273,15 +1376,17 @@ def profile_decode(name: str, engine, prompts, steps: int = 12) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     if busy_ms == 0:
-        log(f"phase 4 {name} decode profile: the profiler saw no device time (not measured)")
+        log(f"phase {phase} {name} decode profile: the profiler saw no device time (not measured)")
         return
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"phase 4 {name} decode profile: {steps} steps of 4 rows, wall {wall_ms / steps:.2f} "
+    t_prof = time.perf_counter() - t_prof
+    log(f"phase {phase} {name} decode profile: {steps} steps of 4 rows, wall {wall_ms / steps:.2f} "
         f"ms/step, device busy {busy_ms / steps:.2f} ms/step = {100 * busy_ms / wall_ms:.1f}% "
         f"(idle {100 - 100 * busy_ms / wall_ms:.1f}%), "
         f"{sum(e.count for e in events) / steps:.0f} kernels/step; top device time: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / steps:.3f} ms/step "
-                    f"x{e.count // steps}" for e in top))
+                    f"x{e.count // steps}" for e in top)
+        + f"; profiled and summarised in {t_prof:.1f} s (host clock)")
 
 
 def plain_expert_ffn(params: dict, buckets: torch.Tensor) -> torch.Tensor:
@@ -1433,12 +1538,12 @@ def phase_ssm_prefill_vs_plain(seq: int = 866, layers: int = 4) -> None:
 
 
 def phase_prefill_profile(seq: int = 866, reps: int = 3) -> None:
-    """mamba2-1.3b at full width in bf16, one prompt of ``seq`` tokens: the
-    wall of a prefill (host clock, ends in a sync; mean of ``reps``), then
+    """mamba2-1.3b at full width in bf16, cut to phase 4's depth, one prompt
+    of ``seq`` tokens: the wall of a prefill (host clock, ends in a sync; mean of ``reps``), then
     under torch.profiler its device busy time and the SSD kernel's part.
     The prefill is host-bound, so the device time is what the SSD kernel
     can move."""
-    cfg = get_config(SSM)
+    cfg = dataclasses.replace(get_config(SSM), n_layers=EARLIER_LAYERS[SSM])
     model = build_model(cfg)
     params = model.load(model.init(torch.Generator(device="cuda").manual_seed(0)))
     toks = torch.as_tensor(np.random.default_rng(2).integers(1, cfg.vocab, (1, seq)), device="cuda")
@@ -1458,18 +1563,219 @@ def phase_prefill_profile(seq: int = 866, reps: int = 3) -> None:
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / reps
     ssd_ms = sum(e.self_device_time_total for e in events if "ssd_fwd" in e.key) / 1e3 / reps
-    log(f"phase 4 {cfg.name} prefill profile 1 x {seq}: wall {wall_ms:.2f} ms (host clock), device "
+    log(f"phase 4 {cfg.name} ({cfg.n_layers} layers) prefill profile 1 x {seq}: wall {wall_ms:.2f} ms (host clock), device "
         f"busy {busy_ms:.3f} ms, of which the SSD kernel {ssd_ms:.3f} ms "
         f"({sum(e.count for e in events) / reps:.0f} kernels per prefill)")
     del model, params
     torch.cuda.empty_cache()
 
 
-def _greedy_run(model, params, toks, lens, capacity, steps):
+def family_inputs(cfg, b: int, s: int, seed: int = 0) -> dict:
+    """The batch entries a frontend or an encoder-decoder config takes
+    beside its tokens (numpy fp32, from ``seed``), as the JAX package's
+    launcher sizes them (``src/repro/launch/specs.py:39-44``): ``min(576,
+    s // 2)`` frontend rows, or ``s`` encoder frames; none otherwise."""
+    rng = np.random.default_rng(seed)
+    if cfg.enc_dec:
+        return {"encoder_frames": rng.normal(size=(b, s, cfg.frontend.d_frontend))
+                .astype(np.float32)}
+    if cfg.frontend is not None and cfg.frontend.n_tokens:
+        n = min(cfg.frontend.n_tokens, s // 2)
+        return {"frontend_embeds": rng.normal(size=(b, n, cfg.frontend.d_frontend))
+                .astype(np.float32)}
+    return {}
+
+
+def check_kernels_vs_plain(model, params, batch, label: str) -> None:
+    """One bf16 prefill of ``batch`` through the model with the flash kernel
+    (``n_attn`` launches), then on the same weights with the plain
+    ``reference_attention`` in its place (no launch): the logits within
+    phase 4's whole-model bf16 bound, 5e-2 + 2e-2 x the largest logit, and
+    on every row the plain logit at the kernel's greedy token within twice
+    the row's largest gap of the plain row's maximum, which holds on ties
+    (near a vocab of 256k two bf16 logits often tie).  That second test
+    follows from the row's gap; the logit bound is the one that decides.
+    Where a row's plain top-2 margin exceeds twice its gap, its greedy
+    tokens must also be equal."""
+    cfg = model.cfg
+    before = _launches()
+    lk = _prefill_logits(model, params, batch)
+    made = {k: n - before[k] for k, n in _launches().items()}
+    lp = _prefill_logits(model, params, batch,
+                         {(fa_ops, "flash_attention"): PLAIN[(fa_ops, "flash_attention")]})
+    plain_made = {k: n - before[k] - made[k] for k, n in _launches().items()}
+    want = expected_launches(cfg, 1, 0)
+    if made != want or any(plain_made.values()):
+        raise SystemExit(f"{label}: kernel launches {made} (want {want}), plain {plain_made}")
+    row_gap = (lk - lp).abs().amax(dim=(1, 2))
+    bound = BF16_LOGITS_ATOL + BF16_LOGITS_RTOL * lp.abs().max().item()
+    pick = lk[:, 0].argmax(-1)
+    deficit = lp[:, 0].amax(-1) - lp[:, 0].gather(-1, pick[:, None])[:, 0]
+    top2 = lp[:, 0].topk(2, dim=-1).values
+    decided = top2[:, 0] - top2[:, 1] > 2 * row_gap
+    same = pick == lp[:, 0].argmax(-1)
+    ok = (bool(torch.isfinite(lk).all()) and row_gap.max().item() <= bound
+          and bool((deficit <= 2 * row_gap).all()) and bool(same[decided].all()))
+    log(f"phase 9 check {label}: flash_attention ({made['flash_attention']} launches) vs "
+        f"plain reference_attention: max logit gap {row_gap.max().item():.3e} (bound "
+        f"{BF16_LOGITS_ATOL:g} + {BF16_LOGITS_RTOL:g} x the largest logit "
+        f"{lp.abs().max().item():.3f} = {bound:.3e}); the plain logit at the kernel's greedy "
+        f"token below the plain maximum by {', '.join(f'{d:.3e}' for d in deficit.tolist())} "
+        f"(bound twice the row's gap: "
+        f"{', '.join(f'{g:.3e}' for g in row_gap.tolist())}); greedy tokens equal on "
+        f"{int(same.sum())} of {lk.shape[0]} rows, {int(same[decided].sum())} of the "
+        f"{int(decided.sum())} whose top-2 margin exceeds twice the gap {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label}: the bf16 prefill through the kernel is off its plain version")
+
+
+def _greedy_decode(model, params, logits, caches, pos: int, steps: int):
+    """``steps`` lockstep greedy decode steps from a prefill's logits;
+    returns (tokens [B, steps + 1], ms per step, host clock to a sync)."""
+    toks = [logits[:, 0].argmax(-1)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        step_pos = torch.full((logits.shape[0],), pos + i, device=model.device)
+        logits, caches = model.decode_step(params, caches, toks[-1][:, None], step_pos)
+        toks.append(logits[:, 0].argmax(-1))
+    torch.cuda.synchronize()
+    return torch.stack(toks, 1).cpu(), 1e3 * (time.perf_counter() - t0) / steps
+
+
+def phase_prefill_then_decode(arch: str, flash_checked: set[Shape]) -> dict:
+    """Phase 9's path through ``Model.prefill`` -> ``prepare_decode_caches``
+    -> ``decode_step`` at full width (bf16, random weights from seed 0),
+    the reference's only path for a frontend's patch rows and for an
+    encoder-decoder: phi-3-vision on 2 rows of 576 patch rows of width
+    1024 (numpy, seed 0) and 256 text tokens (S 832), seamless on 4 rows of
+    512 encoder frames of width 160 and a 64-token decoder prompt (its
+    engines refuse it, with the reference's messages, first); then 32
+    greedy decode steps.  Flash runs once per decoder layer in the prefill
+    (at a shape phase 2 checked) and never in decode; then the prefill
+    through the kernel against the plain version (``check_kernels_vs_plain``).
+    Returns the launches of the prefill and the decode."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_loaded(model)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    if cfg.enc_dec:
+        rows, text = ENCDEC_ROWS, ENCDEC_PROMPT
+        extra = {"encoder_frames": rng.normal(size=(rows, ENCDEC_FRAMES, cfg.frontend.d_frontend))
+                 .astype(np.float32)}
+        refused = []
+        for call in (lambda: ContinuousBatchingEngine(model, params),
+                     lambda: ServingEngine(model, params).generate(np.ones((1, 8), np.int32), 2)):
+            try:
+                call()
+            except NotImplementedError as e:
+                refused.append(str(e))
+        if len(refused) != 2:
+            raise SystemExit(f"{cfg.name}: the engines did not refuse it: {refused}")
+        log(f"phase 9 {cfg.name}: both engines refuse it, as the reference's do: {refused}")
+    else:
+        rows, text = VLM_ROWS, VLM_TEXT
+        extra = {"frontend_embeds": rng.normal(size=(rows, VLM_PATCHES, cfg.frontend.d_frontend))
+                 .astype(np.float32)}
+        text += VLM_PATCHES  # the patch rows take the sequence's first positions
+    dev = model.device
+    batch = {"tokens": torch.as_tensor(rng.integers(1, cfg.vocab, (rows, text)), device=dev),
+             **{k: torch.as_tensor(v, device=dev) for k, v in extra.items()}}
+    shape = main_shape(rows, text, arch)
+    if shape not in flash_checked:
+        raise SystemExit(f"{cfg.name}'s prefill would launch flash_attention at {shape}, which "
+                         "phase 2 did not check")
+    _reset_launches()
+    with torch.no_grad():
+        model.prefill(params, batch)  # a warm-up: the timed prefill is the second
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        prefilled = _launches()
+        caches = model.prepare_decode_caches(caches, text + FAMILY_DECODE_STEPS + 8)
+        toks, step_ms = _greedy_decode(model, params, logits, caches, text,
+                                       FAMILY_DECODE_STEPS)
+    launches = _launches()
+    want = {k: 2 * n for k, n in expected_launches(cfg, 1, 0).items()}
+    if prefilled != want or launches != want:
+        raise SystemExit(f"{cfg.name}: launches {prefilled} after two prefills, {launches} after "
+                         f"{FAMILY_DECODE_STEPS} decode steps; want {want} (none in decode)")
+    if int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab:
+        raise SystemExit(f"{cfg.name}: bad tokens {toks}")
+    inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
+    cross = (f", cross K/V {sum(caches[n].nbytes for n in tf.CROSS_KEYS) / 1e6:.1f} MB"
+             if cfg.enc_dec else "")
+    log(f"phase 9 {cfg.name} full width ({cfg.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.enc_dec else "")
+        + f", {n_params / 1e9:.3f} B params, built in {init_s:.1f} s): prefill of {inputs} in "
+        f"{prefill_ms:.1f} ms, then {FAMILY_DECODE_STEPS} greedy decode steps at "
+        f"{step_ms:.2f} ms a step ({rows * 1e3 / step_ms:.1f} tok/s; host clock, ends in a "
+        f"sync){cross}; flash_attention {want['flash_attention'] // 2} "
+        f"launches a prefill at {shape}, 0 a decode step; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{_smi()}]")
+    check_kernels_vs_plain(model, params, batch, f"{cfg.name} bf16 full width prefill")
+    del params, model, caches, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_families(flash_checked: set[Shape], flash_grad_checked: set[Shape]) -> dict:
+    """Phase 9, the MLA, vision-frontend and encoder-decoder families at full width:
+    minicpm3-4b (MLA, no kernel on its path) served through both engines
+    and through two-turn sessions; phi-3-vision-4.2b served on text through
+    both engines and run on its frontend rows; seamless-m4t-large-v2's
+    encoder-decoder through prefill and decode; each cut to 2 layers (2 + 2)
+    on the card against the CPU, greedy and one gradient pass; each trained
+    ``TRAIN_STEPS`` steps, as phase 6 trains (at 4 steps, minicpm3's loss
+    rose from 11.5586 to 11.5629 while the warmup of 5 steps ramped the
+    rate).  Returns the launches by path."""
+    t0 = time.perf_counter()
+    mark, walls = wall_marks()
+    paths, sessions = {}, {}
+    none = dict.fromkeys(COUNTERS, 0)
+    paths[MLA] = phase_serve(MLA, flash_checked, set(), set(), sessions=sessions, phase=9)
+    mark(f"{MLA} serve and sessions")
+    paths[VLM] = phase_serve(VLM, flash_checked, set(), set(), phase=9)
+    paths[f"frontend {VLM}"] = phase_prefill_then_decode(VLM, flash_checked)
+    paths[f"prefill and decode {ENCDEC}"] = phase_prefill_then_decode(ENCDEC, flash_checked)
+    mark(f"{VLM} and {ENCDEC}")
+    for arch in FAMILIES:
+        phase_card_vs_cpu(arch, steps=16, phase=9)
+    for arch in FAMILIES:
+        phase_grads_card_vs_cpu(arch)
+    mark("card vs cpu")
+    for arch in FAMILIES:
+        cfg = get_config(arch)
+        if FAMILY_TRAIN_LAYERS[arch]:
+            cfg = dataclasses.replace(cfg, n_layers=FAMILY_TRAIN_LAYERS[arch])
+        paths[f"train {arch}"] = phase_train(arch, flash_checked, flash_grad_checked, set(), set(),
+                                             set(), cfg=cfg, phase=9)
+    mark("train")
+    paths.update(sessions)
+    for name in (MLA, f"sessions {MLA}", f"train {MLA}"):
+        if paths[name] != none:
+            raise SystemExit(f"minicpm3's MLA path {name} launched kernels: {paths[name]}")
+    made = {name: {k: n for k, n in p.items() if n} for name, p in paths.items()}
+    log(f"phase 9 families: {', '.join(FAMILIES)} in {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{what} {w:.1f} s" for what, w in walls) + f"); launches by path {made}")
+    return paths
+
+
+def _greedy_run(model, params, toks, lens, capacity, steps, extra: dict):
     """Prefill right-padded prompts in one batch -- or, for a stack with SSM
     layers, whose state would run through the padding, each row alone at its
     exact length, as the engines do -- then ``steps`` ragged greedy decode
-    steps; returns (tokens [B, steps + 1], logits of every step)."""
+    steps; returns (tokens [B, steps + 1], logits of every step).  ``extra``
+    holds the batch's frontend rows or encoder frames (none for a model that
+    takes neither)."""
     dev = model.device
     true_len = torch.as_tensor(lens, device=dev)
     if layer_kinds(model.cfg)[2]:  # each row re-laid alone, as KVPool.write installs it
@@ -1480,8 +1786,9 @@ def _greedy_run(model, params, toks, lens, capacity, steps):
         logits = torch.cat([r[0] for r in rows])
         caches = {k: torch.cat([r[1][k] for r in rows], dim=1) for k in rows[0][1]}
     else:
-        logits, caches = model.prefill(params, torch.as_tensor(toks, device=dev),
-                                       last_pos=true_len - 1)
+        batch = {"tokens": torch.as_tensor(toks, device=dev),
+                 **{k: torch.as_tensor(v, device=dev) for k, v in extra.items()}}
+        logits, caches = model.prefill(params, batch, last_pos=true_len - 1)
         caches = model.prepare_decode_caches(model.mask_prompt_cache(caches, true_len), capacity)
     pos = true_len.clone()
     out_toks, out_logits = [logits[:, 0].argmax(-1)], [logits[:, 0].float().cpu()]
@@ -1514,9 +1821,11 @@ def hybrid_cpu_cut():
 
 def layer_list(cfg) -> str:
     """Each layer's mixer and FFN, for the logs."""
-    return ", ".join(f"layer {i} {tf.mixer_kind(cfg, i)} + "
-                     + ("MoE" if cfg.layer_is_moe(i) else "dense FFN" if cfg.d_ff else "no FFN")
-                     for i in range(cfg.n_layers))
+    enc = (f"{cfg.n_encoder_layers} encoder layers (attn + dense FFN), " if cfg.enc_dec else "")
+    return enc + ", ".join(f"layer {i} {tf.mixer_kind(cfg, i)}"
+                           + (" + cross" if cfg.enc_dec else "") + " + "
+                           + ("MoE" if cfg.layer_is_moe(i) else "dense FFN" if cfg.d_ff
+                              else "no FFN") for i in range(cfg.n_layers))
 
 
 def host_init(cfg, seed: int = 0) -> dict:
@@ -1527,12 +1836,21 @@ def host_init(cfg, seed: int = 0) -> dict:
     return tree_map(lambda t: t.cpu(), params)
 
 
-def phase_card_vs_cpu(arch: str, steps: int = 8, cfg=None) -> None:
+def two_layers(cfg):
+    """``cfg`` cut to 2 layers (an encoder-decoder to 2 + 2) in fp32."""
+    cut = dict(n_layers=2, compute_dtype="float32")
+    if cfg.enc_dec:
+        cut["n_encoder_layers"] = 2
+    return dataclasses.replace(cfg, **cut)
+
+
+def phase_card_vs_cpu(arch: str, steps: int = 8, cfg=None, phase: int = 5) -> None:
     """``arch`` (or the config ``cfg``) cut to 2 layers in fp32, from the
-    same params on the card and the CPU: prefill, then ``steps`` ragged
+    same params on the card and the CPU: prefill (with frontend rows or
+    encoder frames where the config takes them), then ``steps`` ragged
     greedy decode steps; equal greedy tokens, logits within
     ``FP32_LOGITS_BOUND``."""
-    cfg = dataclasses.replace(cfg or get_config(arch), n_layers=2, compute_dtype="float32")
+    cfg = two_layers(cfg or get_config(arch))
     cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
     t0 = time.perf_counter()
     params = host_init(cfg)
@@ -1543,18 +1861,21 @@ def phase_card_vs_cpu(arch: str, steps: int = 8, cfg=None) -> None:
     lens = np.array([100, 77])
     toks = rng.integers(1, cfg.vocab, (2, 128))
     toks[1, lens[1]:] = 0
+    extra = family_inputs(cfg, 2, 128)
     before = _launches()
-    t_gpu, l_gpu = _greedy_run(gpu_model, gpu_model.load(params), toks, lens, 144, steps)
+    t_gpu, l_gpu = _greedy_run(gpu_model, gpu_model.load(params), toks, lens, 144, steps, extra)
     made = {k: n - before[k] for k, n in _launches().items()}
     prefills = len(lens) if layer_kinds(cfg)[2] else 1
     if made != expected_launches(cfg, prefills, steps):
         raise SystemExit(f"the card's run did not go through the kernels: launches {made}")
     t0 = time.perf_counter()
-    t_cpu, l_cpu = _greedy_run(cpu_model, cpu_model.load(params), toks, lens, 144, steps)
+    t_cpu, l_cpu = _greedy_run(cpu_model, cpu_model.load(params), toks, lens, 144, steps, extra)
     cpu_s = time.perf_counter() - t0
     gap = (l_gpu - l_cpu).abs().max().item()
     same = torch.equal(t_gpu, t_cpu)
-    log(f"phase 5 card vs cpu ({cfg.name} 2 layers fp32: {kinds}; {n_params / 1e9:.3f} B params, "
+    inputs = "".join(f", {k} {tuple(v.shape)}" for k, v in extra.items())
+    log(f"phase {phase} card vs cpu ({cfg.name} 2 layers fp32: {kinds}{inputs}; "
+        f"{n_params / 1e9:.3f} B params, "
         f"initialised on the card and copied to the cpu in {t_init:.1f} s; prompts {lens[0]} and "
         f"{lens[1]}, prefill + "
         f"{steps} decode steps, {cpu_s:.1f} s on the cpu): greedy tokens "
@@ -1580,7 +1901,9 @@ def flash_grad_shapes() -> list[Shape]:
     shape (window < S), qwen3-32b's
     group of 8 query heads per kv head, a ragged S (a short last tile of
     each kernel), S of 1, non-causal shapes, every head dim at a small shape,
-    fused-qkv views, and the card-vs-CPU train shapes in fp32."""
+    fused-qkv views, and the card-vs-CPU train shapes in fp32; then phase
+    9's train shapes (phi-3-vision's H 32 over KV 32 of 96, seamless's
+    decoder H 16 over KV 16 of 64) in bf16 and fp32."""
     bf16 = torch.bfloat16
     cfg = get_config("qwen3-32b")
     return ([train_shape(), train_shape(arch=MOE), train_shape(arch=HYBRID),
@@ -1594,7 +1917,10 @@ def flash_grad_shapes() -> list[Shape]:
             + [Shape(2, 333, 16, 8, 128, bf16, fused=True),
                Shape(1, 129, 32, 8, 80, torch.float32, window=64, fused=True)]
             + [train_shape(torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, arch)
-               for arch in (DENSE, MOE, HYBRID)])
+               for arch in (DENSE, MOE, HYBRID)]
+            + [train_shape(dt, b, s, arch) for arch in (VLM, ENCDEC)
+               for dt, b, s in ((bf16, TRAIN_BATCH, TRAIN_SEQ),
+                                (torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ))])
 
 
 def phase_check_flash_grads() -> tuple[float, set[Shape]]:
@@ -1695,7 +2021,8 @@ def phase_check_gmm_grads() -> None:
 
 
 def phase_time_flash_backward() -> dict:
-    """At the train shapes of internlm2, granite and jamba: the forward
+    """At the train shapes of internlm2, granite, jamba, phi-3-vision and
+    seamless's decoder: the forward
     kernel, without and with its logsumexp rows (as training runs it),
     beside SDPA's forward, and the backward kernel (autograd's backward of
     ``ops.flash_attention``: its scratch, outputs and one launch: the
@@ -1706,7 +2033,7 @@ def phase_time_flash_backward() -> dict:
     bound (``Shape.bound``, ``Shape.bwd_bound``).  Returns internlm2's
     backward row."""
     rows = []
-    for arch in (DENSE, MOE, HYBRID):
+    for arch in (DENSE, MOE, HYBRID, VLM, ENCDEC):
         shape = train_shape(arch=arch)
         q, k, v = (t.detach().requires_grad_() for t in shape.inputs(seed=1))
         cot = torch.randn(q.shape, device="cuda", dtype=shape.dtype)
@@ -1761,8 +2088,10 @@ def profile_train_step(model, params, opt, opt_cfg, batch) -> str:
     """One train step under torch.profiler, as ``Trainer.step`` runs it
     (``value_and_grads``, then ``adamw_update``), with CUDA events around the
     update: the step's wall, its device busy time and share, the device time
-    by kernel class and the update's span on the device."""
+    by kernel class and the update's span on the device; and the host
+    seconds the profile took, its summary included."""
     torch.cuda.synchronize()
+    t_prof = time.perf_counter()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.profiler.profile(activities=acts) as prof:
@@ -1789,7 +2118,8 @@ def profile_train_step(model, params, opt, opt_cfg, batch) -> str:
             "kernel: " + ", ".join(f"{c} {ms:.1f} ({100 * ms / busy_ms:.1f}%)" for c, ms in
                                    sorted(by_class.items(), key=lambda kv: -kv[1]))
             + "; top kernels: " + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.1f} ms "
-                                            f"x{e.count}" for e in top))
+                                            f"x{e.count}" for e in top)
+            + f"; profiled and summarised in {time.perf_counter() - t_prof:.1f} s (host clock)")
 
 
 def _train_opt(steps: int, lr: float) -> AdamWConfig:
@@ -1817,9 +2147,11 @@ def train_launches(cfg, passes: int) -> dict:
 
 def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Shape],
                 gmm_checked: set[GmmShape], ssd_checked: set[SsdShape],
-                ssd_grad_checked: set[SsdShape], cfg=None) -> dict:
-    """``arch`` at full width (``cfg`` where given: the hybrid's 2-layer cut)
-    trained ``TRAIN_STEPS`` steps through ``Trainer``; returns the launches
+                ssd_grad_checked: set[SsdShape], cfg=None, phase: int = 6) -> dict:
+    """``arch`` at full width (``cfg`` where given: a cut of its depth)
+    trained ``TRAIN_STEPS`` steps through ``Trainer``, each
+    batch with the frontend rows or encoder frames its config takes
+    (``family_inputs``); returns the launches
     the run made by kernel.  Fails unless every kernel ran as often as
     ``train_launches`` says, at shapes phases 2 and 6 checked (the
     backwards' too), the loss is finite and falls, every parameter gets a
@@ -1830,19 +2162,21 @@ def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Sh
     cfg = cfg or get_config(arch)
     full_n = get_config(arch).n_layers
     cut = cfg.n_layers != full_n
-    layers = f"{cfg.n_layers} layers" + (f" (cut from {full_n})" if cut else "")
+    layers = (f"{cfg.n_layers} layers" + (f" (cut from {full_n})" if cut else "")
+              + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.enc_dec else ""))
     model = build_model(cfg)
     trainer = Trainer(model, _train_opt(TRAIN_STEPS, TRAIN_LR))
     t0 = time.perf_counter()
     params, opt = trainer.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"phase 6 init: {cfg.name} {layers}, {n_params / 1e9:.3f} B params (fp32 master, "
+    log(f"phase {phase} init: {cfg.name} {layers}, {n_params / 1e9:.3f} B params (fp32 master, "
         f"{cfg.compute_dtype} compute) on {model.device} in {time.perf_counter() - t0:.1f} s"
         + (f" ({layer_list(cfg)})" if cut else "") + f"; params and AdamW moments "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0)
-    batches = [pipe.global_batch_arrays(i) for i in range(TRAIN_STEPS + 1)]
+    batches = [{**pipe.global_batch_arrays(i), **family_inputs(cfg, TRAIN_BATCH, TRAIN_SEQ, i)}
+               for i in range(TRAIN_STEPS + 1)]
     n_attn, n_moe, n_ssm = layer_kinds(cfg)
     moe = n_moe > 0
     if moe:
@@ -1888,8 +2222,10 @@ def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Sh
     first = [g.cpu() for g in tree_leaves(grads)]
     del grads
     median = float(np.median(walls))
-    log(f"phase 6 train {cfg.name} full width, {layers}, B{TRAIN_BATCH} S{TRAIN_SEQ}, "
-        f"{TRAIN_STEPS} steps: "
+    inputs = "".join(f", {k} {v.shape}" for k, v in family_inputs(cfg, TRAIN_BATCH,
+                                                                   TRAIN_SEQ).items())
+    log(f"phase {phase} train {cfg.name} full width, {layers}, B{TRAIN_BATCH} S{TRAIN_SEQ}"
+        f"{inputs}, {TRAIN_STEPS} steps: "
         f"loss " + " ".join(f"{x:.4f}" for x in losses) + " (finite, falling) ok; gnorm "
         + " ".join(f"{x:.3f}" for x in gnorms))
     # the same batch again: the flash backward's sums over query tiles and
@@ -1900,22 +2236,22 @@ def phase_train(arch: str, flash_checked: set[Shape], flash_grad_checked: set[Sh
     del again, first
     if not same:
         raise SystemExit(f"{cfg.name}: two gradient passes of batch 0 differ")
-    log(f"phase 6 train {cfg.name}: two gradient passes of batch 0 bit-identical ok")
+    log(f"phase {phase} train {cfg.name}: two gradient passes of batch 0 bit-identical ok")
     if moe:
         with torch.no_grad():
             aux = float(model.train_loss(params, batches[0])[1]["aux_loss"])
-        log(f"phase 6 train {cfg.name}: load-balancing loss (summed over {n_moe} MoE layers, "
-            f"batch 0) {aux0:.6f} at init, {aux:.6f} after {TRAIN_STEPS} steps "
+        log(f"phase {phase} train {cfg.name}: load-balancing loss (summed over {n_moe} MoE "
+            f"layers, batch 0) {aux0:.6f} at init, {aux:.6f} after {TRAIN_STEPS} steps "
             f"{'ok' if math.isfinite(aux) and aux > 0 else 'FAIL'}")
         if not (math.isfinite(aux) and aux > 0):
             raise SystemExit(f"{cfg.name}: a bad aux loss {aux}")
     per_step = {k: n // TRAIN_STEPS for k, n in launches.items() if n}
-    log(f"phase 6 train {cfg.name}: step wall median {1e3 * median:.1f} ms (min "
+    log(f"phase {phase} train {cfg.name}: step wall median {1e3 * median:.1f} ms (min "
         f"{1e3 * min(walls):.1f}, max {1e3 * max(walls):.1f}; host clock, ends in a sync), "
         f"{TRAIN_BATCH * TRAIN_SEQ / median:.0f} tokens/s, max_memory_allocated {peak_gb:.2f} GiB; "
         f"launches {launches} ({per_step} per step); every one of the {n_leaves} parameter "
         f"leaves has a finite, non-zero gradient ok")
-    log(f"phase 6 train {cfg.name} step profile: "
+    log(f"phase {phase} train {cfg.name} step profile: "
         + profile_train_step(model, params, opt, trainer.opt_cfg, batches[TRAIN_STEPS]))
     del params, opt, trainer, model
     torch.cuda.empty_cache()
@@ -2014,7 +2350,8 @@ def time_wire_format(model, slots: int = N_SLOTS, reps: int = 3) -> str:
 
 
 def phase_sessions(arch: str, model, params, flash_checked: set[Shape],
-                   gmm_checked: set[GmmShape], ssd_checked: set[SsdShape]) -> dict:
+                   gmm_checked: set[GmmShape], ssd_checked: set[SsdShape],
+                   phase: int = 8) -> dict:
     """Phase 8, multi-turn sessions through the tiered KV pool at full width
     on phase 4's bf16 weights of ``arch``, on the served traffic (8 prompts,
     greedy), each run held against a never-demoted run of the same prompts
@@ -2024,7 +2361,8 @@ def phase_sessions(arch: str, model, params, flash_checked: set[Shape],
     fp32 (weights built again from the same seed) with no tier capacity
     (every session dropped, its history re-prefilled cold through the fp32
     flash route).  jamba on 1 slot, so that no two rows share an expert's
-    capacity, with 4 host and 4 pooled sessions in bf16.  Streams must be
+    capacity, with 4 host and 4 pooled sessions in bf16.  Phase 9 runs
+    minicpm3-4b's bf16 run alone, on 4 slots.  Streams must be
     equal bit for bit; the launches those of the engines' prefills and
     decode steps (a wakeup launches nothing), at shapes phase 2 checked.
     Returns the launches of the phase's runs."""
@@ -2034,7 +2372,7 @@ def phase_sessions(arch: str, model, params, flash_checked: set[Shape],
     hybrid = arch == HYBRID
     slots = 1 if hybrid else N_SLOTS
     runs = [("bf16", model, params, TierConfig(host_sessions=4, pooled_sessions=4))]
-    if not hybrid:
+    if arch == DENSE:
         runs.append(("fp32", None, None, TierConfig(host_sessions=0, pooled_sessions=0)))
     # (prefills, decode steps) of every engine, and every prefill's length
     counts, lengths, flash_groups = [], set(), set()
@@ -2077,7 +2415,7 @@ def phase_sessions(arch: str, model, params, flash_checked: set[Shape],
         ok = equal and got == want and spans_ok and mt.demotions == pool.n_demote
         leaf_bytes = {nm: nb for nm, _, nb, _ in pool._layout}
         nbytes = sum(leaf_bytes.values())
-        log(f"phase 8 sessions {cfg.name} {label} ({cfg.n_layers} layers, {slots} slot"
+        log(f"phase {phase} sessions {cfg.name} {label} ({cfg.n_layers} layers, {slots} slot"
             f"{'s' if slots > 1 else ''}, {tiers}): {n} sessions x 2 turns of {SESSION_TURN} "
             f"tokens against a never-demoted run of {NEW_TOKENS} ({ref_s:.2f} s); tiered "
             f"{tiered_s:.2f} s, turn 2 {wake_s:.2f} s; wakeups {mt.wakeups}, refills "
@@ -2085,15 +2423,16 @@ def phase_sessions(arch: str, model, params, flash_checked: set[Shape],
             f"{groups2} groups), drops {pool.n_drop}, spills {pool.n_spill}, demotions "
             f"{mt.demotions}; modeled_tier_s {pool.modeled_tier_s:.6f}; streams "
             f"{'bit-identical' if equal else 'DIFFER'} {'ok' if ok else 'FAIL'}")
-        log(f"phase 8 {cfg.name} {label} spans: {spans} (prefill groups {mt.prefills}, decode "
+        log(f"phase {phase} {cfg.name} {label} spans: {spans} (prefill groups {mt.prefills}, "
+            "decode "
             f"steps {mt.decode_steps})")
         if not cold:
-            log(f"phase 8 {cfg.name} {label} row {nbytes / 1e6:.3f} MB ("
+            log(f"phase {phase} {cfg.name} {label} row {nbytes / 1e6:.3f} MB ("
                 + ", ".join(f"{nm} {nb / 1e6:.3f}" for nm, nb in leaf_bytes.items())
                 + f" MB); {_tier_figures(ob, nbytes, smi)}")
         else:
             recs = [r for r in ob.calibration.records if r.kind == "cold_prefill"]
-            log(f"phase 8 {cfg.name} {label} cold_prefill x{len(recs)}: predicted "
+            log(f"phase {phase} {cfg.name} {label} cold_prefill x{len(recs)}: predicted "
                 f"{1e3 * sum(r.predicted_s for r in recs):.3f} ms, observed "
                 f"{1e3 * sum(r.observed_s for r in recs):.3f} ms [{smi}]")
         if not ok:
@@ -2117,8 +2456,9 @@ def phase_sessions(arch: str, model, params, flash_checked: set[Shape],
         served_ssd = {ssm_shape(1, b, arch=arch) for b in lengths}
         if not served_gmm <= gmm_checked or not served_ssd <= ssd_checked:
             raise SystemExit(f"{cfg.name} sessions: gmm or ssd_scan shapes phase 2 did not check")
-    log(f"phase 8 {cfg.name} wire format: {time_wire_format(model)} [{smi}]")
-    log(f"phase 8 sessions {cfg.name}: launches {launches} (= the engines' prefills and decode "
+    log(f"phase {phase} {cfg.name} wire format: {time_wire_format(model)} [{smi}]")
+    log(f"phase {phase} sessions {cfg.name}: launches {launches} (= the engines' prefills and "
+        "decode "
         f"steps; none per wakeup) in {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     return launches
@@ -2132,14 +2472,37 @@ def _host_gib(field: str = "MemAvailable") -> float:
     return float("nan")
 
 
+def grads_card_vs_cpu(cfg, init: dict, batch: dict) -> dict:
+    """One gradient pass of ``batch`` through ``cfg`` from copies of
+    ``init`` on the card and on the CPU: the largest gap of a leaf relative
+    to that leaf's largest value (``g_rel``), the loss gap relative
+    (``loss_rel``), the number of leaves, the card's launches and each
+    device's seconds."""
+    runs = []
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        params = tree_map(lambda t: t.to(dev, copy=True).requires_grad_(), init)
+        before = _launches()
+        t0 = time.perf_counter()
+        grads, m = value_and_grads(model, params, batch)
+        runs.append(([g.cpu() for g in tree_leaves(grads)], float(m["loss"]),
+                     {k: n - before[k] for k, n in _launches().items()}, time.perf_counter() - t0))
+        del params, grads
+    (g_gpu, l_gpu, n_gpu, s_gpu), (g_cpu, l_cpu, _, s_cpu) = runs
+    return {"g_rel": max(((a - b).abs().max() / b.abs().max()).item()
+                         for a, b in zip(g_gpu, g_cpu)),
+            "loss": (l_gpu, l_cpu), "loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
+            "leaves": len(g_gpu), "launches": n_gpu, "s": (s_gpu, s_cpu)}
+
+
 def phase_train_card_vs_cpu(arch: str, cfg=None) -> None:
     """``arch`` (or ``cfg``) cut to 2 layers of full width, in fp32, from the
     same params on the card and on the CPU: the gradients of the first
-    batch, each leaf within 1e-4 of its largest value; then
-    ``TRAIN_CPU_STEPS`` Trainer steps on the same batches, losses within
+    batch, each leaf within 1e-4 of its largest value (``grads_card_vs_cpu``);
+    then ``TRAIN_CPU_STEPS`` Trainer steps on the same batches, losses within
     1e-4 relative and params within 1e-4."""
     full = get_config(arch)
-    cfg = dataclasses.replace(cfg or full, n_layers=2, compute_dtype="float32")
+    cfg = two_layers(cfg or full)
     cut = ""
     if cfg.moe and cfg.moe.n_experts != full.moe.n_experts:
         cut = (f"; {layer_list(cfg)}; experts cut from {full.moe.n_experts} to "
@@ -2154,6 +2517,7 @@ def phase_train_card_vs_cpu(arch: str, cfg=None) -> None:
     # taking other signs on the two devices
     init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     n_params = sum(t.numel() for t in tree_leaves(init))
+    gr = grads_card_vs_cpu(cfg, init, batches[0])
     runs = {}
     for dev in ("cuda", "cpu"):
         model = build_model(cfg, device=dev)
@@ -2162,35 +2526,61 @@ def phase_train_card_vs_cpu(arch: str, cfg=None) -> None:
         opt = adamw_init(params, trainer.opt_cfg)
         before = _launches()
         t0 = time.perf_counter()
-        grads = [g.cpu() for g in tree_leaves(value_and_grads(model, params, batches[0])[0])]
         losses = []
         for batch in batches:
             params, opt, m = trainer.step(params, opt, batch)
             losses.append(float(m["loss"]))
         made = {k: n - before[k] for k, n in _launches().items()}
-        runs[dev] = (grads, losses, [t.detach().cpu() for t in tree_leaves(params)], made,
+        runs[dev] = (losses, [t.detach().cpu() for t in tree_leaves(params)], made,
                      time.perf_counter() - t0)
-    (g_gpu, l_gpu, p_gpu, n_gpu, s_gpu), (g_cpu, l_cpu, p_cpu, n_cpu, s_cpu) = \
-        runs["cuda"], runs["cpu"]
-    g_rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(g_gpu, g_cpu))
+    (l_gpu, p_gpu, n_gpu, s_gpu), (l_cpu, p_cpu, n_cpu, s_cpu) = runs["cuda"], runs["cpu"]
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     gaps = [(a - b).abs() for a, b in zip(p_gpu, p_cpu)]
-    p_gap = max(g.max().item() for g in gaps)
-    over = sum(int((g > 1e-5).sum()) for g in gaps)
+    p_gap = max(d.max().item() for d in gaps)
+    over = sum(int((d > 1e-5).sum()) for d in gaps)
+    n_gpu = {k: n + gr["launches"][k] for k, n in n_gpu.items()}
     want_launches = train_launches(cfg, TRAIN_CPU_STEPS + 1)  # + the gradient pass
-    ok = (g_rel <= TRAIN_CPU_TOL and loss_rel <= TRAIN_CPU_TOL and p_gap <= TRAIN_CPU_TOL
+    ok = (max(gr["g_rel"], gr["loss_rel"], loss_rel, p_gap) <= TRAIN_CPU_TOL
           and n_gpu == want_launches)
     log(f"phase 6 train card vs cpu ({cfg.name} 2 layers fp32, {n_params / 1e9:.3f} B params"
         f"{cut}; B{TRAIN_CPU_BATCH} S{TRAIN_CPU_SEQ}, lr {TRAIN_CPU_LR:g}): gradients of batch 0 "
-        f"within {g_rel:.3e} of "
-        f"each leaf's largest value; {TRAIN_CPU_STEPS} steps, losses card "
+        f"within {gr['g_rel']:.3e} of each leaf's largest value, its loss within "
+        f"{gr['loss_rel']:.3e} relative; {TRAIN_CPU_STEPS} steps, losses card "
         + " ".join(f"{x:.6f}" for x in l_gpu) + " cpu " + " ".join(f"{x:.6f}" for x in l_cpu)
         + f", max loss gap {loss_rel:.3e} relative, max param gap {p_gap:.3e} ({over} of "
-        f"{sum(g.numel() for g in gaps)} elements over 1e-5); bound {TRAIN_CPU_TOL:g}; card "
-        f"launches {n_gpu} (want {want_launches}), cpu {n_cpu}; {s_gpu:.1f} s card, "
-        f"{s_cpu:.1f} s cpu; host peak rss {_peak_rss_gib():.1f} GiB {'ok' if ok else 'FAIL'}")
+        f"{sum(d.numel() for d in gaps)} elements over 1e-5); bound {TRAIN_CPU_TOL:g}; card "
+        f"launches {n_gpu} (want {want_launches}), cpu {n_cpu}; {gr['s'][0] + s_gpu:.1f} s card, "
+        f"{gr['s'][1] + s_cpu:.1f} s cpu; host peak rss {_peak_rss_gib():.1f} GiB "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("training on the card and on the CPU disagree")
+
+
+def phase_grads_card_vs_cpu(arch: str) -> None:
+    """Phase 9's train check on the card against the CPU: ``arch`` cut to 2
+    layers (an encoder-decoder to 2 + 2) of full width, in fp32, from the
+    same params (drawn on the card, ``host_init``): one gradient pass over a
+    batch with its frontend rows or encoder frames held to phase 6's rule
+    (``grads_card_vs_cpu``); phase 6's AdamW steps are not repeated here."""
+    cfg = two_layers(get_config(arch))
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TRAIN_CPU_SEQ, global_batch=TRAIN_CPU_BATCH,
+                       seed=0)
+    batch = {**pipe.global_batch_arrays(0), **family_inputs(cfg, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)}
+    init = host_init(cfg)
+    gr = grads_card_vs_cpu(cfg, init, batch)
+    want = train_launches(cfg, 1)
+    ok = max(gr["g_rel"], gr["loss_rel"]) <= TRAIN_CPU_TOL and gr["launches"] == want
+    inputs = "".join(f", {k} {v.shape}" for k, v in batch.items() if k not in ("tokens", "targets"))
+    log(f"phase 9 train card vs cpu ({cfg.name} {'2 + 2' if cfg.enc_dec else '2'} layers "
+        f"fp32, {sum(t.numel() for t in tree_leaves(init)) / 1e9:.3f} B params; B{TRAIN_CPU_BATCH} "
+        f"S{TRAIN_CPU_SEQ}{inputs}): loss card {gr['loss'][0]:.6f} cpu {gr['loss'][1]:.6f} "
+        f"({gr['loss_rel']:.3e} relative), gradients of all {gr['leaves']} leaves within "
+        f"{gr['g_rel']:.3e} of each leaf's largest value (bound {TRAIN_CPU_TOL:g}); card launches "
+        f"{ {k: n for k, n in gr['launches'].items() if n} } "
+        f"(want { {k: n for k, n in want.items() if n} }); "
+        f"{gr['s'][0]:.1f} s card, {gr['s'][1]:.1f} s cpu {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{cfg.name}: gradients on the card and on the CPU disagree")
 
 
 def _peak_rss_gib() -> float:
@@ -2330,37 +2720,57 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    mark, walls = wall_marks()
     smi, kind = phase_card_and_build()
+    mark("1 build")
     fa_err, fa_checked = phase_check_flash()
     gmm_err, gmm_checked = phase_check_gmm()
     ssd_err, ssd_checked = phase_check_ssd()
     ssd_bwd_err, ssd_grad_checked = phase_check_ssd_grads()
+    mark("2 checks")
     fa_rows, gmm_rows, ssd_rows = phase_time_flash(), phase_time_gmm(), phase_time_ssd()
     ssd_bwd_rep = phase_time_ssd_backward()
+    mark("3 times")
     # phase 8 runs on phase 4's weights, right after their path
-    sessions = {}
-    paths = {arch: phase_serve(arch, fa_checked, gmm_checked, ssd_checked,
-                               sessions=sessions if arch == DENSE else None) for arch in ARCHS}
+    sessions, paths = {}, {}
+    for arch in ARCHS:
+        paths[arch] = phase_serve(arch, fa_checked, gmm_checked, ssd_checked,
+                                  EARLIER_LAYERS[arch],
+                                  sessions=sessions if arch == DENSE else None)
+        mark(f"4 serve {arch}" + (", 8 sessions" if arch == DENSE else ""))
     paths[HYBRID] = phase_serve(HYBRID, fa_checked, gmm_checked, ssd_checked, HYBRID_LAYERS,
                                 sessions=sessions)
+    mark(f"4 serve {HYBRID}, 8 sessions")
     phase_ssm_prefill_vs_plain()
     phase_prefill_profile()
+    mark("4 checks and profile")
     for arch in ARCHS:
         phase_card_vs_cpu(arch)
     phase_card_vs_cpu(HYBRID, cfg=hybrid_cut())
+    mark("5 card vs cpu")
     fa_bwd_err, fa_grad_checked = phase_check_flash_grads()
     phase_check_gmm_grads()
     fa_bwd_rep = phase_time_flash_backward()
+    mark("6 backward checks and times")
     for arch in ARCHS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=EARLIER_LAYERS[arch])
         paths[f"train {arch}"] = phase_train(arch, fa_checked, fa_grad_checked, gmm_checked,
-                                             ssd_checked, ssd_grad_checked)
+                                             ssd_checked, ssd_grad_checked, cfg=cfg)
+        mark(f"6 train {arch}")
     paths[f"train {HYBRID}"] = phase_train(HYBRID, fa_checked, fa_grad_checked, gmm_checked,
                                            ssd_checked, ssd_grad_checked, cfg=hybrid_cut())
+    mark(f"6 train {HYBRID}")
     for arch in ARCHS:
         phase_train_card_vs_cpu(arch)
+        mark(f"6 train card vs cpu {arch}")
     phase_train_card_vs_cpu(HYBRID, cfg=hybrid_cpu_cut())
+    mark(f"6 train card vs cpu {HYBRID}")
     paths[f"checkpoint {MOE}"] = phase_checkpoint()
     paths.update(sessions)
+    mark("7 checkpoints")
+    paths.update(phase_families(fa_checked, fa_grad_checked))
+    mark("9 families")
+    log("walls by phase and path: " + ", ".join(f"{what} {w:.1f} s" for what, w in walls))
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)
     gmm_rep = next(r for r in gmm_rows if r["shape"] == str(expert_shapes(decode_c)[0]))

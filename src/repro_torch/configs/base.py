@@ -2,8 +2,8 @@
 
 A copy of the dataclasses in the JAX package's ``configs/base.py`` (the port
 imports nothing of that package).  The fields are identical, so a config
-module copies over unchanged; the registry lists only the architectures the
-port runs so far.
+module copies over unchanged; the registry lists the JAX package's ten
+architectures in its order.
 """
 
 from __future__ import annotations
@@ -133,13 +133,16 @@ class ModelConfig:
 
 
 _MODULES = {
+    "jamba-v0.1-52b": "jamba_v01_52b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "olmoe-1b-7b": "olmoe_1b_7b",
+    "minicpm3-4b": "minicpm3_4b",
     "internlm2-1.8b": "internlm2_1_8b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
     "qwen3-32b": "qwen3_32b",
-    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-    "olmoe-1b-7b": "olmoe_1b_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "mamba2-1.3b": "mamba2_1_3b",
-    "jamba-v0.1-52b": "jamba_v01_52b",
+    "phi-3-vision-4.2b": "phi_3_vision_4_2b",
 }
 
 ARCH_IDS = list(_MODULES)

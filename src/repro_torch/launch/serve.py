@@ -10,6 +10,13 @@ one-shot baseline, on the card unless ``--device cpu``.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b --reduced \
       --device cpu
 
+  # MLA (minicpm3-4b) and the vision model (phi-3-vision-4.2b, served on
+  # text); seamless-m4t-large-v2's engines refuse it, as the reference's do
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
+      --requests 8 --slots 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch phi-3-vision-4.2b \
+      --device cpu --reduced
+
   # one-shot lockstep baseline, small config on the CPU
   PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu \
       --one-shot --batch 4 --prompt-len 32 --new-tokens 16

@@ -4,7 +4,8 @@
       --steps 8 --batch 8 --seq 256
 
   # small config on the CPU; --arch granite-moe-1b-a400m (MoE), --arch
-  # mamba2-1.3b (SSM) and --arch jamba-v0.1-52b (hybrid) train the same way
+  # mamba2-1.3b (SSM), --arch jamba-v0.1-52b (hybrid), --arch minicpm3-4b
+  # (MLA) and --arch phi-3-vision-4.2b (on text) train the same way
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 3
 
   # checkpoints every 2 steps and at the last; --resume restarts after the
@@ -13,7 +14,10 @@
   PYTHONPATH=src python -m repro_torch.launch.train --reduced --device cpu --steps 6 \
       --ckpt-dir build/run1 --ckpt-every 2 --resume --trace build/run1.json --metrics
 
-One device, random weights (seed 0), ``SyntheticLM`` batches (seed 0).  The
+One device, random weights (seed 0), ``SyntheticLM`` batches (seed 0):
+tokens and targets only, as the JAX launcher's, so an encoder-decoder
+(``seamless-m4t-large-v2``), whose loss reads ``encoder_frames``, fails
+here as it does there.  The
 JAX launcher's mesh, sync and orchestrator flags wait for the multi-device
 work (ROADMAP A11, A12).  It prints the reference's ``step N loss ...
 gnorm ... lr ...`` lines (`` [straggler]`` after a step slower than twice

@@ -1,18 +1,27 @@
-"""Attention: GQA with qk-norm, RoPE and sliding window.
+"""Attention: GQA with qk-norm, RoPE and sliding window, and MLA.
 
-Counterpart of the JAX package's ``models/attention.py`` (GQA only; MLA
-waits for a later slice).  Two execution paths:
+Counterpart of the JAX package's ``models/attention.py``.  Three execution
+paths:
 
-  * prefill / train: the whole sequence at once through
+  * GQA prefill / train: the whole sequence at once through
     ``kernels.flash_attention`` -- the hand-written kernel on the card, its
     plain version on the CPU;
-  * decode: one token per row against a ring KV cache, in plain PyTorch with
-    the reference's numerics (fp32 softmax, probabilities cast to the compute
-    dtype before the PV product).  Sliding-window layers keep ``window``
-    entries.
+  * GQA decode: one token per row against a ring KV cache, in plain PyTorch
+    with the reference's numerics (fp32 softmax, probabilities cast to the
+    compute dtype before the PV product).  Sliding-window layers keep
+    ``window`` entries;
+  * MLA (multi-head latent attention, minicpm3): the expanded form through
+    ``blockwise_attention`` in prefill and training (q/k head dim
+    ``qk_nope + qk_rope``, v head dim ``v_head_dim``), the absorbed form over
+    the compressed cache in decode.  Both are plain PyTorch because the JAX
+    package computes them outside any Pallas kernel, whatever its ``impl``
+    (its ``mla_apply`` calls ``blockwise_attention`` and einsums): there is
+    no TPU kernel on this path to port.
 
-A cache is a dict ``{"k", "v": [B, L, KV, D], "pos": [B, L] int32}``; decode
-writes the new entry into it in place and returns the same dict.
+A GQA cache is a dict ``{"k", "v": [B, L, KV, D], "pos": [B, L] int32}``, an
+MLA cache ``{"ckv": [B, L, kv_lora_rank], "k_rope": [B, L, qk_rope],
+"pos"}``; decode writes the new entry into it in place and returns the same
+dict.
 """
 
 from __future__ import annotations
@@ -29,6 +38,9 @@ __all__ = [
     "init_attention_cache",
     "masked_attention",
     "blockwise_attention",
+    "mla_init",
+    "mla_apply",
+    "init_mla_cache",
 ]
 
 NEG_INF = -1e30
@@ -63,7 +75,8 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int, q_offset: int, sc
                         q_chunk: int = 4096):
     """``masked_attention`` over query chunks against the full key range (the
     JAX package's XLA prefill path), bounding the live scores to
-    [B, Kv, G, q_chunk, Sk].  ``q_offset`` is the absolute position of q[0]."""
+    [B, Kv, G, q_chunk, Sk].  ``q_offset`` is the absolute position of q[0].
+    The value head dim may differ from the query's (MLA)."""
     sq, sk = q.shape[1], k.shape[1]
     k_pos = torch.arange(sk, device=q.device)
     outs = []
@@ -111,6 +124,24 @@ def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int,
     }
 
 
+def _write_ring(cache: dict, new: dict, pos: torch.Tensor, ragged: bool) -> None:
+    """Write each leaf of ``new`` ([B, 1, ...]) and the positions ``pos``
+    [B] into ``cache``'s ring in place: each row at its own slot ``pos %
+    L`` (``ragged``), or the whole batch at row 0's slot (lockstep)."""
+    length = cache["pos"].shape[1]
+    if ragged:
+        rows = torch.arange(pos.shape[0], device=pos.device)
+        slot = pos % length
+        for name, t in new.items():
+            cache[name][rows, slot] = t[:, 0].to(cache[name].dtype)
+        cache["pos"][rows, slot] = pos.to(torch.int32)
+    else:
+        slot = (pos[:1] % length).long()
+        for name, t in new.items():
+            cache[name].index_copy_(1, slot, t.to(cache[name].dtype))
+        cache["pos"].index_copy_(1, slot, pos[:, None].to(torch.int32))
+
+
 def attention_apply(
     params: dict,
     x: torch.Tensor,
@@ -149,19 +180,8 @@ def attention_apply(
         if s != 1:
             raise ValueError("decode expects a single new token per row")
         pos = positions[:, 0]
+        _write_ring(cache, {"k": k, "v": v}, pos, ragged)
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-        length = ck.shape[1]
-        if ragged:
-            rows = torch.arange(b, device=x.device)
-            slot = pos % length
-            ck[rows, slot] = k[:, 0].to(ck.dtype)
-            cv[rows, slot] = v[:, 0].to(cv.dtype)
-            cpos[rows, slot] = pos.to(torch.int32)
-        else:
-            slot = (pos[:1] % length).long()
-            ck.index_copy_(1, slot, k.to(ck.dtype))
-            cv.index_copy_(1, slot, v.to(cv.dtype))
-            cpos.index_copy_(1, slot, pos[:, None].to(torch.int32))
         delta = pos[:, None] - cpos
         valid = (cpos >= 0) & (delta >= 0)
         if window > 0:
@@ -171,4 +191,106 @@ def attention_apply(
         new_cache = cache
 
     out = out.reshape(b, s, cfg.n_heads * h)
+    return out @ params["w_o"].to(dt), new_cache
+
+
+# --------------------------------------------------------------------------
+# MLA (multi-head latent attention, MiniCPM3 / DeepSeek-V2 style)
+# --------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> dict:
+    m, d, nh = cfg.mla, cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "w_dq": dense_init(gen, (d, m.q_lora_rank), dtype),
+        "q_norm": zeros_init(gen, (m.q_lora_rank,), dtype),
+        "w_uq": dense_init(gen, (m.q_lora_rank, nh * qk), dtype),
+        "w_dkv": dense_init(gen, (d, m.kv_lora_rank + m.qk_rope_head_dim), dtype),
+        "kv_norm": zeros_init(gen, (m.kv_lora_rank,), dtype),
+        "w_uk": dense_init(gen, (m.kv_lora_rank, nh * m.qk_nope_head_dim), dtype),
+        "w_uv": dense_init(gen, (m.kv_lora_rank, nh * m.v_head_dim), dtype),
+        "w_o": dense_init(gen, (nh * m.v_head_dim, d), dtype),
+    }
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfloat16,
+                   device=None) -> dict:
+    """The compressed cache: the latent KV and the decoupled RoPE keys, no
+    window."""
+    m = cfg.mla
+    return {
+        "ckv": torch.zeros((batch, seq_len, m.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, seq_len, m.qk_rope_head_dim), dtype=dtype, device=device),
+        "pos": torch.full((batch, seq_len), -1, dtype=torch.int32, device=device),
+    }
+
+
+def _mla_qkv(params, x, cfg, positions):
+    """(q_nope, q_rope [B, S, H, .], ckv [B, S, rank], k_rope [B, S, rope]):
+    the RoPE keys are rotated with a singleton head axis, shared by every
+    head."""
+    m, dt = cfg.mla, x.dtype
+    b, s, _ = x.shape
+    cq = rms_norm(x @ params["w_dq"].to(dt), params["q_norm"], cfg.norm_eps)
+    q = (cq @ params["w_uq"].to(dt)).reshape(b, s, cfg.n_heads,
+                                             m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q[..., : m.qk_nope_head_dim], q[..., m.qk_nope_head_dim :]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    dkv = x @ params["w_dkv"].to(dt)
+    ckv = rms_norm(dkv[..., : m.kv_lora_rank], params["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(dkv[..., None, m.kv_lora_rank :], positions, cfg.rope_theta)[:, :, 0]
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_apply(
+    params: dict,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,
+    cache: dict | None = None,
+    update_cache: bool = False,
+    ragged: bool = False,
+):
+    """Returns (out [B,S,D], cache), as ``attention_apply``.  Prefill and
+    training expand the latent KV into per-head keys and values and attend
+    through ``blockwise_attention``; decode absorbs ``w_uk`` into the query
+    and ``w_uv`` into the output and attends over the compressed cache,
+    keeping the probabilities in fp32 and contracting them with an fp32 copy
+    of ``ckv``, as the reference does."""
+    m, dt = cfg.mla, x.dtype
+    b, s, _ = x.shape
+    nh = cfg.n_heads
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(params, x, cfg, positions)
+
+    if cache is None:
+        k_nope = (ckv @ params["w_uk"].to(dt)).reshape(b, s, nh, m.qk_nope_head_dim)
+        v = (ckv @ params["w_uv"].to(dt)).reshape(b, s, nh, m.v_head_dim)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(q_rope.shape)], dim=-1)
+        out = blockwise_attention(q, k, v, causal=True, window=0, q_offset=0, scale=scale)
+        new_cache = None
+        if update_cache:
+            new_cache = {"ckv": ckv, "k_rope": k_rope, "pos": positions.to(torch.int32)}
+    else:
+        if s != 1:
+            raise ValueError("decode expects a single new token per row")
+        pos = positions[:, 0]
+        _write_ring(cache, {"ckv": ckv, "k_rope": k_rope}, pos, ragged)
+        cckv, ckrope, cpos = cache["ckv"], cache["k_rope"], cache["pos"]
+        w_uk = params["w_uk"].to(dt).reshape(m.kv_lora_rank, nh, m.qk_nope_head_dim)
+        q_lat = torch.einsum("bshd,rhd->bshr", q_nope, w_uk)  # [B,1,H,rank]
+        scores = (torch.einsum("bshr,blr->bhsl", q_lat.float(), cckv.to(dt).float())
+                  + torch.einsum("bshd,bld->bhsl", q_rope.float(), ckrope.to(dt).float()))
+        valid = (cpos >= 0) & (pos[:, None] >= cpos)
+        scores = torch.where(valid[:, None, None, :], scores * scale, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        o_lat = torch.einsum("bhsl,blr->bshr", probs, cckv.float())  # [B,1,H,rank]
+        w_uv = params["w_uv"].to(dt).reshape(m.kv_lora_rank, nh, m.v_head_dim)
+        out = torch.einsum("bshr,rhd->bshd", o_lat.to(dt), w_uv)
+        new_cache = cache
+
+    out = out.reshape(b, s, nh * m.v_head_dim).to(dt)
     return out @ params["w_o"].to(dt), new_cache

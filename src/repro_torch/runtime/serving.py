@@ -832,6 +832,8 @@ class ContinuousBatchingEngine:
         max_queue_depth: Optional[int] = None,
         obs=None,
     ):
+        if model.cfg.enc_dec:  # the reference's refusal, before anything is built
+            raise NotImplementedError("continuous batching supports decoder-only models")
         _one_device(mesh)
         self.model = model
         self.params = model.load(params)
@@ -1310,9 +1312,13 @@ class ServingEngine:
     def generate(self, prompts: np.ndarray, max_new_tokens: int, pad_id: int = 0,
                  temperature: float = 0.0, seed: int = 0) -> np.ndarray:
         """``prompts`` [B, S] int; returns generated tokens [B, max_new_tokens].
-        ``pad_id`` is accepted and unused, as in the reference."""
+        ``pad_id`` is accepted and unused, as in the reference, which also
+        refuses an encoder-decoder here (its engine builds, as this one
+        does)."""
         model = self.model
         b, s = prompts.shape
+        if model.cfg.enc_dec:
+            raise NotImplementedError("use generate_enc_dec for encoder-decoder models")
         temps = [temperature] * b
         with torch.no_grad():
             logits, caches = model.prefill(

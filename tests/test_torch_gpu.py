@@ -665,3 +665,75 @@ def test_hybrid_prefill_and_decode_on_card_match_cpu(cuda):
         runs.append(torch.stack(out, 1))
     torch.testing.assert_close(runs[1], runs[0], atol=1e-4, rtol=1e-4)
     assert torch.equal(runs[1].argmax(-1), runs[0].argmax(-1))
+
+
+# ------------------------------------------------ phi-3-vision, seamless-m4t, minicpm3
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("arch,b,s", [("phi-3-vision-4.2b", 2, 832), ("phi-3-vision-4.2b", 8, 256),
+                                      ("seamless-m4t-large-v2", 4, 64),
+                                      ("seamless-m4t-large-v2", 8, 256)],
+                         ids=["phi3v-frontend", "phi3v-train", "seamless-prefill",
+                              "seamless-train"])
+def test_flash_at_the_new_families_shapes_matches_plain_version(cuda, dtype, arch, b, s):
+    """phi-3-vision's (32 heads over 32 KV heads of 96: no grouping, the bf16
+    kernel's two 64-column boxes a quarter zero) and seamless's decoder
+    (16 over 16 of 64) flash shapes, forward and backward, against the
+    plain versions: the forward within the per-kernel tolerance, dq, dk
+    and dv against ``attention_backward`` within 1e-4 (fp32) or 2e-2
+    (bf16)."""
+    cfg = get_config(arch)
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device=cuda).to(dtype) for n in (h, kv, kv))
+    cot = torch.randn(b, s, h, d, generator=gen, device=cuda).to(dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (kernel.launches, kernel.bwd_launches)
+    out = ops.flash_attention(*leaves, causal=True)
+    grads = torch.autograd.grad(out, leaves, cot)
+    assert (kernel.launches - before[0], kernel.bwd_launches - before[1]) == (1, 1)
+    o_plain, lse_plain = attention_forward(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), o_plain.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    want = attention_backward(q, k, v, o_plain, lse_plain, cot, causal=True)
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "phi-3-vision-4.2b", "seamless-m4t-large-v2"])
+def test_new_families_prefill_and_decode_on_card_match_cpu(cuda, arch):
+    """fp32 REDUCED minicpm3 (MLA: no kernel), phi-3-vision with frontend
+    rows and seamless with encoder frames (flash in the decoder's
+    self-attention): the card and the CPU give the same greedy tokens and
+    logits within 1e-4 over a prefill and 4 decode steps."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True), compute_dtype="float32")
+    cpu_model, gpu_model = build_model(cfg, device="cpu"), build_model(cfg, device=cuda)
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab, (2, 40)))}
+    if cfg.enc_dec:
+        batch["encoder_frames"] = torch.from_numpy(
+            rng.normal(size=(2, 50, cfg.frontend.d_frontend)).astype(np.float32))
+    elif cfg.frontend is not None:
+        batch["frontend_embeds"] = torch.from_numpy(
+            rng.normal(size=(2, cfg.frontend.n_tokens, cfg.frontend.d_frontend))
+            .astype(np.float32))
+    flash = 0 if cfg.attn_type == "mla" else cfg.n_layers
+    runs = []
+    for model in (cpu_model, gpu_model):
+        p = model.load(params)
+        before = kernel.launches
+        logits, caches = model.prefill(p, {n: t.to(model.device) for n, t in batch.items()})
+        assert kernel.launches == before + (flash if model is gpu_model else 0)
+        caches = model.prepare_decode_caches(caches, 48)
+        out = [logits[:, 0].cpu()]
+        pos = torch.full((2,), 40, device=model.device)
+        for _ in range(4):
+            tok = out[-1].argmax(-1)[:, None].to(model.device)
+            logits, caches = model.decode_step(p, caches, tok, pos, ragged=True)
+            out.append(logits[:, 0].cpu())
+            pos = pos + 1
+        runs.append(torch.stack(out, 1))
+    torch.testing.assert_close(runs[1], runs[0], atol=1e-4, rtol=1e-4)
+    assert torch.equal(runs[1].argmax(-1), runs[0].argmax(-1))

@@ -35,7 +35,9 @@ def test_every_module_imports_without_jax():
             "repro_torch.checkpoint.checkpointing", "repro_torch.runtime.fault_tolerance",
             "repro_torch.obs", "repro_torch.obs.trace", "repro_torch.obs.metrics",
             "repro_torch.obs.calibration", "repro_torch.obs.provenance",
-            "repro_torch.obs.logging"} <= set(mods)
+            "repro_torch.obs.logging", "repro_torch.configs.minicpm3_4b",
+            "repro_torch.configs.phi_3_vision_4_2b",
+            "repro_torch.configs.seamless_m4t_large_v2"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

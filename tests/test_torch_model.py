@@ -228,6 +228,9 @@ def test_load_casts_weights_once():
 
 
 def test_unported_families_raise():
+    """Every family is ported; what still raises is a config the reference
+    cannot build either: an encoder-decoder with no frontend to project its
+    frames, MLA layers with no MLA config, SSM layers with no SSM config."""
     cfg = get_config("internlm2-1.8b", reduced=True)
     for bad in (dict(enc_dec=True), dict(attn_type="mla"), dict(attn_period=2)):
         with pytest.raises(NotImplementedError):
@@ -357,10 +360,12 @@ def test_mamba2_load_keeps_ssm_constants_in_fp32():
 
 
 def test_hybrid_stacks_are_refused_by_name():
-    """Hybrid attention/SSM stacks are ported; what the port still refuses,
-    each by name: a stack with SSM layers and no SSM config (hybrid and
-    attention-free alike: the reference has no SSM parameters to build for
-    it), MLA, a frontend and encoder-decoder."""
+    """Hybrid attention/SSM stacks are ported, and so are MLA, frontends and
+    encoder-decoders; what the port still refuses, each by name: a stack
+    with SSM layers and no SSM config (hybrid and attention-free alike: the
+    reference has no SSM parameters to build for it), MLA layers with no
+    MLA config and an encoder-decoder with no frontend.  A frontend on a
+    dense stack builds."""
     from repro_torch.configs.base import FrontendConfig
 
     cfg = dataclasses.replace(get_config(SSM, reduced=True), attn_period=2, n_heads=4,
@@ -370,8 +375,9 @@ def test_hybrid_stacks_are_refused_by_name():
         with pytest.raises(NotImplementedError, match="SSM layers without an SSM config"):
             build_model(dataclasses.replace(cfg, **bad), device="cpu")
     dense = get_config("internlm2-1.8b", reduced=True)
-    for bad, name in ((dict(attn_type="mla"), "MLA"),
-                      (dict(frontend=FrontendConfig("vision", 64, 16)), "frontend"),
-                      (dict(enc_dec=True), "encoder-decoder")):
+    for bad, name in ((dict(attn_type="mla"), "MLA layers without an MLA config"),
+                      (dict(enc_dec=True), "encoder-decoder without a frontend")):
         with pytest.raises(NotImplementedError, match=name):
             build_model(dataclasses.replace(dense, **bad), device="cpu")
+    vision = dataclasses.replace(dense, frontend=FrontendConfig("vision", 64, 16))
+    assert build_model(vision, device="cpu").cfg is vision

@@ -266,6 +266,10 @@ _SIGNATURES = {
     "prefill": (Model.prefill, JaxModel.prefill),
     "decode_step": (Model.decode_step, JaxModel.decode_step),
     "train_loss": (Model.train_loss, JaxModel.train_loss),
+    "init_cache": (Model.init_cache, JaxModel.init_cache),
+    "mask_prompt_cache": (Model.mask_prompt_cache, JaxModel.mask_prompt_cache),
+    "prepare_decode_caches": (Model.prepare_decode_caches, JaxModel.prepare_decode_caches),
+    "ServingEngine.generate": (ServingEngine.generate, jax_serving.ServingEngine.generate),
     "shed_queue": (_ENGINE.shed_queue, _JAX_ENGINE.shed_queue),
     "absorb_pool_metrics": (_ENGINE.absorb_pool_metrics, _JAX_ENGINE.absorb_pool_metrics),
     "run": (_ENGINE.run, _JAX_ENGINE.run),
