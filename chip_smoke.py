@@ -186,11 +186,28 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    6 trains (minicpm3 and phi-3-vision cut to 8 layers, seamless whole;
    phi-3-vision's batches carry 128 frontend rows, seamless's 256 encoder
    frames), with the launches, peak memory and a step profile;
-10. the walls by phase and path, a JSON line of the kernels (the flash and SSD
+10. the CLEX topology simulator (``repro_torch.core``), which launches none
+   of the three kernels (the counters are read around it): its hash RNG on
+   2^20 indices with salts whose top bit is set, card against CPU bit for
+   bit; the JAX package's eight frozen tables (``tests/test_golden_tables.py``)
+   reproduced on the card by the golden and the streaming engine; at m 16,
+   L 3 (4096 nodes, 14 messages a node) both engines dense and light, with
+   1 % node faults and with Valiant routing at level 2, and the streaming
+   engine at chunk 2^10 against 2^20, every field equal on the card and on
+   the CPU, as are a ``scenario_matrix`` row per scenario, the k 16 torus
+   and the streaming all-to-all on m 8, L 3 (clean and faulted); then the
+   paper's experiment, C(1/4, 4) (m 32, L 4, 2^20 nodes) with 28 messages a
+   node, dense, seed 1, chunk 2^21, on the streaming engine, and the 102^3
+   torus at 4 a node, held exactly to ``BENCH_sim.json``'s rows, torus
+   fields and factors (copied here) and printed beside the paper's Table
+   I, with the walls, messages a second, peak device memory and a
+   profiled run's device busy time and top kernels;
+11. the walls by phase and path, a JSON line of the kernels (the flash and SSD
    backwards beside the three forward kernels; the SSD backward's launches
    by route and its FMA route's time beside; launches by path, the train
    paths, the checkpoint phase, the session paths and phase 9's paths
-   among them), and as the last line ``{"ok": true, "device": {...}}``.
+   among them, and the simulator's, all 0), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
 """
@@ -239,7 +256,16 @@ from repro_torch.models.layers import dense_init, embed_init, zeros_init  # noqa
 from repro_torch.models.moe import capacity  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update  # noqa: E402
 from repro_torch.runtime.fault_tolerance import run_with_restarts  # noqa: E402
-from repro_torch.obs import Obs  # noqa: E402
+from repro_torch.configs.clex_paper import (  # noqa: E402
+    PAPER_DERIVED, PAPER_TABLES, PAPER_TOPOLOGIES, PAPER_TRAFFIC)
+from repro_torch.core import (  # noqa: E402
+    CLEXTopology, FaultSet, StreamingEngine, TorusTopology, derive_comparison, scenario_matrix,
+    simulate_all_to_all_streaming, simulate_point_to_point, simulate_point_to_point_streaming,
+    simulate_torus_dor_streaming)
+from repro_torch.core.hashrng import (  # noqa: E402
+    hash_randint, hash_u01, mix64, pseudo_permutation, salt_for)
+from repro_torch.core.scenarios import asymmetric_bandwidth  # noqa: E402
+from repro_torch.obs import Obs, get_obs, set_obs  # noqa: E402
 from repro_torch.runtime.serving import (  # noqa: E402
     ContinuousBatchingEngine, KVPool, ServingEngine, TierConfig)
 from repro_torch.runtime.trainer import Trainer, value_and_grads  # noqa: E402
@@ -2698,6 +2724,310 @@ def phase_checkpoint() -> dict:
     return launches
 
 
+# ----------------------------------------------------- phase 10: the simulator
+# tests/test_golden_tables.py's frozen tables of the JAX package's numpy
+# simulator, keyed (m, L, mode, seed, messages a node); the golden engine's
+# and the streaming engine's
+SIM_GOLDEN = {
+    (4, 2, "dense", 0, 3): [
+        {"lvl": 1, "max_rds": 3, "avg_rds": 2.15, "max_avg_load": 3.75, "avg_hops": 1.83},
+        {"lvl": 2, "max_rds": 2, "avg_rds": 1.06, "max_avg_load": 3.0, "avg_hops": 1.0},
+    ],
+    (8, 2, "light", 1, 2): [
+        {"lvl": 1, "max_rds": 3, "avg_rds": 1.93, "max_avg_load": 2.38, "avg_hops": 1.83},
+        {"lvl": 2, "max_rds": 1, "avg_rds": 1.0, "max_avg_load": 2.0, "avg_hops": 1.0},
+    ],
+    (4, 3, "dense", 2, 2): [
+        {"lvl": 1, "max_rds": 3, "avg_rds": 3.89, "max_avg_load": 3.75, "avg_hops": 3.47},
+        {"lvl": 2, "max_rds": 2, "avg_rds": 2.02, "max_avg_load": 2.0, "avg_hops": 2.0},
+        {"lvl": 3, "max_rds": 2, "avg_rds": 1.05, "max_avg_load": 2.0, "avg_hops": 1.0},
+    ],
+    (8, 3, "light", 3, 2): [
+        {"lvl": 1, "max_rds": 3, "avg_rds": 3.98, "max_avg_load": 3.5, "avg_hops": 3.72},
+        {"lvl": 2, "max_rds": 1, "avg_rds": 2.0, "max_avg_load": 2.0, "avg_hops": 2.0},
+        {"lvl": 3, "max_rds": 1, "avg_rds": 1.0, "max_avg_load": 2.0, "avg_hops": 1.0},
+    ],
+}
+SIM_GOLDEN_STREAMING = {
+    (4, 2, "dense", 0, 3): [
+        {"lvl": 1, "max_rds": 3, "avg_rds": 2.35, "max_avg_load": 4.25, "avg_hops": 1.96},
+        {"lvl": 2, "max_rds": 2, "avg_rds": 1.06, "max_avg_load": 3.0, "avg_hops": 1.0},
+    ],
+    (8, 2, "light", 1, 2): [
+        {"lvl": 1, "max_rds": 3, "avg_rds": 1.92, "max_avg_load": 2.38, "avg_hops": 1.79},
+        {"lvl": 2, "max_rds": 1, "avg_rds": 1.0, "max_avg_load": 2.0, "avg_hops": 1.0},
+    ],
+    (4, 3, "dense", 2, 2): [
+        {"lvl": 1, "max_rds": 3, "avg_rds": 4.06, "max_avg_load": 4.25, "avg_hops": 3.55},
+        {"lvl": 2, "max_rds": 2, "avg_rds": 2.03, "max_avg_load": 2.0, "avg_hops": 2.0},
+        {"lvl": 3, "max_rds": 2, "avg_rds": 1.02, "max_avg_load": 2.0, "avg_hops": 1.0},
+    ],
+    (8, 3, "light", 3, 2): [
+        {"lvl": 1, "max_rds": 3, "avg_rds": 4.05, "max_avg_load": 3.62, "avg_hops": 3.76},
+        {"lvl": 2, "max_rds": 1, "avg_rds": 2.0, "max_avg_load": 2.0, "avg_hops": 2.0},
+        {"lvl": 3, "max_rds": 1, "avg_rds": 1.0, "max_avg_load": 2.0, "avg_hops": 1.0},
+    ],
+}
+# The paper's experiment: C(1/4, 4) (m 32, L 4, 2^20 nodes), 28 messages a
+# node, dense, seed 1, chunk 2^21, on the streaming engine; then the 102^3
+# torus at 4 a node.  The rows, torus fields and factors are BENCH_sim.json's
+# (``clex.rows``, ``torus``, ``factors``); the JAX package's numpy streaming
+# engine, rerun on a CPU at those settings, gave the same rows and fields,
+# and the exact sums, histogram and edge loads below.
+PAPER_SEED, PAPER_CHUNK, PAPER_TORUS_K, PAPER_TORUS_MSGS = 1, 1 << 21, 102, 4
+PAPER_ROWS = [
+    {"lvl": 1, "max_rds": 7, "avg_rds": 13.51, "max_avg_load": 44.0, "avg_hops": 10.32},
+    {"lvl": 2, "max_rds": 2, "avg_rds": 4.1, "max_avg_load": 28.46, "avg_hops": 4.0},
+    {"lvl": 3, "max_rds": 2, "avg_rds": 2.05, "max_avg_load": 28.0, "avg_hops": 2.0},
+    {"lvl": 4, "max_rds": 2, "avg_rds": 1.03, "max_avg_load": 28.0, "avg_hops": 1.0},
+]
+PAPER_LEVELS = {  # level: (max_rounds, rounds_total, hops_total, max_avg_load, detours)
+    1: (7, 396633484.0, 303048533.0, 44.0, 0),
+    2: (2, 120404954.0, 117440512.0, 28.458984375, 0),
+    3: (2, 60226861.0, 58720256.0, 28.0, 0),
+    4: (2, 30112152.0, 29360128.0, 28.0, 0),
+}
+PAPER_PHASE_HIST = {3: 228554, 4: 33590}  # A(1) instances by last phase; 51 entries
+PAPER_EDGE_LOAD = {
+    4: {"max_edge_load": 2, "messages": 29360128, "bundles_used": 1048576,
+        "live_edges": 33554432},
+    3: {"max_edge_load": 2, "messages": 58720256, "bundles_used": 2097152,
+        "live_edges": 67108864},
+    2: {"max_edge_load": 2, "messages": 117440512, "bundles_used": 4194304,
+        "live_edges": 134217728},
+}
+PAPER_TORUS_ROW = {"avg_hops": 76.48, "max_hops": 153, "max_link_load": 92,
+                   "mean_link_load": 50.99, "completion_rounds_lb": 153}
+PAPER_FACTORS = {"bandwidth_utilization_factor": 8.8, "hop_delay_reduction": 7.4,
+                 "propagation_ratio": 2.5, "path_length_factor_vs_torus_hops": 4.42}
+PAPER_TORUS_EXACT = {"n_messages": 4244832, "links_used": 6367248,
+                     "avg_hops": 76.4806677861456, "mean_link_load": 50.9871118574304}
+MID_TOPO, MID_MSGS, MID_SEED = (16, 3), 14, 2  # 4096 nodes, about 0.9 m messages a node
+
+
+def _sim_fields(res) -> dict:
+    """Every field of a simulator result but its wall (and the golden
+    engine's audit trace), in comparable form."""
+    out = {}
+    for f in dataclasses.fields(res):
+        if f.name in ("wall_seconds", "audit"):
+            continue
+        v = getattr(res, f.name)
+        if f.name == "levels":
+            v = {lvl: dataclasses.asdict(st) for lvl, st in v.items()}
+        elif isinstance(v, np.ndarray):
+            v = (str(v.dtype), v.tolist())
+        out[f.name] = v
+    return out
+
+
+def _sim_check(label: str, ok: bool, detail: str = "") -> None:
+    log(f"phase 10 check {label}: {'ok' if ok else 'MISMATCH'}{'; ' + detail if detail else ''}")
+    if not ok:
+        raise SystemExit(f"phase 10: {label} differs")
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _check_hash_bits() -> None:
+    """The hash RNG on 2^20 indices with salts whose top bit is set: card
+    against CPU, bit for bit (mix64 on words whose top bit is set)."""
+    g = torch.arange(1 << 20, dtype=torch.int64)
+    salts = [s for s in (salt_for(i, "chip_smoke", "hash") for i in range(64)) if s >> 63][:2]
+    bounds = (g * 7919) % 1000003 + 1
+    for salt in salts:
+        words = g * -7046029254386353131 + (salt - (1 << 64))  # wraps, as uint64 does
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            gd, wd, bd = g.to(dev), words.to(dev), bounds.to(dev)
+            outs[dev] = [mix64(wd), hash_u01(gd, salt), hash_randint(gd, 1000003, salt),
+                         hash_randint(gd, bd, salt), pseudo_permutation(gd, 29360128, salt)]
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(outs["cuda"], outs["cpu"]))
+        top = int((words < 0).sum())
+        _sim_check(f"hash bits salt {salt:#018x}", same,
+                   f"mix64, hash_u01, hash_randint (scalar and per-index bounds), "
+                   f"pseudo_permutation over 2^20 indices ({top} words with the top bit set), "
+                   "card == cpu")
+
+
+def _check_frozen_tables() -> None:
+    for engine, fn, tables in (("golden", simulate_point_to_point, SIM_GOLDEN),
+                               ("streaming", simulate_point_to_point_streaming,
+                                SIM_GOLDEN_STREAMING)):
+        for (m, L, mode, seed, msgs), rows in tables.items():
+            res = fn(CLEXTopology(m, L), msgs, mode=mode, seed=seed, device="cuda")
+            _sim_check(f"frozen table {engine} m{m} L{L} {mode} seed {seed}",
+                       res.table() == rows)
+
+
+def _check_card_vs_cpu() -> None:
+    """The middle size (m 16, L 3, 4096 nodes) on the card and on the CPU,
+    every field equal; then the torus, the scenario matrix and the
+    all-to-all."""
+    topo = CLEXTopology(*MID_TOPO)
+    faults = FaultSet.sample(topo, node_rate=0.01, rng=np.random.default_rng(MID_SEED))
+    p2p = simulate_point_to_point
+    stream = simulate_point_to_point_streaming
+    cases = [
+        ("golden dense", p2p, dict(mode="dense")),
+        ("golden light", p2p, dict(mode="light")),
+        ("golden dense, 1% node faults", p2p, dict(mode="dense", faults=faults)),
+        ("golden light, Valiant level 2", p2p, dict(mode="light", valiant_level=2)),
+        ("streaming dense", stream, dict(mode="dense")),
+        ("streaming light", stream, dict(mode="light")),
+        ("streaming dense, 1% node faults", stream, dict(mode="dense", faults=faults)),
+        ("streaming light, 1% node faults", stream, dict(mode="light", faults=faults)),
+        ("streaming dense, Valiant level 2", stream, dict(mode="dense", valiant_level=2)),
+        ("streaming dense, chunk 2^10", stream, dict(mode="dense", chunk_size=1 << 10)),
+    ]
+    card_of = {}
+    for label, fn, kw in cases:
+        card, t_card = _timed(lambda: fn(topo, MID_MSGS, seed=MID_SEED, device="cuda", **kw))
+        t0 = time.perf_counter()
+        cpu = fn(topo, MID_MSGS, seed=MID_SEED, device="cpu", **kw)
+        t_cpu = time.perf_counter() - t0
+        card_of[label] = card
+        extra = f"{card.total_detours} detours, " if card.total_detours else ""
+        _sim_check(f"card vs cpu m16 L3 {label}", _sim_fields(card) == _sim_fields(cpu),
+                   f"{card.n_messages} messages, {extra}{card.n_dropped_dead} dropped, "
+                   f"sum avg rounds {card.sum_avg_rounds!r}; card {t_card:.2f} s, "
+                   f"cpu {t_cpu:.2f} s (host clock)")
+    small, big = card_of["streaming dense, chunk 2^10"], card_of["streaming dense"]
+    small.chunk_size = big.chunk_size
+    _sim_check("chunk 2^10 against chunk 2^20 on the card", _sim_fields(small) == _sim_fields(big))
+    torus = TorusTopology.cube(16)
+    card, t_card = _timed(lambda: simulate_torus_dor_streaming(torus, 4, seed=MID_SEED,
+                                                               device="cuda"))
+    cpu = simulate_torus_dor_streaming(torus, 4, seed=MID_SEED, device="cpu")
+    _sim_check("card vs cpu torus streaming k16", _sim_fields(card) == _sim_fields(cpu),
+               f"{card.row()}; card {t_card:.2f} s")
+    rows, t_card = _timed(lambda: scenario_matrix(topo, torus, 4, seed=MID_SEED,
+                                                  engine="streaming", device="cuda"))
+    cpu_rows = scenario_matrix(topo, torus, 4, seed=MID_SEED, engine="streaming", device="cpu")
+    _sim_check("card vs cpu scenario_matrix m16 L3 / k16, streaming", rows == cpu_rows,
+               f"{len(rows)} rows ({', '.join(r['scenario'] for r in rows)}); card "
+               f"{t_card:.2f} s")
+    a2a = CLEXTopology(8, 3)
+    a2a_faults = FaultSet.sample(a2a, node_rate=0.01, rng=np.random.default_rng(MID_SEED))
+    for label, f in (("", None), (", 1% node faults", a2a_faults)):
+        bw = asymmetric_bandwidth(a2a)
+        card, t_card = _timed(lambda: simulate_all_to_all_streaming(
+            a2a, bandwidth=bw, faults=f, seed=MID_SEED, device="cuda"))
+        cpu = simulate_all_to_all_streaming(a2a, bandwidth=bw, faults=f, seed=MID_SEED,
+                                            device="cpu")
+        _sim_check(f"card vs cpu all-to-all streaming m8 L3{label}",
+                   _sim_fields(card) == _sim_fields(cpu),
+                   f"{card.row()}; card {t_card:.2f} s")
+
+
+def _profile(fn) -> tuple[float, str]:
+    """Device busy ms of one call of ``fn`` under torch.profiler, its
+    kernel count and top kernels by device time."""
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if busy_ms == 0:
+        return 0.0, "the profiler saw no device time (not measured)"
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return busy_ms, (f"{sum(e.count for e in events)} kernels; top device time: "
+                     + "; ".join(f"{e.key[:70]} {e.self_device_time_total / 1e3:.1f} ms "
+                                 f"x{e.count}" for e in top))
+
+
+def _run_paper(smi: str) -> None:
+    topo = PAPER_TOPOLOGIES["c14_4"]
+    msgs = PAPER_TRAFFIC[("c14_4", "dense")]
+    eng = StreamingEngine(chunk_size=PAPER_CHUNK, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prev = get_obs()
+    set_obs(ob := Obs())  # the engine's chunk instants, in s since this line, time its parts
+    try:
+        res, wall = _timed(lambda: eng.run_clex(topo, msgs, mode="dense", seed=PAPER_SEED))
+    finally:
+        set_obs(prev)
+    chunks = [e["ts"] for e in ob.tracer.events if e["name"] == "sim_chunk"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    levels = {lvl: (st.max_rounds, st.rounds_total, st.hops_total, st.max_avg_load, st.detours)
+              for lvl, st in res.levels.items()}
+    hist = {i: int(c) for i, c in enumerate(res.lb_phase_histogram) if c}
+    exact = (res.table() == PAPER_ROWS and levels == PAPER_LEVELS and hist == PAPER_PHASE_HIST
+             and len(res.lb_phase_histogram) == 51 and res.edge_load == PAPER_EDGE_LOAD
+             and res.n_messages == topo.n * msgs and all(
+                 st.n_messages == topo.n * msgs for st in res.levels.values()))
+    paper = PAPER_TABLES["table1"]
+    for row in res.table():
+        log(f"phase 10 paper C(1/4, 4) dense: {row}; the paper's Table I: "
+            f"{dict(zip(('max_rds', 'avg_rds', 'max_avg_load', 'avg_hops'), paper[row['lvl']]))}")
+    _sim_check("paper C(1/4, 4) m32 L4, 2^20 nodes, 28 a node, dense, seed 1, chunk 2^21",
+               exact, "rows equal BENCH_sim.json's clex.rows; rounds and hops totals, "
+               "phase histogram and edge loads equal the numpy engine's")
+    log(f"phase 10 paper C(1/4, 4): {res.n_messages} messages in {wall:.2f} s wall "
+        f"({res.n_messages / wall / 1e6:.2f} M messages routed a second; the host's traffic "
+        f"shuffle and the first chunk done at {chunks[0]:.2f} s, all {len(chunks)} chunks "
+        f"routed at {chunks[-1]:.2f} s, the A(1) finalize replay and the rest "
+        f"{wall - chunks[-1]:.2f} s), peak device memory {peak:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated); {smi}")
+    busy_ms, top = _profile(lambda: eng.run_clex(topo, msgs, mode="dense", seed=PAPER_SEED))
+    log(f"phase 10 paper C(1/4, 4) profile (a second run under torch.profiler): device busy "
+        f"{busy_ms:.1f} ms = {100 * busy_ms / 1e3 / wall:.1f}% of the unprofiled wall; {top}")
+    tor_topo = TorusTopology.cube(PAPER_TORUS_K)
+    torch.cuda.reset_peak_memory_stats()
+    tor, t_wall = _timed(lambda: eng.run_torus(tor_topo, PAPER_TORUS_MSGS, seed=PAPER_SEED))
+    t_peak = torch.cuda.max_memory_allocated() / 2**30
+    exact = (tor.row() == PAPER_TORUS_ROW and all(
+        getattr(tor, k) == v for k, v in PAPER_TORUS_EXACT.items()))
+    _sim_check(f"paper torus k{PAPER_TORUS_K} ({tor_topo.n} nodes), {PAPER_TORUS_MSGS} a node",
+               exact, f"{tor.row()}, links used {tor.links_used}, mean link load "
+               f"{tor.mean_link_load!r}, avg hops {tor.avg_hops!r} equal BENCH_sim.json's "
+               "torus and the numpy engine's")
+    t_busy, t_top = _profile(lambda: eng.run_torus(tor_topo, PAPER_TORUS_MSGS, seed=PAPER_SEED))
+    log(f"phase 10 paper torus: {tor.n_messages} messages in {t_wall:.2f} s wall "
+        f"({tor.n_messages / t_wall / 1e6:.2f} M messages a second), peak device memory "
+        f"{t_peak:.2f} GiB; profile: device busy {t_busy:.1f} ms; {t_top}; {smi}")
+    derived = derive_comparison(res).row()
+    factors = {"bandwidth_utilization_factor": derived["bandwidth_gain"],
+               "hop_delay_reduction": derived["hop_delay_reduction"],
+               "propagation_ratio": derived["propagation_ratio"],
+               "path_length_factor_vs_torus_hops": round(
+                   tor.avg_hops / max(res.sum_avg_hops, 1e-9), 2)}
+    _sim_check("paper factors", factors == PAPER_FACTORS,
+               f"{factors} equal BENCH_sim.json's factors; the paper's (propagation ratio, "
+               f"hop-delay reduction, bandwidth gain) {PAPER_DERIVED[('c14_4', 'dense')]}")
+
+
+def phase_simulator(smi: str) -> dict:
+    """Phase 10: the CLEX simulator on the card.  It launches none of the
+    three kernels (its work is sorts, histograms and hashes in plain
+    PyTorch ops, as the reference computes it in numpy); the counters are
+    set to 0 before and read after, and returned as the path's launches."""
+    _reset_launches()
+    t0 = time.perf_counter()
+    _check_hash_bits()
+    _check_frozen_tables()
+    _check_card_vs_cpu()
+    checks = time.perf_counter() - t0
+    _run_paper(smi)
+    launches = _launches()
+    if any(launches.values()):
+        raise SystemExit(f"phase 10: the simulator launched a model kernel: {launches}")
+    log(f"phase 10 simulator: checks {checks:.1f} s, paper runs "
+        f"{time.perf_counter() - t0 - checks:.1f} s (host clock); launches of the three "
+        f"kernels {launches}: the simulator path runs none of them")
+    return launches
+
+
 def _kernel_entry(name, mod, replaces, launches, err, rep) -> dict:
     return {
         "name": name,
@@ -2770,6 +3100,8 @@ def main() -> int:
     mark("7 checkpoints")
     paths.update(phase_families(fa_checked, fa_grad_checked))
     mark("9 families")
+    paths["simulator"] = phase_simulator(smi)
+    mark("10 simulator")
     log("walls by phase and path: " + ", ".join(f"{what} {w:.1f} s" for what, w in walls))
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)

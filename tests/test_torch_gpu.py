@@ -737,3 +737,31 @@ def test_new_families_prefill_and_decode_on_card_match_cpu(cuda, arch):
         runs.append(torch.stack(out, 1))
     torch.testing.assert_close(runs[1], runs[0], atol=1e-4, rtol=1e-4)
     assert torch.equal(runs[1].argmax(-1), runs[0].argmax(-1))
+
+
+# one key of tests/test_golden_tables.py's GOLDEN_STREAMING, the JAX
+# package's numpy streaming engine's frozen table
+SIM_KEY = (8, 3, "light", 3, 2)
+SIM_TABLE = [
+    {"lvl": 1, "max_rds": 3, "avg_rds": 4.05, "max_avg_load": 3.62, "avg_hops": 3.76},
+    {"lvl": 2, "max_rds": 1, "avg_rds": 2.0, "max_avg_load": 2.0, "avg_hops": 2.0},
+    {"lvl": 3, "max_rds": 1, "avg_rds": 1.0, "max_avg_load": 2.0, "avg_hops": 1.0},
+]
+
+
+@pytest.mark.gpu
+def test_streaming_simulator_on_card_reproduces_frozen_table(cuda):
+    """The streaming simulator's draws are counter hashes, bit-equal on the
+    card; its counts are int64: the frozen table and the CPU run's
+    statistics hold exactly."""
+    from repro_torch.core import CLEXTopology, simulate_point_to_point_streaming
+
+    m, L, mode, seed, msgs = SIM_KEY
+    runs = [simulate_point_to_point_streaming(CLEXTopology(m, L), msgs, mode=mode, seed=seed,
+                                              chunk_size=100, device=dev)
+            for dev in (cuda, "cpu")]
+    assert runs[0].table() == SIM_TABLE
+    assert [dataclasses.asdict(s) for s in runs[0].levels.values()] == \
+        [dataclasses.asdict(s) for s in runs[1].levels.values()]
+    assert np.array_equal(runs[0].lb_phase_histogram, runs[1].lb_phase_histogram)
+    assert runs[0].edge_load == runs[1].edge_load

@@ -37,7 +37,10 @@ def test_every_module_imports_without_jax():
             "repro_torch.obs.calibration", "repro_torch.obs.provenance",
             "repro_torch.obs.logging", "repro_torch.configs.minicpm3_4b",
             "repro_torch.configs.phi_3_vision_4_2b",
-            "repro_torch.configs.seamless_m4t_large_v2"} <= set(mods)
+            "repro_torch.configs.seamless_m4t_large_v2", "repro_torch.configs.clex_paper",
+            *(f"repro_torch.core.{m}" for m in (
+                "hashrng", "topology", "routing", "simulator", "streaming", "torus_sim",
+                "scenarios", "analysis", "sim_engine"))} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
