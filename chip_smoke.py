@@ -202,11 +202,43 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    fields and factors (copied here) and printed beside the paper's Table
    I, with the walls, messages a second, peak device memory and a
    profiled run's device busy time and top kernels;
-11. the walls by phase and path, a JSON line of the kernels (the flash and SSD
+11. data-parallel training across ranks: 4 processes sharing the card
+   under gloo (NCCL refuses two ranks on one device), a pod 2 x data 2 x
+   model 1 mesh (``launch/mesh.py``), internlm2-1.8b at full width cut to
+   2 layers.  First which collectives gloo takes on CUDA tensors (the
+   collectives stage every gloo call through pinned host memory
+   regardless).  In fp32 (B 2 x S 128 a rank), one step of the flat, the
+   CLEX-staged and the int8 sync from one init: flat and staged params
+   within 1e-5 of each other, int8 within 2e-3 of staged, every rank's
+   params bit-identical to rank 0's; the flat- and staged-synced gradient
+   within 1e-4 of each leaf's largest value of one process's gradient of
+   the whole batch, the loss within 1e-5 relative; the int8
+   cross-pod sum on every rank's shard of each gradient leaf within one
+   quantum of the exact sum, its residuals nonzero and total + residuals
+   equal to the exact sum within 1e-5 of the leaf's largest value.  In
+   bf16 (B 8 x S 256 a rank), two steps of each sync: the walls, the bytes
+   each rank sent (counted in the collectives) beside the cost model's
+   cross-pod wire bytes and modeled seconds, and the peak memory; then a
+   third step profiled on rank 0 (device busy, the host copies, the host
+   time in the collectives).  Each
+   rank's launches (held to the passes it made) and the shapes it
+   launched the kernels at (any not checked before held against the plain
+   versions); then the train launcher on 4 ranks under torchrun
+   (``--mesh 2x2x1 --hierarchical-sync --compress --reduced``, 3 steps);
+12. the port's three examples (``examples/torch_*.py``) run in this
+   process with ``--device cuda``: the quickstart (the simulator at m 16,
+   L 3, then 30 steps of REDUCED internlm2), the MoE serving example
+   (REDUCED olmoe-1b-7b through both engines) and the end-to-end example
+   (the ~100 M qwen3-family model, ``--steps 100 --fail-at 60``: a
+   restore of step 50); each one's wall, last lines and launches (the
+   training ones held to their passes), its launch shapes checked as in
+   phase 11;
+13. the walls by phase and path, a JSON line of the kernels (the flash and SSD
    backwards beside the three forward kernels; the SSD backward's launches
    by route and its FMA route's time beside; launches by path, the train
-   paths, the checkpoint phase, the session paths and phase 9's paths
-   among them, and the simulator's, all 0), and as the last line
+   paths, the checkpoint phase, the session paths, phase 9's paths, the
+   simulator's (all 0), each rank's of phase 11 and each example's of
+   phase 12 among them), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
@@ -215,12 +247,16 @@ It exits non-zero, printing no result, where no CUDA card is visible.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
+import os
 import re
 import resource
+import runpy
 import shutil
 import subprocess
 import sys
@@ -232,11 +268,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.bridge import reference_leaves  # noqa: E402
 from repro_torch.checkpoint.checkpointing import (  # noqa: E402
     AsyncCheckpointer, verify_checkpoint)
-from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.configs.base import ParallelConfig, get_config  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
@@ -249,6 +287,7 @@ from repro_torch.kernels.moe_gmm.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -262,13 +301,15 @@ from repro_torch.core import (  # noqa: E402
     CLEXTopology, FaultSet, StreamingEngine, TorusTopology, derive_comparison, scenario_matrix,
     simulate_all_to_all_streaming, simulate_point_to_point, simulate_point_to_point_streaming,
     simulate_torus_dor_streaming)
+from repro_torch.core import collectives as col  # noqa: E402
+from repro_torch.core.cost_model import CollectiveCostModel  # noqa: E402
 from repro_torch.core.hashrng import (  # noqa: E402
     hash_randint, hash_u01, mix64, pseudo_permutation, salt_for)
 from repro_torch.core.scenarios import asymmetric_bandwidth  # noqa: E402
 from repro_torch.obs import Obs, get_obs, set_obs  # noqa: E402
 from repro_torch.runtime.serving import (  # noqa: E402
     ContinuousBatchingEngine, KVPool, ServingEngine, TierConfig)
-from repro_torch.runtime.trainer import Trainer, value_and_grads  # noqa: E402
+from repro_torch.runtime.trainer import Trainer, local_rows, value_and_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
@@ -688,8 +729,12 @@ def _ptxas_by_kernel(log: str) -> list[str]:
 
 def main_shape(rows: int, bucket: int, arch: str = DENSE) -> Shape:
     """The flash kernel's shape in one prefill group of ``arch``."""
-    cfg = get_config(arch)
-    return Shape(rows, bucket, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16,
+    return cfg_shape(get_config(arch), rows, bucket)
+
+
+def cfg_shape(cfg, b: int, s: int, dtype=torch.bfloat16) -> Shape:
+    """The flash kernel's shape in ``cfg``'s attention on B x S rows."""
+    return Shape(b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype,
                  window=cfg.sliding_window)
 
 
@@ -788,16 +833,22 @@ def phase_check_flash() -> tuple[float, set[Shape]]:
     main_err = 0.0
     for shape in [s for dt in (torch.float32, torch.bfloat16) for s in sweep_of(dt)] + main + other \
             + edges:
-        q, k, v = shape.inputs()
-        out = fa_ops.flash_attention(q, k, v, causal=shape.causal, window=shape.window)
-        torch.cuda.synchronize()
-        ref = reference_attention(q, k, v, causal=shape.causal, window=shape.window)
-        err = _check("flash_attention", shape, out, ref, TOL[shape.dtype])
+        err = check_flash_shape(shape)
         if shape in main:
             main_err = max(main_err, err)
-        del q, k, v, out, ref
-        torch.cuda.empty_cache()
     return main_err, set(main)
+
+
+def check_flash_shape(shape: Shape, phase: int = 2) -> float:
+    """The forward kernel at ``shape`` against ``reference_attention``."""
+    q, k, v = shape.inputs()
+    out = fa_ops.flash_attention(q, k, v, causal=shape.causal, window=shape.window)
+    torch.cuda.synchronize()
+    ref = reference_attention(q, k, v, causal=shape.causal, window=shape.window)
+    err = _check("flash_attention", shape, out, ref, TOL[shape.dtype], phase=phase)
+    del q, k, v, out, ref
+    torch.cuda.empty_cache()
+    return err
 
 
 def family_flash_shapes() -> list[Shape]:
@@ -864,18 +915,23 @@ def phase_check_gmm() -> tuple[float, set[GmmShape]]:
         # jamba's served shapes, bf16 only: 1.88 GB of weights a shape
         served = hybrid if dt == torch.bfloat16 else []
         for shape in dict.fromkeys(sweep + ragged + strided + granite + backward + train + served):
-            x, w = shape.inputs()
-            out = gmm_ops.gmm(x, w)
-            torch.cuda.synchronize()
-            err = _check("moe_gmm", shape, out, reference_grouped_matmul(x, w), GMM_TOL[dt])
+            err = check_gmm_shape(shape)
             if shape in main:
                 main_err = max(main_err, err)
             checked.add(shape)
-            del x, w, out
             if shape.d * shape.f >= 4096 * 14336:  # jamba's: 0.94 to 1.88 GB of weights
                 torch.cuda.empty_cache()
         torch.cuda.empty_cache()
     return main_err, checked
+
+
+def check_gmm_shape(shape: GmmShape, phase: int = 2) -> float:
+    """The grouped matmul at ``shape`` against ``reference_grouped_matmul``."""
+    x, w = shape.inputs()
+    out = gmm_ops.gmm(x, w)
+    torch.cuda.synchronize()
+    return _check("moe_gmm", shape, out, reference_grouped_matmul(x, w), GMM_TOL[shape.dtype],
+                  phase=phase)
 
 
 def library_call(q, k, v, shape: Shape):
@@ -1961,32 +2017,41 @@ def phase_check_flash_grads() -> tuple[float, set[Shape]]:
     main, main_err = train_shape(), 0.0
     shapes = flash_grad_shapes()
     for shape in shapes:
-        q, k, v = shape.inputs(seed=3)
-        cot = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(4),
-                          device="cuda").to(shape.dtype)
-        before = (fa_kernel.launches, fa_kernel.bwd_launches)
-        got = _flash_grads(shape, q, k, v, cot, plain=False)
-        torch.cuda.synchronize()
-        made = (fa_kernel.launches - before[0], fa_kernel.bwd_launches - before[1])
-        if made != (1, 1) or any(g.dtype != shape.dtype for g in got):
-            raise SystemExit(f"flash_attention backward at {shape}: {made} (forward, backward) "
-                             f"launches, dtypes {[g.dtype for g in got]}")
-        mask = dict(causal=shape.causal, window=shape.window)
-        _, lse = fa_ops._forward(q, k, v, shape.causal, shape.window, True)
-        o_plain, lse_plain = attention_forward(q, k, v, **mask)
-        _check("flash_attention lse", shape, lse, lse_plain, LSE_TOL, phase=6)
-        plain = attention_backward(q, k, v, o_plain, lse_plain, cot, **mask)
-        tol = FLASH_GRAD_TOL[shape.dtype]
-        err = _check("flash_attention_bwd dq/dk/dv vs attention_backward", shape, tuple(got),
-                     plain, tol, phase=6)
-        want = _flash_grads(shape, q, k, v, cot, plain=True)
-        _check("flash_attention_bwd dq/dk/dv vs autograd through reference_attention", shape,
-               tuple(got), tuple(want), tol, phase=6)
+        err = check_flash_grad_shape(shape)
         if shape == main:
             main_err = err
-        del q, k, v, cot, got, plain, want, lse, lse_plain, o_plain
-        torch.cuda.empty_cache()
     return main_err, set(shapes)
+
+
+def check_flash_grad_shape(shape: Shape, phase: int = 6) -> float:
+    """The backward kernel at ``shape`` (one forward and one backward
+    launch) against ``attention_backward`` and autograd through
+    ``reference_attention``, and the forward's logsumexp rows against
+    ``attention_forward``'s; returns the error against the first."""
+    q, k, v = shape.inputs(seed=3)
+    cot = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(4),
+                      device="cuda").to(shape.dtype)
+    before = (fa_kernel.launches, fa_kernel.bwd_launches)
+    got = _flash_grads(shape, q, k, v, cot, plain=False)
+    torch.cuda.synchronize()
+    made = (fa_kernel.launches - before[0], fa_kernel.bwd_launches - before[1])
+    if made != (1, 1) or any(g.dtype != shape.dtype for g in got):
+        raise SystemExit(f"flash_attention backward at {shape}: {made} (forward, backward) "
+                         f"launches, dtypes {[g.dtype for g in got]}")
+    mask = dict(causal=shape.causal, window=shape.window)
+    _, lse = fa_ops._forward(q, k, v, shape.causal, shape.window, True)
+    o_plain, lse_plain = attention_forward(q, k, v, **mask)
+    _check("flash_attention lse", shape, lse, lse_plain, LSE_TOL, phase=phase)
+    plain = attention_backward(q, k, v, o_plain, lse_plain, cot, **mask)
+    tol = FLASH_GRAD_TOL[shape.dtype]
+    err = _check("flash_attention_bwd dq/dk/dv vs attention_backward", shape, tuple(got),
+                 plain, tol, phase=phase)
+    want = _flash_grads(shape, q, k, v, cot, plain=True)
+    _check("flash_attention_bwd dq/dk/dv vs autograd through reference_attention", shape,
+           tuple(got), tuple(want), tol, phase=phase)
+    del q, k, v, cot, got, plain, want, lse, lse_plain, o_plain
+    torch.cuda.empty_cache()
+    return err
 
 
 def _grads(fn, inputs, cot):
@@ -3028,6 +3093,530 @@ def phase_simulator(smi: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------- phase 11: ranks
+
+RANK_MESH = (2, 2, 1)  # pod x data x model: 4 ranks on the one card, under gloo
+RANK_LAYERS = 2  # internlm2-1.8b at full width, cut to 2 layers
+RANK_FP32 = (TRAIN_CPU_BATCH * 4, TRAIN_CPU_SEQ)  # global batch: B 2 x S 128 a rank, fp32
+RANK_BF16 = (TRAIN_BATCH * 4, TRAIN_SEQ)  # B 8 x S 256 a rank, bf16
+RANK_BF16_STEPS = 2
+RANK_TIMEOUT = 420.0
+SYNC_MODES = {"flat": ParallelConfig(hierarchical_grad_sync=False),
+              "staged": ParallelConfig(hierarchical_grad_sync=True),
+              "int8": ParallelConfig(compress_cross_pod=True)}
+
+
+class LaunchShapes:
+    """While active, records the shapes at which the flash kernel (forward
+    and backward) and the grouped matmul are launched, by wrapping the
+    kernel modules' launch functions (the wrappers' counters are untouched)."""
+
+    def __enter__(self):
+        self.flash, self.flash_bwd, self.gmm = set(), set(), set()
+        self._saved = fwd, bwd, gmm = fa_kernel.launch, fa_kernel.launch_bwd, gmm_kernel.launch
+
+        def shape(q, k, causal, window):
+            if q.shape[1] != k.shape[1]:
+                raise SystemExit(f"flash launched with S {q.shape[1]} != Skv {k.shape[1]}")
+            b, s, h, d = q.shape
+            return Shape(b, s, h, k.shape[2], d, q.dtype, causal=bool(causal), window=int(window))
+
+        def launch(q, k, v, o, lse, *, causal, window, scale):
+            self.flash.add(shape(q, k, causal, window))
+            return fwd(q, k, v, o, lse, causal=causal, window=window, scale=scale)
+
+        def launch_bwd(q, k, v, o, lse, *args, causal, window, scale):
+            self.flash_bwd.add(shape(q, k, causal, window))
+            return bwd(q, k, v, o, lse, *args, causal=causal, window=window, scale=scale)
+
+        def launch_gmm(x, w, out):
+            self.gmm.add(GmmShape(x.shape[0], x.shape[1], x.shape[2], w.shape[2], x.dtype))
+            return gmm(x, w, out)
+
+        fa_kernel.launch, fa_kernel.launch_bwd, gmm_kernel.launch = launch, launch_bwd, launch_gmm
+        return self
+
+    def __exit__(self, *exc):
+        fa_kernel.launch, fa_kernel.launch_bwd, gmm_kernel.launch = self._saved
+
+    def sets(self) -> tuple[set, set, set]:
+        return self.flash, self.flash_bwd, self.gmm
+
+
+def check_launched(shapes: tuple[set, set, set], checked: dict, phase: int) -> int:
+    """Holds each recorded shape (flash forward, flash backward, grouped
+    matmul) that no earlier check covered against its plain version;
+    ``checked`` maps "flash", "flash_bwd" and "gmm" to the shapes checked so
+    far and grows.  Returns how many shapes were new."""
+    new = 0
+    for kind, found, fn in zip(("flash", "flash_bwd", "gmm"), shapes,
+                               (check_flash_shape, check_flash_grad_shape, check_gmm_shape)):
+        for shape in sorted(found - checked[kind], key=str):
+            fn(shape, phase=phase)
+            checked[kind].add(shape)
+            new += 1
+    return new
+
+
+def _leaf_sums(tree) -> list[int]:
+    """A bit-level checksum of each leaf: the sum of its 32-bit words."""
+    return [int(t.detach().contiguous().view(torch.int32).sum(dtype=torch.int64))
+            for t in tree_leaves(tree)]
+
+
+def _synced_grads(cfg, opt: dict, metrics: dict, opt_cfg: AdamWConfig) -> list:
+    """The gradient that a trainer's first step synced, read back from its
+    optimizer state: the first moment is then ``(1 - b1) * min(1, clip /
+    grad_norm) * g`` (the moments start at 0), so this is the tensor that
+    ``Trainer.step`` handed AdamW, to a few roundings.  In the reference's
+    leaves (the layers stacked), as the int8 sync and its ``err`` rows
+    group them."""
+    clip = min(1.0, opt_cfg.clip_norm / max(float(metrics["grad_norm"]), 1e-9))
+    grads = tree_map(lambda m: m / ((1 - opt_cfg.betas[0]) * clip), opt["m"])
+    return tree_leaves(reference_leaves(cfg, grads))
+
+
+def _int8_step_check(local, staged, int8, err, mesh) -> dict:
+    """The int8 train step's synced gradient (``int8``) against the staged
+    one (``staged``, the exact mean), on this rank's shard of each of the
+    reference's leaves: the largest gap of the sums in quanta (the coarser
+    pod's scale, computed here from this rank's own gradient ``local``, the
+    yardstick only), the largest |sum + the pods' ``err`` rows from the
+    step - exact sum| over the leaf's largest value, and the leaves whose
+    row is nonzero."""
+    worst_q = worst_e = 0.0
+    nonzero = 0
+    n, d = mesh.axis_size("data"), mesh.axis_index("data")
+    ranks = mesh.axis_size(("pod", "data"))
+
+    def padded(t):
+        flat = t.reshape(-1).float()
+        return torch.cat([flat, flat.new_zeros(-flat.numel() % n)]) if flat.numel() % n else flat
+
+    for g, mean, comp, row in zip(local, staged, int8, err):
+        chunk = col.psum_scatter(padded(g), "data", mesh=mesh)
+        k = chunk.numel()
+        quantum = float(col.all_gather(col.quantize_int8(chunk)[1], "pod", mesh=mesh).max())
+        exact = padded(mean)[d * k:(d + 1) * k] * ranks
+        total = padded(comp)[d * k:(d + 1) * k] * ranks
+        worst_q = max(worst_q, float((total - exact).abs().max()) / quantum)
+        back = total + col.psum(row, "pod", mesh=mesh)
+        worst_e = max(worst_e, float((back - exact).abs().max())
+                      / max(float(exact.abs().max()), 1e-30))
+        nonzero += int(bool((row != 0).any()))
+    return {"quanta": worst_q, "feedback_rel": worst_e, "nonzero": nonzero, "leaves": len(err)}
+
+
+def _max_rel(got, want) -> float:
+    """The largest leaf difference over that leaf's largest value."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(got, want))
+
+
+def _rank_fp32(mesh, out: dict) -> None:
+    """In fp32 from one init and one batch, a ``Trainer.step`` of each sync.
+    Of each: the loss, the grad norm, a checksum of the params and of the
+    synced gradient (read back from the first moment, ``_synced_grads``);
+    on rank 0 the params kept on the host.  The staged and int8 synced
+    gradients held against each other with the int8 step's ``err`` rows
+    (``_int8_step_check``); on rank 0 the flat and staged ones against one
+    process's gradient of the whole batch, the other ranks waiting."""
+    cfg = dataclasses.replace(get_config(DENSE), n_layers=RANK_LAYERS, compute_dtype="float32")
+    model = build_model(cfg)
+    batch = SyntheticLM(vocab=cfg.vocab, seq_len=RANK_FP32[1], global_batch=RANK_FP32[0],
+                        seed=0).global_batch_arrays(0)
+    opt_cfg = _train_opt(TRAIN_STEPS, TRAIN_LR)
+    init = lambda t: t.init(torch.Generator(device="cuda").manual_seed(0))  # noqa: E731
+    host, synced = {}, {}
+    for mode, pcfg in SYNC_MODES.items():
+        trainer = Trainer(model, opt_cfg, pcfg, mesh=mesh)
+        params, opt = init(trainer)
+        params, opt, m = trainer.step(params, opt, batch)
+        g = _synced_grads(cfg, opt, m, opt_cfg)
+        out[f"fp32 {mode}"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                               "sums": _leaf_sums(params), "grad sums": _leaf_sums(g)}
+        if mode == "int8":
+            err = [e[0] for e in tree_leaves(opt["err"])]
+        if mesh.rank == 0:
+            host[mode] = [t.detach().cpu() for t in tree_leaves(params)]
+        if mode != "flat":
+            synced[mode] = g
+        elif mesh.rank == 0:
+            synced[mode] = [t.cpu() for t in g]
+        del params, opt, trainer, g
+        torch.cuda.empty_cache()
+    if mesh.rank == 0:
+        out["flat vs staged"] = max(float((a - b).abs().max())
+                                    for a, b in zip(host["flat"], host["staged"]))
+    del host
+    trainer = Trainer(model, opt_cfg)
+    params, _ = init(trainer)
+    grads, _ = value_and_grads(model, params, local_rows(batch, mesh))
+    local = tree_leaves(reference_leaves(cfg, grads))
+    del grads
+    out["int8 step"] = _int8_step_check(local, synced["staged"], synced["int8"], err, mesh)
+    out["grad bytes"] = 4 * sum(t.numel() for t in tree_leaves(params))
+    out["leaves"] = len(tree_leaves(params))
+    out["fp32 passes"] = len(SYNC_MODES) + 1
+    del local, err
+    synced.pop("int8")
+    if mesh.rank == 0:
+        whole, wm = value_and_grads(model, params, batch)
+        norm = float(torch.sqrt(sum(t.square().sum() for t in tree_leaves(whole))))
+        whole = tree_leaves(reference_leaves(cfg, whole))
+        out["fp32 passes"] += 1
+        flat = [t.cuda() for t in synced.pop("flat")]
+        out["vs single"] = {"flat": _max_rel(flat, whole), "staged": _max_rel(synced["staged"],
+                                                                              whole)}
+        out["grad flat vs staged"] = _max_rel(flat, synced["staged"])
+        out["single"] = {"loss": float(wm["loss"]), "grad_norm": norm}
+        del whole, flat
+    out["cfg32"] = cfg
+    del params, synced, trainer
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def _rank_bf16(mesh, out: dict) -> None:
+    """Each sync in bf16 compute for ``RANK_BF16_STEPS`` steps: the walls,
+    losses and the bytes this rank sent in the last step; then one more
+    step, profiled on rank 0."""
+    cfg = dataclasses.replace(get_config(DENSE), n_layers=RANK_LAYERS)
+    model = build_model(cfg)
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=RANK_BF16[1], global_batch=RANK_BF16[0], seed=0)
+    opt_cfg = _train_opt(TRAIN_STEPS, TRAIN_LR)
+    for mode, pcfg in SYNC_MODES.items():
+        trainer = Trainer(model, opt_cfg, pcfg, mesh=mesh)
+        params, opt = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for i in range(RANK_BF16_STEPS):
+            batch = pipe.global_batch_arrays(i)
+            mesh.sent.clear()
+            dist.barrier()
+            t0 = time.perf_counter()
+            params, opt, m = trainer.step(params, opt, batch)
+            losses.append(float(m["loss"]))  # waits for the step
+            walls.append(time.perf_counter() - t0)
+        out[f"bf16 {mode}"] = {"walls": walls, "losses": losses, "bytes": dict(mesh.sent),
+                               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        # one more step, profiled on rank 0 (its wall not among the walls)
+        batch = pipe.global_batch_arrays(RANK_BF16_STEPS)
+        dist.barrier()
+        if mesh.rank == 0:
+            out[f"bf16 {mode}"]["profile"] = _profile_sync_step(
+                lambda: trainer.step(params, opt, batch))
+        else:
+            trainer.step(params, opt, batch)
+        torch.cuda.synchronize()
+        del params, opt, trainer
+        torch.cuda.empty_cache()
+    out["cfg16"] = cfg
+
+
+def _probe_gloo_cuda() -> dict:
+    """Which collectives gloo takes on CUDA tensors here (every rank calls
+    each one on the default group; a refusal is raised before any byte
+    moves).  The collectives module hands gloo the card's tensors as they
+    are and calls only ``all_gather_into_tensor`` and
+    ``all_to_all_single``: the phase fails unless both are taken."""
+    world, x = dist.get_world_size(), torch.ones(8, device="cuda")
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8 // world, device="cuda"), x.clone()),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * world, device="cuda"), x.clone()),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty(8, device="cuda"),
+                                                            x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:  # noqa: BLE001 - the refusal is the finding
+            out[name] = f"refused: {str(e).splitlines()[0][:120]}"
+        dist.barrier()
+    return out
+
+
+def _profile_sync_step(step) -> str:
+    """One train step on a rank under torch.profiler: its wall, the
+    device's busy time split into host copies and kernels, and the host ms
+    inside the collectives (the c10d ops, which wait for the other ranks)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    copies = {kind: sum(e.self_device_time_total for e in device if kind in e.key) / 1e3
+              for kind in ("DtoH", "HtoD")}
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    comm = sorted((e for e in events if e.key.startswith("c10d::")),
+                  key=lambda e: -e.cpu_time_total)
+    return (f"wall {wall:.1f} ms; device busy {busy:.1f} ms, of it copies to the host "
+            f"{copies['DtoH']:.1f} ms and back {copies['HtoD']:.1f} ms; host ms in the "
+            "collectives: " + ", ".join(f"{e.key} {e.cpu_time_total / 1e3:.1f} x{e.count}"
+                                        for e in comm[:4]))
+
+
+def _rank_main(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 11, a spawned process: joins the gloo group through
+    a file in ``workdir``, builds the mesh, runs the fp32 and bf16 steps on
+    its rows and saves its results, launches and launch shapes there."""
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/init", rank=rank,
+                            world_size=world)
+    mesh = make_mesh(RANK_MESH, ("pod", "data", "model"))
+    out = {"coords": mesh.coords, "gloo on cuda": _probe_gloo_cuda()}
+    _reset_launches()
+    with LaunchShapes() as shapes:
+        _rank_fp32(mesh, out)
+        _rank_bf16(mesh, out)
+    out["launches"], out["shapes"] = _launches(), shapes.sets()
+    torch.save(out, f"{workdir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(world: int, workdir: str) -> list[dict]:
+    """``world`` processes of ``_rank_main``; fails if one fails or the
+    phase outlasts ``RANK_TIMEOUT``, and stops every one it started."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(r, world, workdir)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 0.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if any(codes):
+        raise SystemExit(f"phase 11: ranks exited with {codes} (-9: killed at the "
+                         f"{RANK_TIMEOUT:.0f} s limit)")
+    return [torch.load(f"{workdir}/rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _launcher_on_ranks() -> None:
+    """The train launcher under torchrun: 4 ranks sharing the card (gloo),
+    pod 2 x data 2 x model 1, CLEX-staged int8 sync, REDUCED internlm2, 3
+    steps."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+           "4", "-m", "repro_torch.launch.train", "--mesh", "2x2x1", "--hierarchical-sync",
+           "--compress", "--reduced", "--steps", "3", "--log-every", "1"]
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "2"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=root, timeout=300,
+                          start_new_session=True)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    ok = (proc.returncode == 0 and bool(lines) and lines[0].startswith("backend gloo")
+          and len(steps) == 3 and all(math.isfinite(float(ln.split()[3])) for ln in steps))
+    log(f"phase 11 launcher: torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh "
+        f"2x2x1 --hierarchical-sync --compress --reduced --steps 3: exit {proc.returncode} in "
+        f"{wall:.1f} s: {' | '.join(lines)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the launcher on ranks failed:\n{proc.stderr[-4000:]}")
+
+
+def phase_ranks(smi: str, checked: dict) -> dict:
+    """Phase 11: data-parallel training on 4 ranks sharing the card (gloo:
+    NCCL refuses two ranks on one device), internlm2-1.8b at full width cut
+    to 2 layers.  In fp32, a ``Trainer.step`` of the flat, staged and int8
+    syncs from one init, and the gradient each step synced read back from
+    its first moment: flat and staged params within 1e-5 of each other,
+    every rank's params and synced gradient bit-identical to rank 0's; the
+    flat and staged gradients within 1e-4 of each leaf's largest value of
+    one process's gradient of the whole batch, their grad norm and the loss
+    within 1e-5 relative of it (the params after AdamW's first step are not
+    compared with it: that step moves each weight by about the learning
+    rate times the sign of its gradient, so a rounding difference in a
+    gradient near 0 moves a weight by up to twice the learning rate); the
+    int8 step's gradient on every rank's shard within one quantum of the
+    staged one, its ``err`` rows nonzero and sum + rows exact within 1e-5;
+    gloo taking the two collectives the module calls on CUDA tensors; in
+    bf16, each sync's step walls and the bytes each rank sent a step beside
+    ``CollectiveCostModel``'s; each rank's launches and their shapes; then
+    the train launcher on 4 ranks under torchrun.  Returns each rank's
+    launches by path."""
+    cfg = dataclasses.replace(get_config(DENSE), n_layers=RANK_LAYERS)
+    # the launcher's ranks: REDUCED internlm2, B 2 x S 256 a rank, bf16
+    launcher = cfg_shape(get_config(DENSE, reduced=True), 2, 256)
+    check_launched(({launcher}, {launcher}, set()), checked, phase=11)
+    world = math.prod(RANK_MESH)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(world, workdir)
+        wall = time.perf_counter() - t0
+    first = ranks[0]
+    log(f"phase 11 ranks: {world} processes sharing the card (gloo), mesh pod {RANK_MESH[0]} x "
+        f"data {RANK_MESH[1]} x model {RANK_MESH[2]}, coordinates "
+        f"{[r['coords'] for r in ranks]}; {cfg.name} full width, {RANK_LAYERS} layers, "
+        f"{first['grad bytes'] / 4e9:.3f} B parameters ({first['leaves']} leaves); all in "
+        f"{wall:.1f} s")
+    log(f"phase 11 gloo (torch {torch.__version__}) on CUDA tensors: {first['gloo on cuda']}; "
+        "the collectives hand gloo the card's tensors and call only all_gather_into_tensor "
+        "and all_to_all_single")
+    fails = [f"gloo refused {name} on CUDA tensors" for name in
+             ("all_gather_into_tensor", "all_to_all_single") if first["gloo on cuda"][name] != "ok"]
+    same = {m: all(r[f"fp32 {m}"]["sums"] == first[f"fp32 {m}"]["sums"]
+                   and r[f"fp32 {m}"]["grad sums"] == first[f"fp32 {m}"]["grad sums"]
+                   for r in ranks) for m in SYNC_MODES}
+    fvs, vs, single = first["flat vs staged"], first["vs single"], first["single"]
+    loss, norms = first["fp32 flat"]["loss"], {m: first[f"fp32 {m}"]["grad_norm"]
+                                              for m in ("flat", "staged")}
+    norm_rel = max(abs(n - single["grad_norm"]) / single["grad_norm"] for n in norms.values())
+    ok = (all(same.values()) and fvs <= 1e-5 and max(vs.values()) <= TRAIN_CPU_TOL
+          and norm_rel <= 1e-5 and abs(loss - single["loss"]) <= 1e-5 * abs(single["loss"]))
+    fails += [] if ok else ["fp32 syncs"]
+    log(f"phase 11 check fp32, B{RANK_FP32[0]} S{RANK_FP32[1]} (B{RANK_FP32[0] // world} a "
+        f"rank), one Trainer.step of each sync from one init: params flat vs staged max abs "
+        f"diff {fvs:.3e} (tol 1e-5); every rank's params and synced gradient bit-identical to "
+        f"rank 0's {same}; the gradient each step synced (read back from its first moment) "
+        f"against one process's gradient of the whole batch, the largest leaf diff over the "
+        f"leaf's largest value: flat {vs['flat']:.3e}, staged {vs['staged']:.3e} (tol "
+        f"{TRAIN_CPU_TOL:g}; flat vs staged {first['grad flat vs staged']:.3e}); grad norm "
+        f"flat {norms['flat']:.6f}, staged {norms['staged']:.6f}, one process "
+        f"{single['grad_norm']:.6f} ({norm_rel:.2e} rel, tol 1e-5); loss {loss:.6f}, one "
+        f"process {single['loss']:.6f} (tol 1e-5 rel) {'ok' if ok else 'FAIL'}")
+    shard = [r["int8 step"] for r in ranks]
+    q, e = max(s["quanta"] for s in shard), max(s["feedback_rel"] for s in shard)
+    nz = [s["nonzero"] for s in shard]
+    ok = q <= 1.0 and e <= 1e-5 and min(nz) > 0
+    fails += [] if ok else ["int8 sync"]
+    log(f"phase 11 check the int8 Trainer.step's synced gradient against the staged one, on "
+        f"each rank's shard of the {shard[0]['leaves']} leaves (the reference's, layers "
+        f"stacked): max |int8 - exact| {q:.3f} quanta (tol 1), |sum + the pods' err rows from "
+        f"the step - exact| over the leaf's largest value {e:.2e} (tol 1e-5), leaves with a "
+        f"nonzero err row by rank {nz} {'ok' if ok else 'FAIL'}")
+    paths = {}
+    for r, out in enumerate(ranks):
+        want = train_launches(first["cfg32"], out["fp32 passes"])
+        want16 = train_launches(first["cfg16"], len(SYNC_MODES) * (RANK_BF16_STEPS + 1))
+        want = {k: want[k] + want16[k] for k in want}
+        if out["launches"] != want:
+            fails.append(f"rank {r} launches {out['launches']}, want {want}")
+        paths[f"ranks rank {r}"] = out["launches"]
+    log("phase 11 launches by rank (fp32 and bf16 passes, as train_launches counts them): "
+        + "; ".join(f"rank {r} flash {o['launches']['flash_attention']} forward, "
+                    f"{o['launches']['flash_attention_bwd']} backward"
+                    for r, o in enumerate(ranks))
+        + (" ok" if not any(f.startswith("rank") for f in fails) else " FAIL"))
+    shapes = tuple(set().union(*(r["shapes"][i] for r in ranks)) for i in range(3))
+    new = check_launched(shapes, checked, phase=11)
+    log(f"phase 11 launch shapes: flash {sorted(map(str, shapes[0]))}, backward "
+        f"{sorted(map(str, shapes[1]))}; {new} not checked before, now checked")
+    # bytes: counted in the collectives, beside the cost model's cross-pod wire bytes (its
+    # byte terms: the latencies dropped, the intra-pod links free)
+    n_pods, n_low = RANK_MESH[0], RANK_MESH[1]
+    grad = first["grad bytes"]
+    wire = dataclasses.replace(CollectiveCostModel(), ici_latency=0.0, dcn_latency=0.0,
+                               ici_bw=float("inf"))
+    modeled = {"flat": wire.flat_all_reduce(grad, n_low, n_pods) * wire.dcn_bw,
+               "staged": wire.hierarchical_all_reduce(grad, n_low, n_pods) * wire.dcn_bw,
+               "int8": wire.hierarchical_all_reduce(grad, n_low, n_pods, 0.25) * wire.dcn_bw}
+    seconds = {"flat": CollectiveCostModel().flat_all_reduce(grad, n_low, n_pods),
+               "staged": CollectiveCostModel().grad_sync_cost(grad, n_low, n_pods),
+               "int8": CollectiveCostModel().grad_sync_cost(grad, n_low, n_pods, True)}
+    for mode in SYNC_MODES:
+        rec = first[f"bf16 {mode}"]
+        sent = rec["bytes"]
+        across = sum(v for k, v in sent.items() if "pod" in k.split(","))
+        walls = [r[f"bf16 {mode}"]["walls"] for r in ranks]
+        log(f"phase 11 bf16 {mode} sync, B{RANK_BF16[0]} S{RANK_BF16[1]} (B"
+            f"{RANK_BF16[0] // world} a rank), {RANK_BF16_STEPS} steps: walls (host clock, "
+            f"first step first) by rank "
+            + "; ".join(" ".join(f"{1e3 * w:.1f}" for w in ws) + " ms" for ws in walls)
+            + f"; loss {' '.join(f'{x:.4f}' for x in rec['losses'])}; bytes rank 0 sent a "
+            f"step, by group: {sent}, over groups that span the pods {across / 1e6:.2f} MB "
+            f"({across / grad:.4f} of the {grad / 1e6:.2f} MB fp32 gradient); the cost "
+            f"model's cross-pod wire bytes {modeled[mode] / 1e6:.2f} MB "
+            f"({modeled[mode] / grad:.4f}) and modeled seconds {seconds[mode]:.4f} (the "
+            f"reference's TPU link constants, not this card's); peak "
+            f"{max(r[f'bf16 {mode}']['peak_gib'] for r in ranks):.2f} GiB a rank; {smi}")
+        log(f"phase 11 bf16 {mode} sync, rank 0's third step profiled: {rec['profile']}")
+    _launcher_on_ranks()
+    if fails:
+        raise SystemExit(f"phase 11 failed: {fails}")
+    return paths
+
+
+# ---------------------------------------------------------------- phase 12: examples
+
+EXAMPLES = (("torch_quickstart", ()), ("torch_serve_batched", ()),
+            ("torch_train_end_to_end", ("--steps", "100", "--fail-at", "60")))
+
+
+def _example_launches(name: str) -> dict | None:
+    """The launches an example must make (None: only that flash, and for
+    the MoE server the grouped matmul, ran)."""
+    if name == "torch_quickstart":
+        return train_launches(get_config(DENSE, reduced=True), 30)
+    if name == "torch_train_end_to_end":
+        ns = runpy.run_path(str(Path(__file__).resolve().parent / "examples" / f"{name}.py"),
+                            run_name="example")
+        # steps 0-59, the failure at 60, the restore of step 50, steps 51-99
+        return train_launches(ns["default_config"](), 60 + 49)
+    return None
+
+
+def phase_examples(checked: dict) -> dict:
+    """Phase 12: the port's three examples run in this process (``runpy``,
+    argv ``--device cuda``; the end-to-end example with ``--steps 100
+    --fail-at 60``): each one's wall and last lines, its launches (held to
+    the steps it trains) and their shapes, any not checked before held
+    against the plain versions.  Returns the launches by example."""
+    root = Path(__file__).resolve().parent
+    paths = {}
+    for name, extra in EXAMPLES:
+        path = root / "examples" / f"{name}.py"
+        argv, sys.argv = sys.argv, [str(path), "--device", "cuda", *extra]
+        buf = io.StringIO()
+        _reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with LaunchShapes() as shapes, contextlib.redirect_stdout(buf):
+                runpy.run_path(str(path), run_name="__main__")
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = argv
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        lines = buf.getvalue().splitlines()
+        want = _example_launches(name)
+        ok = (launches == want if want is not None else
+              launches["flash_attention"] > 0 and launches["moe_gmm"] > 0
+              and launches["ssd_scan"] == 0)
+        new = check_launched(shapes.sets(), checked, phase=12)
+        log(f"phase 12 example {name} {' '.join(extra)}: {wall:.1f} s; launches "
+            f"{ {k: v for k, v in launches.items() if v} } {'ok' if ok else 'FAIL'}; {new} "
+            f"launch shapes not checked before, now checked; last lines: "
+            + " | ".join(lines[-4:]))
+        if not ok:
+            raise SystemExit(f"example {name}: launches {launches}, want {want}")
+        paths[f"examples {name}"] = launches
+        torch.cuda.empty_cache()
+    return paths
+
+
 def _kernel_entry(name, mod, replaces, launches, err, rep) -> dict:
     return {
         "name": name,
@@ -3102,6 +3691,11 @@ def main() -> int:
     mark("9 families")
     paths["simulator"] = phase_simulator(smi)
     mark("10 simulator")
+    checked = {"flash": fa_checked, "flash_bwd": fa_grad_checked, "gmm": gmm_checked}
+    paths.update(phase_ranks(smi, checked))
+    mark("11 ranks")
+    paths.update(phase_examples(checked))
+    mark("12 examples")
     log("walls by phase and path: " + ", ".join(f"{what} {w:.1f} s" for what, w in walls))
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)

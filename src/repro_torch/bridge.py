@@ -29,7 +29,8 @@ from .configs.base import ModelConfig
 from .models.transformer import CACHE_KEYS, CROSS_KEYS, _kind_index, mixer_kind
 from .tree import tree_map
 
-__all__ = ["from_jax_params", "to_jax_params", "from_jax_caches", "to_jax_caches"]
+__all__ = ["from_jax_params", "to_jax_params", "reference_leaves", "port_leaves", "from_jax_caches",
+           "to_jax_caches"]
 
 
 def _period(cfg: ModelConfig, n_pattern: int) -> tuple[int, int]:
@@ -38,31 +39,40 @@ def _period(cfg: ModelConfig, n_pattern: int) -> tuple[int, int]:
     return n_pattern, cfg.n_layers // n_pattern
 
 
-def _unstack(pattern, n_layers: int) -> list:
-    """A scan-stacked JAX stack (a tuple of pattern positions) -> one dict
-    of CPU tensors per layer."""
-    p, r = len(pattern), n_layers // len(pattern)
-
-    def layer(i):
-        rep = i // p
-        return tree_map(lambda a: torch.from_numpy(np.array(np.asarray(a)[rep] if r > 1 else a)),
-                        pattern[i % p])
-
-    return [layer(i) for i in range(n_layers)]
-
-
-def _stack(layers: list, p: int) -> tuple:
-    """One dict per layer -> the JAX layout of period ``p``, numpy leaves."""
+def _stack_rows(layers: list, p: int) -> tuple:
+    """One tree per layer -> a tree per pattern position, each leaf stacked
+    over the pattern's repeats (when it repeats)."""
     r = len(layers) // p
-    to_np = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    pattern = []
-    for j in range(p):
-        rows = [layers[rep * p + j] for rep in range(r)]
-        if r > 1:
-            pattern.append(tree_map(lambda *ts: np.stack([to_np(t) for t in ts]), *rows))
-        else:
-            pattern.append(tree_map(to_np, rows[0]))
-    return tuple(pattern)
+    return tuple(tree_map(lambda *ts: torch.stack(ts), *layers[j::p]) if r > 1 else layers[j]
+                 for j in range(p))
+
+
+def reference_leaves(cfg: ModelConfig, tree: dict) -> dict:
+    """``tree`` (mirroring a model's params: the params, their gradients or
+    moments) in the JAX package's layout: ``layers`` as ``decoder`` (and
+    ``encoder``, of period 1), scan-stacked; new tensors where layers stack."""
+    out = {k: v for k, v in tree.items() if k not in ("layers", "encoder")}
+    if "encoder" in tree:
+        out["encoder"] = _stack_rows(tree["encoder"], 1)
+    out["decoder"] = _stack_rows(tree["layers"], cfg.pattern_period())
+    return out
+
+
+def _unstack_rows(pattern: tuple, n_layers: int) -> list:
+    p = len(pattern)
+    r = n_layers // p
+    return [tree_map(lambda t, rep=i // p: t[rep], pattern[i % p]) if r > 1 else pattern[i % p]
+            for i in range(n_layers)]
+
+
+def port_leaves(cfg: ModelConfig, tree: dict) -> dict:
+    """The inverse of ``reference_leaves``: one tree per layer (views of
+    the stacked tensors)."""
+    out = {k: v for k, v in tree.items() if k not in ("decoder", "encoder")}
+    if "encoder" in tree:
+        out["encoder"] = _unstack_rows(tree["encoder"], cfg.n_encoder_layers)
+    out["layers"] = _unstack_rows(tree["decoder"], cfg.n_layers)
+    return out
 
 
 def from_jax_params(cfg: ModelConfig, tree: dict) -> dict:
@@ -70,22 +80,13 @@ def from_jax_params(cfg: ModelConfig, tree: dict) -> dict:
     CPU tensors; ``Model.load`` puts them on the model's device.  Leaves keep
     their dtype."""
     _period(cfg, len(tree["decoder"]))
-    out = {k: torch.from_numpy(np.array(v)) for k, v in tree.items()
-           if k not in ("decoder", "encoder")}
-    if "encoder" in tree:
-        out["encoder"] = _unstack(tree["encoder"], cfg.n_encoder_layers)
-    out["layers"] = _unstack(tree["decoder"], cfg.n_layers)
-    return out
+    tensors = tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+    return tree_map(torch.clone, port_leaves(cfg, tensors))
 
 
 def to_jax_params(cfg: ModelConfig, params: dict) -> dict:
     """Port params -> the JAX package's layout, with numpy leaves."""
-    out = {k: v.detach().cpu().numpy() for k, v in params.items()
-           if k not in ("layers", "encoder")}
-    if "encoder" in params:
-        out["encoder"] = _stack(params["encoder"], 1)
-    out["decoder"] = _stack(params["layers"], cfg.pattern_period())
-    return out
+    return tree_map(lambda t: t.detach().cpu().numpy(), reference_leaves(cfg, params))
 
 
 def _cache_np(a) -> np.ndarray:

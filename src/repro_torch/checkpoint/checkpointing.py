@@ -23,6 +23,15 @@ handed to ``AsyncCheckpointer.save`` is copied to the host before ``save``
 returns (a CPU tensor's ``numpy()`` would alias the live storage); and
 ``restore_checkpoint`` builds fresh tensors on ``tree_like``'s device and
 dtype, requiring grad where its leaf did.
+
+With a ``mesh`` (``launch/mesh.py``; every rank calls) rank 0 writes and
+every rank returns once the step is on disk.  The caller names the subtree
+whose leaves are each rank's ``[1, ...]`` row (``rows``, its path from the
+root: for the trainer's ``(params, opt)`` with a compressed sync,
+``(1, "err")``, the error-feedback residuals); those leaves are gathered
+over the mesh's data-parallel axes to the reference's ``[dp_total, ...]``
+layout, and on restore every rank takes its own row back.  Every other
+leaf is the same on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +45,9 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from ..core.collectives import all_gather
 
 __all__ = [
     "save_checkpoint",
@@ -123,9 +135,43 @@ def _check_digests(data, manifest) -> list[str]:
     return bad
 
 
-def save_checkpoint(directory: str, step: int, tree, keep: int = 3) -> str:
-    """Writes ``tree`` as step ``step``; returns the step's directory."""
-    return _write_arrays(directory, step, *_flatten(tree), keep)
+def _rows_prefix(rows, mesh) -> str | None:
+    """The leaf-name prefix of the ``rows`` subtree (None: no rows)."""
+    if rows is None:
+        return None
+    if mesh is None:
+        raise ValueError("rows name each rank's leaves of a mesh: pass the mesh too")
+    return "".join(f"[{k!r}]" if isinstance(k, str) else f"[{k}]" for k in rows)
+
+
+def _gather_rows(tree, mesh, prefix: str, name: str = ""):
+    """``tree`` with each leaf under ``prefix`` gathered to ``[dp_total, ...]``."""
+    if isinstance(tree, dict):
+        return {k: _gather_rows(v, mesh, prefix, f"{name}[{k!r}]") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_gather_rows(v, mesh, prefix, f"{name}[{i}]")
+                          for i, v in enumerate(tree))
+    if not name.startswith(prefix):
+        return tree
+    return all_gather(tree, mesh.data_parallel_axes, tiled=True, mesh=mesh)
+
+
+def save_checkpoint(directory: str, step: int, tree, keep: int = 3, *, mesh=None,
+                    rows=None) -> str:
+    """Writes ``tree`` as step ``step``; returns the step's directory.  With
+    a ``mesh`` every rank calls, the leaves under the path ``rows`` are
+    gathered and rank 0 writes."""
+    prefix = _rows_prefix(rows, mesh)
+    if mesh is None:
+        return _write_arrays(directory, step, *_flatten(tree), keep)
+    if prefix is not None:
+        tree = _gather_rows(tree, mesh, prefix)
+    final = os.path.join(directory, f"step_{step:010d}")
+    if mesh.rank == 0:
+        final = _write_arrays(directory, step, *_flatten(tree), keep)
+    if mesh.size > 1:
+        dist.barrier()
+    return final
 
 
 def _write_arrays(directory: str, step: int, arrays: dict, dtypes: dict, keep: int) -> str:
@@ -241,9 +287,12 @@ def _read(directory: str, step: int) -> tuple[dict, dict]:
     return manifest, arrays
 
 
-def restore_checkpoint(directory: str, tree_like, step: int | None = None):
+def restore_checkpoint(directory: str, tree_like, step: int | None = None, *, mesh=None,
+                       rows=None):
     """Restore into the structure of ``tree_like`` (shape validated; each
-    leaf takes ``tree_like``'s leaf's kind, dtype and device).
+    leaf takes ``tree_like``'s leaf's kind, dtype and device).  With a
+    ``mesh`` each rank takes its own row of the gathered leaves under the
+    path ``rows``.
 
     Returns (tree, step).  With an explicit ``step`` any damage raises; with
     ``step=None`` the newest *intact* checkpoint is restored, silently
@@ -265,11 +314,16 @@ def restore_checkpoint(directory: str, tree_like, step: int | None = None):
             raise IOError(f"no intact checkpoint under {directory} (all damaged)")
     else:
         manifest, arrays = _read(directory, step)
+    prefix = _rows_prefix(rows, mesh)
+    row = None if prefix is None else mesh.axis_index(mesh.data_parallel_axes)
     values = {}
     for key, like in _paths(tree_like):
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key}")
-        values[key] = _leaf_like(arrays.pop(key), manifest["leaves"][key]["dtype"], like, key)
+        arr = arrays.pop(key)
+        if row is not None and key.startswith(prefix):
+            arr = arr[row:row + 1]
+        values[key] = _leaf_like(arr, manifest["leaves"][key]["dtype"], like, key)
     return _unflatten_like(tree_like, values), step
 
 

@@ -3,14 +3,19 @@
 A copy of the dataclasses in the JAX package's ``configs/base.py`` (the port
 imports nothing of that package).  The fields are identical, so a config
 module copies over unchanged; the registry lists the JAX package's ten
-architectures in its order.
+architectures in its order.  ``ParallelConfig`` is copied field for field:
+the port's trainer reads ``hierarchical_grad_sync`` and
+``compress_cross_pod`` (``runtime/trainer.py``); the other fields steer the
+JAX package's sharding rules, which the port does not have yet (ROADMAP
+A11).  The reference's input-shape cells (``ShapeConfig``, ``SHAPES``)
+belong to its dry-run tooling (ROADMAP A14).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Callable, Optional
 
 __all__ = [
     "MoEConfig",
@@ -18,8 +23,10 @@ __all__ = [
     "MLAConfig",
     "FrontendConfig",
     "ModelConfig",
+    "ParallelConfig",
     "ARCH_IDS",
     "get_config",
+    "registry",
 ]
 
 
@@ -132,6 +139,18 @@ class ModelConfig:
         return period
 
 
+@dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """How model/optimizer state and activations map onto the mesh."""
+
+    dp_axes: tuple[str, ...] = ("pod", "data")  # batch sharding
+    tp_axis: str = "model"  # heads / ff / experts / vocab
+    shard_kv_seq: bool = False  # split-KV decode for long contexts
+    hierarchical_grad_sync: bool = True  # CLEX-style staged all-reduce
+    compress_cross_pod: bool = False  # int8 error-feedback on the pod axis
+    remat_policy: str = "block"  # none | block | dots
+
+
 _MODULES = {
     "jamba-v0.1-52b": "jamba_v01_52b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
@@ -146,6 +165,13 @@ _MODULES = {
 }
 
 ARCH_IDS = list(_MODULES)
+
+
+def registry() -> dict[str, Callable[[], ModelConfig]]:
+    """``--arch`` id -> a function returning its full config, imported when
+    called."""
+    return {arch: (lambda mod=mod: importlib.import_module(f"repro_torch.configs.{mod}").CONFIG)
+            for arch, mod in _MODULES.items()}
 
 
 def get_config(arch: str, reduced: bool = False) -> ModelConfig:

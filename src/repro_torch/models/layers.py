@@ -18,6 +18,7 @@ __all__ = [
     "dense_init",
     "embed_init",
     "rms_norm",
+    "layer_norm",
     "rope_frequencies",
     "apply_rope",
     "swiglu",
@@ -53,6 +54,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm in fp32 over the last axis: ``(x - mean) / sqrt(var + eps)
+    * scale + bias``, back in ``x``'s dtype."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(dtype)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:

@@ -29,9 +29,10 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ops as ssd_ops
+from ..kernels.ssd_scan.ref import ssd_chunked as _ssd_chunked_heads
 from .layers import dense_init, rms_norm, zeros_init
 
-__all__ = ["ssm_init", "ssm_apply", "init_ssm_cache", "ssd_step", "softplus"]
+__all__ = ["ssm_init", "ssm_apply", "init_ssm_cache", "ssd_chunked", "ssd_step", "softplus"]
 
 
 def _dims(cfg: ModelConfig) -> tuple[int, int]:
@@ -101,6 +102,25 @@ def _conv_step(hist, new, w, bias, compute):
     full = torch.cat([hist.to(compute), new], dim=1)  # [B,W,C]
     out = (full * w[None]).sum(dim=1) + bias.to(compute)
     return F.silu(out), full[:, 1:]
+
+
+def ssd_chunked(x, dt, a, b, c, chunk: int, h0=None, head_group: int = 8):
+    """The plain chunked SSD scan with the reference's signature: x
+    [B,S,H,P]; dt [B,S,H] (positive); a [H] (negative); b/c [B,S,N]; h0
+    [B,H,P,N] or None (zeros) -> (y [B,S,H,P] in ``x.dtype``, h_final
+    [B,H,P,N] fp32).  Heads run in groups of ``head_group`` (lowered to a
+    divisor of H, as there), each through ``kernels/ssd_scan/ref.py::
+    ssd_chunked``, which bounds the [B,H,Q,Q] decay tensor; every head's
+    arithmetic is its own, so the result does not depend on ``head_group``.
+    The sequence need not be a multiple of ``chunk``."""
+    nh = x.shape[2]
+    hg = min(head_group, nh)
+    while nh % hg:
+        hg -= 1
+    parts = [_ssd_chunked_heads(x[:, :, g:g + hg], dt[:, :, g:g + hg], a[g:g + hg], b, c,
+                                chunk, None if h0 is None else h0[:, g:g + hg])
+             for g in range(0, nh, hg)]
+    return torch.cat([y for y, _ in parts], dim=2), torch.cat([h for _, h in parts], dim=1)
 
 
 def ssd_step(h, xt, dtt, a, bt, ct):

@@ -4,9 +4,11 @@ schedule.
 Counterpart of the JAX package's ``optim/adamw.py``.  The state is
 ``{"step", "m", "v"}``: fp32 moments mirroring the param tree (nested dicts
 and lists of tensors) and the step as a Python int, so that the schedule is
-computed on the host without waiting for the device.  The JAX package's
-error-feedback slot (compressed cross-pod sync) comes with the multi-device
-work (ROADMAP A11).
+computed on the host without waiting for the device.  A trainer with a
+compressed cross-pod sync adds an ``"err"`` entry (the error-feedback
+residuals, ``runtime/trainer.py``), whose shape depends on the mesh;
+``adamw_update`` passes it through untouched, and
+``AdamWConfig.error_feedback`` is only a flag, as in the reference.
 
 ``adamw_update`` updates the params and moments in place, under
 ``torch.no_grad``, and returns the same tensors: a functional update, as the
@@ -35,6 +37,7 @@ class AdamWConfig:
     clip_norm: float = 1.0
     warmup_steps: int = 100
     total_steps: int = 10000
+    error_feedback: bool = False  # slot for compressed-collective residuals
 
 
 def cosine_schedule(cfg: AdamWConfig, step: int) -> float:
@@ -69,7 +72,9 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, decay):
     updated in place.  ``grads`` mirrors ``params``, and so does ``decay``,
     a bool per leaf that says whether it takes weight decay: a model's
     params take ``Model.decay_mask``, the reference's decision on its
-    stacked tree; a plain tree ``tree_map(_decay_mask, params)``."""
+    stacked tree; a plain tree ``tree_map(_decay_mask, params)``.  Entries
+    of ``state`` other than ``step``, ``m`` and ``v`` (``err``) are left as
+    they are."""
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
     gnorm = global_norm(grads)

@@ -25,22 +25,11 @@ import time
 from typing import Callable
 
 import numpy as np
-import torch
 
 from ..checkpoint.checkpointing import restore_checkpoint, save_checkpoint
-from ..tree import tree_map
+from ..tree import tree_copy
 
 __all__ = ["run_with_restarts", "StragglerMonitor", "ElasticPlan", "plan_remesh"]
-
-
-def _copy(tree):
-    """A copy of ``tree`` whose tensors and arrays share no memory with it
-    (tensors requiring grad where the originals do)."""
-    def leaf(t):
-        if isinstance(t, torch.Tensor):
-            return t.detach().clone().requires_grad_(t.requires_grad)
-        return np.array(t) if isinstance(t, np.ndarray) else t
-    return tree_map(leaf, tree)
 
 
 def run_with_restarts(
@@ -53,7 +42,7 @@ def run_with_restarts(
     on_restore: Callable | None = None,
 ):
     """Watchdog loop with checkpoint/restart.  Returns (state, restarts)."""
-    initial = _copy(init_state)  # step_fn may update init_state in place
+    initial = tree_copy(init_state)  # step_fn may update init_state in place
 
     def resume():
         """(state, step) after the newest intact checkpoint, or None."""
@@ -75,7 +64,7 @@ def run_with_restarts(
             restarts += 1
             if restarts > max_restarts:
                 raise
-            state, step = resume() or (_copy(initial), 0)
+            state, step = resume() or (tree_copy(initial), 0)
             if on_restore is not None:
                 on_restore(restarts, step)
     return state, restarts

@@ -1,19 +1,41 @@
-"""Trainer on one device: train step with gradient accumulation.
+"""Trainer: train step with gradient accumulation, and the data-parallel
+gradient sync across ranks, flat, CLEX-staged or int8-compressed.
 
-Counterpart of the single-device branch of the JAX package's
-``runtime/trainer.py`` (``make_train_step`` without a mesh, and
-``Trainer``).  The step is ``Model.train_loss`` -> gradients of the fp32
-master params -> ``adamw_update``, with weight decay on the leaves the
-reference decays (``Model.decay_mask``); with ``microbatches`` m > 1 the
-batch is split into m equal slices, the gradients are seeded from slice 0,
-summed and divided by m, and the loss is the mean of the slices' cross
-entropies.  There is no jit: the step updates the params and the optimizer
-state in place (where the JAX ``Trainer.jitted_step`` donates their
-buffers) and returns them.
+Counterpart of the JAX package's ``runtime/trainer.py``.  The step is
+``Model.train_loss`` -> gradients of the fp32 master params ->
+``adamw_update``, with weight decay on the leaves the reference decays
+(``Model.decay_mask``); with ``microbatches`` m > 1 the batch is split into
+m equal slices, the gradients are seeded from slice 0, summed and divided
+by m, and the loss is the mean of the slices' cross entropies.  There is no
+jit: the step updates the params and the optimizer state in place and
+returns them (``Trainer.jitted_step(donate=False)`` copies them first).
 
-A mesh or a ``ParallelConfig`` (sharded state, the hierarchical and
-compressed gradient sync) waits for the multi-device work (ROADMAP A11) and
-raises ``NotImplementedError``; the arguments keep the JAX package's order.
+With a mesh (``launch/mesh.py``) every rank of it calls the step with the
+same global batch and the same params, and takes its rows of the batch as
+the reference's ``P(("pod", "data"), None)`` gives them: pod major, data
+minor.  Its gradients are then synced in one of three ways:
+
+* flat (``hierarchical_grad_sync=False``, or no ``pod`` axis): one
+  all-reduce over the data-parallel group, divided by its size, the
+  counterpart of the reference's GSPMD sync;
+* hierarchical (a ``pod`` axis): ``hierarchical_all_reduce`` with the
+  ``data`` axis low and ``pod`` high;
+* compressed (and ``compress_cross_pod``): the same with the cross-pod
+  shard in int8 and error feedback.  The int8 scale is one per leaf, so
+  this sync groups the gradients into the reference's leaves first: the
+  layers stacked over the repeats of the pattern, as the JAX package's
+  scan stacks them (``bridge.reference_leaves``), and split back
+  after.  ``Trainer.init`` adds ``err`` to the optimizer state, in that
+  layout: on each rank its own row of the reference's
+  ``[dp_total, ceil(size / n_data)]`` leaf, the row at the rank's
+  flattened ``(pod, data)`` index, kept as a ``[1, ...]`` block.
+
+Clipping and AdamW run after the sync, identically on every rank, and the
+metrics are averaged over the data-parallel group.  A ``model`` axis above
+1 (tensor parallelism) and an MoE config with a mesh raise
+``NotImplementedError``: the sharding rules and the MoE dispatch across
+ranks are the next slice (ROADMAP A11).  Without a mesh the step is the
+single-device one whatever the ``ParallelConfig``, as in the reference.
 """
 
 from __future__ import annotations
@@ -22,11 +44,17 @@ import dataclasses
 
 import torch
 
+from ..bridge import port_leaves, reference_leaves
+from ..configs.base import ParallelConfig
+from ..core.collectives import error_feedback_slots, hierarchical_all_reduce, pmean, psum
 from ..models import Model
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
-from ..tree import tree_leaves, tree_map
+from ..tree import tree_copy, tree_leaves, tree_map
 
-__all__ = ["Trainer", "make_train_step", "value_and_grads"]
+__all__ = ["Trainer", "make_train_step", "value_and_grads", "local_rows"]
+
+_NEXT_SLICE = ("the sharding rules (a model axis above 1, sharded MoE) are the next slice of "
+               "the port (ROADMAP A11)")
 
 
 def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1):
@@ -63,35 +91,85 @@ def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1):
     return tree_map(lambda _: next(it), params), {"loss": loss}
 
 
-def make_train_step(model: Model, opt_cfg: AdamWConfig, pcfg=None, mesh=None,
+def local_rows(batch: dict, mesh) -> dict:
+    """This rank's rows of the global ``batch``, as the reference's
+    ``P(("pod", "data"), None)`` places them: block ``i`` of ``n``, ``i``
+    the rank's flattened (pod, data) index."""
+    dp = mesh.data_parallel_axes
+    n, i = mesh.axis_size(dp), mesh.axis_index(dp)
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"batch of {v.shape[0]} rows does not split over {n} ranks")
+        rows = v.shape[0] // n
+        out[k] = v[i * rows:(i + 1) * rows]
+    return out
+
+
+def make_train_step(model: Model, opt_cfg: AdamWConfig, pcfg: ParallelConfig, mesh=None,
                     microbatches: int = 1):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "grad_norm", "lr"})."""
-    if pcfg is not None or mesh is not None:
-        raise NotImplementedError(
-            "the port's trainer runs on one device: a mesh and a ParallelConfig (the "
-            "hierarchical and compressed gradient sync) wait for ROADMAP A11")
-
+    {"loss", "grad_norm", "lr"}), updating params and state in place."""
     decay = None  # the decay mask depends only on the config and the tree: made at the first step
 
-    def train_step(params, opt_state, batch):
+    def update(params, grads, opt_state):
         nonlocal decay
         if decay is None:
             decay = model.decay_mask(params)
-        grads, metrics = value_and_grads(model, params, batch, microbatches)
-        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg, decay)
-        return params, opt_state, {**metrics, **om}
+        return adamw_update(params, grads, opt_state, opt_cfg, decay)
+
+    if mesh is None:
+        def train_step(params, opt_state, batch):
+            grads, metrics = value_and_grads(model, params, batch, microbatches)
+            params, opt_state, om = update(params, grads, opt_state)
+            return params, opt_state, {**metrics, **om}
+
+        return train_step
+
+    if mesh.axis_sizes().get("model", 1) > 1:
+        raise NotImplementedError(f"a model axis of {mesh.axis_sizes()['model']}: {_NEXT_SLICE}")
+    if model.cfg.moe is not None:
+        raise NotImplementedError(f"{model.cfg.name} is an MoE config on a mesh: {_NEXT_SLICE}")
+    dp = mesh.data_parallel_axes
+    hier = pcfg.hierarchical_grad_sync and "pod" in mesh.axis_names
+    low_axes = tuple(a for a in ("data",) if a in mesh.axis_names)
+
+    def train_step(params, opt_state, batch):
+        grads, metrics = value_and_grads(model, params, local_rows(batch, mesh), microbatches)
+        if hier and pcfg.compress_cross_pod:
+            residuals = None
+            if "err" in opt_state:
+                residuals = tree_map(lambda e: e[0], opt_state["err"])
+            synced, new_res = hierarchical_all_reduce(
+                reference_leaves(model.cfg, grads), low_axes=low_axes, high_axis="pod",
+                average=True, compress_high=True, residuals=residuals, mesh=mesh)
+            grads = port_leaves(model.cfg, synced)
+            if "err" in opt_state:
+                for e, r in zip(tree_leaves(opt_state["err"]), tree_leaves(new_res)):
+                    e.copy_(r[None])
+        elif hier:
+            grads, _ = hierarchical_all_reduce(grads, low_axes=low_axes, high_axis="pod",
+                                               average=True, mesh=mesh)
+        else:
+            n = mesh.axis_size(dp)
+            grads = tree_map(lambda g: psum(g, dp, mesh=mesh).div_(n), grads)
+        params, opt_state, om = update(params, grads, opt_state)
+        # loss and grad norm averaged over the data-parallel group in one call
+        loss, gnorm = pmean(torch.stack([metrics["loss"].float(), om["grad_norm"].float()]), dp,
+                            mesh=mesh)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm, "lr": om["lr"]}
 
     return train_step
 
 
 @dataclasses.dataclass
 class Trainer:
-    """Host-level training loop on one device: ``init`` and ``step``."""
+    """Host-level training driver: ``init``, ``jitted_step`` and ``step``
+    (the in-place step, ``jitted_step(donate=True)``)."""
 
     model: Model
     opt_cfg: AdamWConfig
-    pcfg: object | None = None
+    pcfg: ParallelConfig = ParallelConfig()
     mesh: object | None = None
     microbatches: int = 1
 
@@ -101,6 +179,30 @@ class Trainer:
 
     def init(self, gen: torch.Generator):
         """(fp32 master params that require grad, optimizer state), the params
-        drawn from ``gen`` on the model's device."""
+        drawn from ``gen`` on the model's device; every rank of a mesh draws
+        the same params from the same seed.  With a compressed sync on a
+        mesh the state holds this rank's ``err`` row."""
         params = tree_map(lambda t: t.requires_grad_(), self.model.init(gen))
-        return params, adamw_init(params, self.opt_cfg)
+        opt_state = adamw_init(params, self.opt_cfg)
+        if self.pcfg.compress_cross_pod and self.mesh is not None:
+            n_low = self.mesh.axis_sizes().get("data", 1)
+            with torch.no_grad():
+                slots = error_feedback_slots(reference_leaves(self.model.cfg, params), n_low)
+            opt_state["err"] = tree_map(lambda e: e[None], slots)
+        return params, opt_state
+
+    def jitted_step(self, donate: bool = True):
+        """The train step.  With ``donate`` (the reference's buffer
+        donation) it updates the caller's params and optimizer state in
+        place.  With ``donate=False`` it first copies both trees (params
+        keep ``requires_grad``), so the caller's tensors stay valid and
+        unchanged, as in the reference; the copies double the fp32 state
+        (16 bytes a parameter) while the step runs, so full-width callers
+        keep the in-place step."""
+        if donate:
+            return self.step
+
+        def step(params, opt_state, batch):
+            return self.step(tree_copy(params), tree_copy(opt_state), batch)
+
+        return step

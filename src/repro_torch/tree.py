@@ -2,7 +2,10 @@
 
 from __future__ import annotations
 
-__all__ = ["tree_leaves", "tree_map"]
+import numpy as np
+import torch
+
+__all__ = ["tree_leaves", "tree_map", "tree_copy"]
 
 
 def tree_leaves(tree) -> list:
@@ -22,3 +25,13 @@ def tree_map(fn, tree, *rest):
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
+
+
+def tree_copy(tree):
+    """A copy of ``tree`` whose tensors and arrays share no memory with it
+    (tensors requiring grad where the originals do)."""
+    def leaf(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().clone().requires_grad_(t.requires_grad)
+        return np.array(t) if isinstance(t, np.ndarray) else t
+    return tree_map(leaf, tree)

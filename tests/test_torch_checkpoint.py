@@ -470,3 +470,22 @@ def test_train_launcher_resume_prints_the_same_step_lines(tmp_path, capsys):
     resumed = [l for l in out.out.splitlines() if l.startswith("step ")]
     assert resumed == straight_lines[3:]
     assert "resumed from step 2" in out.err
+
+
+def test_mesh_checkpoint_slices_only_the_rows_the_caller_names(tmp_path):
+    """With a mesh, only the leaves under the caller's ``rows`` path are a
+    rank's rows (gathered on save, sliced on restore); a params entry that
+    happens to be named ``err`` is an ordinary leaf.  ``rows`` without a
+    mesh raises.  A one-rank mesh needs no process group."""
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    tree = ({"err": torch.arange(3.0)}, {"step": 1, "err": {"w": torch.ones(1, 4)}})
+    save_checkpoint(str(tmp_path), 1, tree, mesh=mesh, rows=(1, "err"))
+    like = ({"err": torch.zeros(3)}, {"step": 0, "err": {"w": torch.zeros(1, 4)}})
+    (params, opt), step = restore_checkpoint(str(tmp_path), like, mesh=mesh, rows=(1, "err"))
+    assert step == 1 and opt["step"] == 1
+    assert torch.equal(params["err"], torch.arange(3.0))
+    assert torch.equal(opt["err"]["w"], torch.ones(1, 4))
+    with pytest.raises(ValueError, match="mesh"):
+        save_checkpoint(str(tmp_path), 2, tree, rows=(1, "err"))

@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module loads neither
 JAX nor anything of the JAX package, no source of the port (or
-``chip_smoke.py``) names them, and the entry points refuse to run on a
-machine without a card unless the caller asks for the CPU."""
+``chip_smoke.py``, or the port's examples) names them, and the entry points
+refuse to run on a machine without a card unless the caller asks for the
+CPU."""
 
 import ast
 import os
@@ -21,6 +22,7 @@ from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _modules():
@@ -38,6 +40,8 @@ def test_every_module_imports_without_jax():
             "repro_torch.obs.logging", "repro_torch.configs.minicpm3_4b",
             "repro_torch.configs.phi_3_vision_4_2b",
             "repro_torch.configs.seamless_m4t_large_v2", "repro_torch.configs.clex_paper",
+            "repro_torch.core.collectives", "repro_torch.core.cost_model",
+            "repro_torch.launch.mesh",
             *(f"repro_torch.core.{m}" for m in (
                 "hashrng", "topology", "routing", "simulator", "streaming", "torus_sim",
                 "scenarios", "analysis", "sim_engine"))} <= set(mods)
@@ -65,7 +69,8 @@ def _imports(path: Path):
             yield node.module or "", node.level
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + EXAMPLES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_sources_name_no_jax_and_no_reference_module(path):
     rel = path.relative_to(PORT).parts if PORT in path.parents else ()
@@ -88,5 +93,22 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--reduced", "--steps", "1"])
     train.main(["--reduced", "--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--reduced", "--steps", "1", "--mesh", "1x1x1"])
     assert resolve_device("cpu").type == "cpu"
     assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
+def test_the_port_has_three_examples_and_each_needs_a_card_unless_asked(monkeypatch):
+    assert [p.name for p in EXAMPLES] == ["torch_quickstart.py", "torch_serve_batched.py",
+                                          "torch_train_end_to_end.py"]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for path in EXAMPLES:
+        text = path.read_text()
+        assert '"--device"' in text and "def main(argv=None" in text, path
+    import runpy
+
+    for path in EXAMPLES:
+        ns = runpy.run_path(str(path), run_name="example")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ns["main"]([])

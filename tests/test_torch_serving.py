@@ -17,10 +17,13 @@ import torch
 from repro.configs.base import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 from repro.models.model import Model as JaxModel
+from repro.core import collectives as jax_collectives
 from repro.runtime import serving as jax_serving
+from repro.runtime import trainer as jax_trainer
 from repro_torch.bridge import from_jax_params
 from repro_torch.configs.base import get_config
 from repro_torch.core import CollectiveCostModel
+from repro_torch.core import collectives
 from repro_torch.launch import serve
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
@@ -38,6 +41,7 @@ from repro_torch.runtime.serving import (
     TierConfig,
     TieredKVPool,
 )
+from repro_torch.runtime.trainer import Trainer, make_train_step
 
 
 def _make_pair(arch):
@@ -247,10 +251,31 @@ def test_one_shot_engine_matches_reference_greedy_streams(pair):
 
 def _default(value):
     """A default as the test compares it: a dataclass instance (the pools'
-    ``TierConfig()``) by its class name and fields."""
+    ``TierConfig()``, the trainer's ``ParallelConfig()``) by its class name
+    and fields, a dtype (torch's or JAX's) by its name."""
     if dataclasses.is_dataclass(value) and not isinstance(value, type):
         return type(value).__name__, dataclasses.asdict(value)
+    if isinstance(value, torch.dtype):
+        return "dtype", str(value).removeprefix("torch.")
+    if isinstance(value, type) and hasattr(value, "dtype"):
+        return "dtype", np.dtype(value).name
     return value
+
+
+def _without_mesh(fn):
+    """``fn``'s signature without its trailing keyword-only ``mesh``: the
+    port's collectives take the reference's parameters, then the mesh whose
+    process groups their axis names select (the reference finds its axes in
+    the enclosing ``shard_map``)."""
+    sig = inspect.signature(fn)
+    *params, mesh = sig.parameters.values()
+    assert mesh.name == "mesh" and mesh.kind is inspect.Parameter.KEYWORD_ONLY, fn
+
+    def stripped():
+        pass
+
+    stripped.__signature__ = sig.replace(parameters=params)
+    return stripped
 
 
 def _params_of(fn):
@@ -274,7 +299,15 @@ _SIGNATURES = {
     "absorb_pool_metrics": (_ENGINE.absorb_pool_metrics, _JAX_ENGINE.absorb_pool_metrics),
     "run": (_ENGINE.run, _JAX_ENGINE.run),
     "admission_cost": (Scheduler.admission_cost, jax_serving.Scheduler.admission_cost),
+    "Trainer.__init__": (Trainer.__init__, jax_trainer.Trainer.__init__),
+    "Trainer.jitted_step": (Trainer.jitted_step, jax_trainer.Trainer.jitted_step),
+    "make_train_step": (make_train_step, jax_trainer.make_train_step),
 }
+for _name in ("hierarchical_all_reduce", "compressed_psum", "two_stage_all_to_all"):
+    _SIGNATURES[_name] = (_without_mesh(getattr(collectives, _name)),
+                          getattr(jax_collectives, _name))
+for _name in ("quantize_int8", "dequantize_int8", "error_feedback_slots"):
+    _SIGNATURES[_name] = (getattr(collectives, _name), getattr(jax_collectives, _name))
 for _name in ("__init__", "write", "extract", "insert", "extract_all", "insert_all",
               "allocate", "free", "active_slots", "check"):
     _SIGNATURES[f"KVPool.{_name}"] = (getattr(KVPool, _name), getattr(jax_serving.KVPool, _name))

@@ -432,11 +432,21 @@ def test_decay_mask_matches_the_reference_on_its_stacked_tree(arch):
 
 
 def test_trainer_refuses_a_mesh_and_a_parallel_config():
+    """What the port's trainer still refuses (ROADMAP A11's rest): a model
+    axis above 1 and an MoE config on a mesh.  A ``ParallelConfig`` without
+    a mesh runs the plain step, as in the reference; data-parallel meshes
+    are tested on ranks in ``tests/test_torch_parallel_train.py``."""
+    from repro_torch.launch.mesh import Mesh
+
     _, _, mt = make_pair("internlm2-1.8b")
+    tp = Mesh(("data", "model"), (1, 2), 0, {}, "gloo")
     with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(mt, adamw.AdamWConfig(), mesh=object())
+        Trainer(mt, adamw.AdamWConfig(), mesh=tp)
+    _, _, moe = make_pair("granite-moe-1b-a400m")
     with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(mt, adamw.AdamWConfig(), ParallelConfig(hierarchical_grad_sync=True))
+        Trainer(moe, adamw.AdamWConfig(), mesh=Mesh(("data", "model"), (1, 1), 0, {}, "gloo"))
+    trainer = Trainer(mt, adamw.AdamWConfig(), ParallelConfig(hierarchical_grad_sync=True))
+    assert trainer.jitted_step() is trainer.step
 
 
 def test_train_launcher_runs_on_cpu(capsys):
