@@ -233,12 +233,31 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    restore of step 50); each one's wall, last lines and launches (the
    training ones held to their passes), its launch shapes checked as in
    phase 11;
-13. the walls by phase and path, a JSON line of the kernels (the flash and SSD
+13. serving on a mesh with a ``model`` axis: 4 processes sharing the card
+   under gloo, data 2 x model 2, internlm2-1.8b (16 query heads over 8 KV
+   heads, 8 and 4 a rank; its vocab of 92544 split), granite-moe-1b-a400m
+   (32 experts, 16 a rank; its vocab of 49155 whole) and mamba2-1.3b (64
+   SSM heads, 32 a rank), each at full width cut to 4 layers, each rank
+   holding its blocks of the seed-0 weights (``runtime/sharding.py``),
+   phase 4's traffic through ``ContinuousBatchingEngine(mesh=)``: in fp32
+   every rank's streams bit-identical, the dense and SSM streams equal to
+   one process's engine on the whole weights, and granite's MoE layer on
+   both expert-parallel paths (a 2 x 1024 prefill group, 512 tokens a
+   rank, all-to-all over ``model``; a decode step of 4 tokens, replicated
+   experts) against its emulation, each token block through ``moe_local``
+   with its own capacity, within the grouped matmul's tolerance; in bf16
+   the prefill and decode walls, one decode step profiled on rank 0, the
+   bytes each rank sent by group and the peak memory; each rank's
+   launches held to its prefills and decode steps, their shapes checked
+   (flash at 8 of 16 heads, gmm at 16 of 32 experts, the SSD scan at 32 of
+   64 heads); then the serve launcher under torchrun (``--mesh 2x2
+   --reduced``);
+14. the walls by phase and path, a JSON line of the kernels (the flash and SSD
    backwards beside the three forward kernels; the SSD backward's launches
    by route and its FMA route's time beside; launches by path, the train
    paths, the checkpoint phase, the session paths, phase 9's paths, the
-   simulator's (all 0), each rank's of phase 11 and each example's of
-   phase 12 among them), and as the last line
+   simulator's (all 0), each rank's of phase 11, each example's of
+   phase 12 and each rank's of phase 13 among them), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
@@ -246,6 +265,7 @@ It exits non-zero, printing no result, where no CUDA card is visible.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -288,6 +308,7 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
+from repro_torch.launch.serve import sent_by_call  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -309,6 +330,7 @@ from repro_torch.core.scenarios import asymmetric_bandwidth  # noqa: E402
 from repro_torch.obs import Obs, get_obs, set_obs  # noqa: E402
 from repro_torch.runtime.serving import (  # noqa: E402
     ContinuousBatchingEngine, KVPool, ServingEngine, TierConfig)
+from repro_torch.runtime.sharding import reshard_params  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, local_rows, value_and_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -1062,7 +1084,7 @@ def ssd_edges(dt):
     return list(dict.fromkeys(shapes))
 
 
-def _check_ssd(shape: SsdShape, out, ref, served: bool) -> float:
+def _check_ssd(shape: SsdShape, out, ref, served: bool, phase: int = 2) -> float:
     """The kernel's (y, final state) against the plain version's, each within
     SSD_TOL (abs + rel); at a served bf16 shape the state also within
     SSD_STATE_REL of its largest value.  Returns the larger abs error."""
@@ -1075,7 +1097,7 @@ def _check_ssd(shape: SsdShape, out, ref, served: bool) -> float:
     strict = served and shape.dtype == torch.bfloat16
     if strict:
         ok = ok and h_rel <= SSD_STATE_REL
-    log(f"phase 2 check ssd_scan {shape} ({ssd_kernel.route(shape.dtype, shape.p, shape.n)}): "
+    log(f"phase {phase} check ssd_scan {shape} ({ssd_kernel.route(shape.dtype, shape.p, shape.n)}): "
         f"y max_abs_err {y_err.max().item():.3e}, state max_abs_err {h_err.max().item():.3e}, "
         f"state rel {h_rel:.3e} (tol {tol:g} abs + rel"
         + (f"; state rel <= {SSD_STATE_REL:g}" if strict else "") + f") {'ok' if ok else 'FAIL'}")
@@ -3108,12 +3130,15 @@ SYNC_MODES = {"flat": ParallelConfig(hierarchical_grad_sync=False),
 
 class LaunchShapes:
     """While active, records the shapes at which the flash kernel (forward
-    and backward) and the grouped matmul are launched, by wrapping the
-    kernel modules' launch functions (the wrappers' counters are untouched)."""
+    and backward), the grouped matmul and the SSD scan's forward are
+    launched, by wrapping the kernel modules' launch functions (the
+    wrappers' counters are untouched)."""
 
     def __enter__(self):
-        self.flash, self.flash_bwd, self.gmm = set(), set(), set()
-        self._saved = fwd, bwd, gmm = fa_kernel.launch, fa_kernel.launch_bwd, gmm_kernel.launch
+        self.flash, self.flash_bwd, self.gmm, self.ssd = set(), set(), set(), set()
+        self._saved = fwd, bwd, gmm, ssd = (fa_kernel.launch, fa_kernel.launch_bwd,
+                                            gmm_kernel.launch, ssd_kernel.launch)
+        chunk = get_config(SSM).ssm.chunk_size
 
         def shape(q, k, causal, window):
             if q.shape[1] != k.shape[1]:
@@ -3133,27 +3158,42 @@ class LaunchShapes:
             self.gmm.add(GmmShape(x.shape[0], x.shape[1], x.shape[2], w.shape[2], x.dtype))
             return gmm(x, w, out)
 
-        fa_kernel.launch, fa_kernel.launch_bwd, gmm_kernel.launch = launch, launch_bwd, launch_gmm
+        def launch_ssd(x, dt, a, b, c, y, state):
+            self.ssd.add(SsdShape(*x.shape, b.shape[2], x.dtype, chunk=chunk))
+            return ssd(x, dt, a, b, c, y, state)
+
+        (fa_kernel.launch, fa_kernel.launch_bwd, gmm_kernel.launch,
+         ssd_kernel.launch) = launch, launch_bwd, launch_gmm, launch_ssd
         return self
 
     def __exit__(self, *exc):
-        fa_kernel.launch, fa_kernel.launch_bwd, gmm_kernel.launch = self._saved
+        fa_kernel.launch, fa_kernel.launch_bwd, gmm_kernel.launch, ssd_kernel.launch = self._saved
 
-    def sets(self) -> tuple[set, set, set]:
-        return self.flash, self.flash_bwd, self.gmm
+    def sets(self) -> tuple[set, set, set, set]:
+        return self.flash, self.flash_bwd, self.gmm, self.ssd
 
 
-def check_launched(shapes: tuple[set, set, set], checked: dict, phase: int) -> int:
+def check_ssd_shape(shape: SsdShape, phase: int = 2) -> None:
+    args = shape.inputs()
+    out = ssd_ops.ssd(*args)
+    torch.cuda.synchronize()
+    _check_ssd(shape, out, ssd_chunked(*args, shape.chunk), True, phase)
+
+
+def check_launched(shapes: tuple[set, ...], checked: dict, phase: int) -> int:
     """Holds each recorded shape (flash forward, flash backward, grouped
-    matmul) that no earlier check covered against its plain version;
-    ``checked`` maps "flash", "flash_bwd" and "gmm" to the shapes checked so
-    far and grows.  Returns how many shapes were new."""
+    matmul, SSD scan) that no earlier check covered against its plain
+    version (an SSD shape as a served one); ``checked`` maps "flash",
+    "flash_bwd", "gmm" and "ssd" to the shapes checked so far and grows.
+    Returns how many shapes were new."""
     new = 0
-    for kind, found, fn in zip(("flash", "flash_bwd", "gmm"), shapes,
-                               (check_flash_shape, check_flash_grad_shape, check_gmm_shape)):
-        for shape in sorted(found - checked[kind], key=str):
+    for kind, found, fn in zip(("flash", "flash_bwd", "gmm", "ssd"), shapes,
+                               (check_flash_shape, check_flash_grad_shape, check_gmm_shape,
+                                check_ssd_shape)):
+        done = checked.setdefault(kind, set())
+        for shape in sorted(found - done, key=str):
             fn(shape, phase=phase)
-            checked[kind].add(shape)
+            done.add(shape)
             new += 1
     return new
 
@@ -3344,7 +3384,8 @@ def _probe_gloo_cuda() -> dict:
 
 
 def _profile_sync_step(step) -> str:
-    """One train step on a rank under torch.profiler: its wall, the
+    """One step on a rank (a train step, or an engine step in phase 13)
+    under torch.profiler: its wall, the
     device's busy time split into host copies and kernels, and the host ms
     inside the collectives (the c10d ops, which wait for the other ranks)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -3388,14 +3429,17 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
     dist.destroy_process_group()
 
 
-def _spawn_ranks(world: int, workdir: str) -> list[dict]:
-    """``world`` processes of ``_rank_main``; fails if one fails or the
-    phase outlasts ``RANK_TIMEOUT``, and stops every one it started."""
+def _spawn_ranks(world: int, workdir: str, target=None, phase: int = 11,
+                 timeout: float = RANK_TIMEOUT) -> list[dict]:
+    """``world`` processes of ``target`` (``_rank_main``), each saving its
+    results to ``rank<r>.pt`` in ``workdir``; fails if one fails or the
+    phase outlasts ``timeout``, and stops every one it started."""
     ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_main, args=(r, world, workdir)) for r in range(world)]
+    procs = [ctx.Process(target=target or _rank_main, args=(r, world, workdir))
+             for r in range(world)]
     for p in procs:
         p.start()
-    deadline = time.perf_counter() + RANK_TIMEOUT
+    deadline = time.perf_counter() + timeout
     try:
         for p in procs:
             p.join(max(deadline - time.perf_counter(), 0.0))
@@ -3406,18 +3450,26 @@ def _spawn_ranks(world: int, workdir: str) -> list[dict]:
                 p.join()
     codes = [p.exitcode for p in procs]
     if any(codes):
-        raise SystemExit(f"phase 11: ranks exited with {codes} (-9: killed at the "
-                         f"{RANK_TIMEOUT:.0f} s limit)")
+        raise SystemExit(f"phase {phase}: ranks exited with {codes} (-9: killed at the "
+                         f"{timeout:.0f} s limit)")
     return [torch.load(f"{workdir}/rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def _launcher_on_ranks() -> None:
-    """The train launcher under torchrun: 4 ranks sharing the card (gloo),
-    pod 2 x data 2 x model 1, CLEX-staged int8 sync, REDUCED internlm2, 3
-    steps."""
+def _launcher_on_ranks(args: list[str] | None = None, phase: int = 11, healthy=None) -> None:
+    """A launcher under torchrun on 4 ranks sharing the card (gloo): by
+    default the train launcher, pod 2 x data 2 x model 1, CLEX-staged int8
+    sync, REDUCED internlm2, 3 steps.  ``healthy`` judges its stdout lines
+    after the first, which must name gloo."""
+    if args is None:
+        args = ["repro_torch.launch.train", "--mesh", "2x2x1", "--hierarchical-sync",
+                "--compress", "--reduced", "--steps", "3", "--log-every", "1"]
+
+        def healthy(lines):
+            steps = [ln for ln in lines if ln.startswith("step ")]
+            return len(steps) == 3 and all(math.isfinite(float(ln.split()[3])) for ln in steps)
+
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           "4", "-m", "repro_torch.launch.train", "--mesh", "2x2x1", "--hierarchical-sync",
-           "--compress", "--reduced", "--steps", "3", "--log-every", "1"]
+           "4", "-m", *args]
     root = Path(__file__).resolve().parent
     env = {**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "2"}
     t0 = time.perf_counter()
@@ -3425,12 +3477,10 @@ def _launcher_on_ranks() -> None:
                           start_new_session=True)
     wall = time.perf_counter() - t0
     lines = proc.stdout.splitlines()
-    steps = [ln for ln in lines if ln.startswith("step ")]
     ok = (proc.returncode == 0 and bool(lines) and lines[0].startswith("backend gloo")
-          and len(steps) == 3 and all(math.isfinite(float(ln.split()[3])) for ln in steps))
-    log(f"phase 11 launcher: torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh "
-        f"2x2x1 --hierarchical-sync --compress --reduced --steps 3: exit {proc.returncode} in "
-        f"{wall:.1f} s: {' | '.join(lines)} {'ok' if ok else 'FAIL'}")
+          and healthy(lines))
+    log(f"phase {phase} launcher: torchrun --nproc-per-node 4 -m {' '.join(args)}: exit "
+        f"{proc.returncode} in {wall:.1f} s: {' | '.join(lines)} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"the launcher on ranks failed:\n{proc.stderr[-4000:]}")
 
@@ -3617,6 +3667,235 @@ def phase_examples(checked: dict) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------- phase 13: serving on a model axis
+
+MESH_SHAPE = (2, 2)  # data x model: 4 ranks sharing the card under gloo
+MESH_LAYERS = 4  # each model at full width, cut to 4 layers
+MESH_TIMEOUT = 420.0
+# the MoE layer check's inputs: a 2 x 1024 prefill group (2048 tokens, 512 a
+# rank: the all-to-all path) and a decode step on 4 slots (the replicated
+# path, 2 tokens a data rank)
+MESH_MOE_INPUTS = {"all-to-all": (2, 1024), "replicated": (4, 1)}
+
+
+def mesh_cfg(arch: str, dtype: str):
+    return dataclasses.replace(get_config(arch), n_layers=MESH_LAYERS, compute_dtype=dtype)
+
+
+def _mesh_serve(arch: str, dtype: str, mesh) -> dict:
+    """Phase 4's traffic through ``ContinuousBatchingEngine`` on ``mesh``
+    from this rank's blocks of the seed-0 weights: the streams, launches
+    and their shapes, walls, bytes sent and peak memory; in fp32 on rank 0
+    (dense and SSM), then the same prompts through one process's engine on
+    the whole weights; in bf16, 4 more requests with one decode step
+    profiled on rank 0."""
+    cfg = mesh_cfg(arch, dtype)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = model.init(torch.Generator(device="cuda").manual_seed(0))
+    block = reshard_params(model.param_axes(), full, mesh)
+    single = dtype == "float32" and mesh.rank == 0 and arch != MOE
+    if not single:
+        del full
+    _, prompts, _ = traffic(cfg.vocab)
+    engine = ContinuousBatchingEngine(model, block, n_slots=N_SLOTS, max_len=SESSION_CAPACITY,
+                                      mesh=mesh)
+    del block
+    mesh.sent.clear()
+    dist.barrier()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with LaunchShapes() as shapes:
+        outs = engine.generate(prompts, NEW_TOKENS)
+        wall = time.perf_counter() - t0
+        rec = {"streams": [o.tolist() for o in outs], "wall": wall}
+        if dtype == "bfloat16":
+            for p in prompts[:N_SLOTS]:
+                engine.submit(p[:PROFILE_PROMPT], 4)
+            engine.step()  # admission and a first decode step outside the window
+            dist.barrier()
+            if mesh.rank == 0:
+                rec["profile"] = _profile_sync_step(engine.step)
+            else:
+                engine.step()
+            engine.run()
+    m = engine.metrics
+    rec.update(launches=_launches(), shapes=shapes.sets(),
+               prefills=m.prefills, decode_steps=m.decode_steps,
+               prefill_walls=m.prefill_walls, decode_walls=m.decode_walls,
+               prefill_sent=m.prefill_sent, decode_sent=m.decode_sent,
+               row_bytes=engine.pool._row_bytes,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del engine
+    if single:  # the one-process port on the card, from the same weights
+        one = ContinuousBatchingEngine(model, full, n_slots=N_SLOTS, max_len=SESSION_CAPACITY)
+        rec["one process"] = [o.tolist() for o in one.generate(prompts, NEW_TOKENS)]
+        del one, full
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def _mesh_moe_layer(mesh) -> dict:
+    """granite's layer-0 MoE FFN in fp32 on both expert-parallel paths
+    (``MESH_MOE_INPUTS``), this rank's experts; each output's bit checksum,
+    and on rank 0 its largest difference from the emulation: each of the
+    path's token blocks through ``moe_local`` on the whole layer, with its
+    own capacity."""
+    cfg = mesh_cfg(MOE, "float32")
+    model = build_model(cfg)
+    full = model.init(torch.Generator(device="cuda").manual_seed(0))
+    layer = full["layers"][0]["ffn"]
+    mine = reshard_params(model.param_axes(), full, mesh)["layers"][0]["ffn"]
+    del full
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(2, 1024, cfg.d_model, generator=gen, device="cuda")
+    out = {}
+    dp, m = MESH_SHAPE
+    for path, (b, s) in MESH_MOE_INPUTS.items():
+        xx = x.reshape(-1, cfg.d_model)[:b * s].reshape(b, s, -1)
+        with torch.no_grad():
+            y, _ = moe_mod.moe_apply(mine, xx, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            rec = {"sums": _leaf_sums([y])}
+            if mesh.rank == 0:
+                blocks = dp * m if path == "all-to-all" else dp
+                flat = xx.reshape(blocks, -1, cfg.d_model)
+                emu = torch.cat([moe_mod.moe_local(layer, blk, cfg)[0] for blk in flat])
+                rec.update(err=float((y.reshape(emu.shape) - emu).abs().max()),
+                           scale=float(emu.abs().max()), blocks=blocks,
+                           capacity=capacity(cfg, flat.shape[1]))
+        out[path] = rec
+    del layer, mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank_main(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 13, a spawned process: joins the gloo group through
+    a file in ``workdir``, builds the data 2 x model 2 mesh, serves each
+    model in fp32 then bf16, checks the MoE layer, and saves its results."""
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/init", rank=rank,
+                            world_size=world)
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    out = {"coords": mesh.coords}
+    for arch in ARCHS:
+        for dtype in ("float32", "bfloat16"):
+            out[arch, dtype] = _mesh_serve(arch, dtype, mesh)
+        if arch == MOE:
+            out["moe layer"] = _mesh_moe_layer(mesh)
+    torch.save(out, f"{workdir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_mesh(smi: str, checked: dict) -> dict:
+    """Phase 13: serving on a mesh with a ``model`` axis, 4 ranks sharing
+    the card (gloo), data 2 x model 2 (``launch/mesh.py``): internlm2-1.8b,
+    granite-moe-1b-a400m and mamba2-1.3b at full width cut to 4 layers,
+    each rank holding its blocks of the seed-0 weights
+    (``runtime/sharding.py``), phase 4's traffic (8 prompts of 114 to 866
+    tokens, 32 greedy tokens, 4 slots, capacity 1040) through
+    ``ContinuousBatchingEngine(mesh=)``.  In fp32: every rank's streams
+    bit-identical, and for the dense and SSM models equal to one process's
+    engine on the whole weights on the card; granite's layer-0 MoE on both
+    expert-parallel paths against its emulation (each token block through
+    ``moe_local`` with its own capacity) within the grouped matmul's
+    tolerance, the ranks' outputs bit-identical.  In bf16: prefill ms per
+    group and decode ms per step (host clock), one decode step profiled on
+    rank 0, the bytes each rank sent by group, peak memory a rank; each
+    rank's launches, held to its engine's prefills and decode steps, and
+    their shapes (any not checked before held against the plain versions
+    through ``check_launched``); then the serve launcher under torchrun.
+    Returns each rank's launches by path."""
+    world = math.prod(MESH_SHAPE)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(world, workdir, _mesh_rank_main, 13, MESH_TIMEOUT)
+        wall = time.perf_counter() - t0
+    log(f"phase 13 ranks: {world} processes sharing the card (gloo), mesh data {MESH_SHAPE[0]} x "
+        f"model {MESH_SHAPE[1]}, coordinates {[r['coords'] for r in ranks]}; {', '.join(ARCHS)} "
+        f"at full width, {MESH_LAYERS} layers each; all in {wall:.1f} s")
+    fails, paths = [], {}
+    for arch in ARCHS:
+        cfg = mesh_cfg(arch, "float32")
+        recs = [r[arch, "float32"] for r in ranks]
+        same = all(r["streams"] == recs[0]["streams"] for r in recs)
+        one = recs[0].get("one process")
+        match = one is None or one == recs[0]["streams"]
+        ok = same and match
+        fails += [] if ok else [f"{arch} fp32 streams"]
+        log(f"phase 13 check {arch} fp32 full width, {MESH_LAYERS} layers (cut from "
+            f"{get_config(arch).n_layers}): {len(recs[0]['streams'])} streams of {NEW_TOKENS} "
+            f"tokens, every rank's bit-identical {same}; "
+            + (f"equal to one process's engine on the whole weights {match}" if one is not None
+               else "(MoE: capacity is reckoned per rank's token block, so one process's "
+               "stream is another function; the layer check below holds it)")
+            + f"; {recs[0]['prefills']} prefills, {recs[0]['decode_steps']} decode steps "
+            f"{'ok' if ok else 'FAIL'}")
+        for r, out in enumerate(ranks):
+            launches = {k: sum(out[arch, dt]["launches"][k] for dt in ("float32", "bfloat16"))
+                        for k in COUNTERS}
+            want = {k: 0 for k in COUNTERS}
+            for dt in ("float32", "bfloat16"):
+                rec = out[arch, dt]
+                for k, v in expected_launches(cfg, rec["prefills"], rec["decode_steps"]).items():
+                    want[k] += v
+            if launches != want:
+                fails.append(f"{arch} rank {r} launches {launches}, want {want}")
+            paths[f"mesh {arch} rank {r}"] = launches
+        rec = ranks[0][arch, "bfloat16"]
+        dec = np.array([s for _, s in rec["decode_walls"]]) * 1e3
+        pre = ", ".join(f"{g}x{b}: {1e3 * s:.1f}" for g, b, s in rec["prefill_walls"])
+        same16 = all(r[arch, "bfloat16"]["streams"] == rec["streams"] for r in ranks)
+        fails += [] if same16 else [f"{arch} bf16 streams"]
+        toks = sum(len(s) for s in rec["streams"])
+        log(f"phase 13 serve {arch} bf16, {MESH_LAYERS} layers on 4 ranks: {toks} tokens in "
+            f"{rec['wall']:.3f} s = {toks / rec['wall']:.1f} tok/s (host clock; no speed claim: "
+            f"4 ranks share one card and one host); every rank's streams bit-identical {same16}; "
+            f"prefill ms per group (rows x tokens): {pre}; decode ms per step median "
+            f"{np.median(dec):.2f} (min {dec.min():.2f}, max {dec.max():.2f}); one decode step "
+            f"profiled on rank 0: {rec['profile']}; a pool row "
+            f"{rec['row_bytes'] / 1e6:.3f} MB a rank; peak "
+            f"{max(r[arch, 'bfloat16']['peak_gib'] for r in ranks):.2f} GiB a rank; {smi}")
+        log(f"phase 13 serve {arch} bf16 bytes rank 0 sent, by group: per decode step "
+            f"{sent_by_call(rec['decode_sent'])}; per prefill group "
+            f"{sent_by_call(rec['prefill_sent'])}")
+        log(f"phase 13 serve {arch} launches by rank (fp32 + bf16 runs): "
+            + "; ".join(f"rank {r} {paths[f'mesh {arch} rank {r}']}" for r in range(world))
+            + (" ok" if not any(f.startswith(f"{arch} rank") for f in fails) else " FAIL"))
+    moe = [r["moe layer"] for r in ranks]
+    for path in MESH_MOE_INPUTS:
+        rec = moe[0][path]
+        same = all(m[path]["sums"] == rec["sums"] for m in moe)
+        ok = same and rec["err"] <= GMM_TOL[torch.float32]
+        fails += [] if ok else [f"moe layer {path}"]
+        b, s = MESH_MOE_INPUTS[path]
+        log(f"phase 13 check {MOE} layer-0 MoE fp32, {b} x {s} tokens, {path} path: against "
+            f"{rec['blocks']} token blocks through moe_local (capacity {rec['capacity']} each) "
+            f"max abs err {rec['err']:.3e} of {rec['scale']:.3e} (tol "
+            f"{GMM_TOL[torch.float32]:g}); every rank's output bit-identical {same} "
+            f"{'ok' if ok else 'FAIL'}")
+    shapes = tuple(set().union(*(r[arch, dt]["shapes"][i] for r in ranks for arch in ARCHS
+                                 for dt in ("float32", "bfloat16"))) for i in range(4))
+    new = check_launched(shapes, checked, phase=13)
+    log(f"phase 13 launch shapes: flash {sorted(map(str, shapes[0]))}; gmm "
+        f"{sorted(map(str, shapes[2]))}; ssd_scan {sorted(map(str, shapes[3]))}; {new} not "
+        "checked before, now checked")
+    _launcher_on_ranks(["repro_torch.launch.serve", "--mesh", "2x2", "--arch", DENSE,
+                        "--reduced"], 13,
+                       lambda lines: any(ln.startswith("served ") and ln.endswith("tok/s)")
+                                         for ln in lines))
+    if fails:
+        raise SystemExit(f"phase 13 failed: {fails}")
+    return paths
+
+
 def _kernel_entry(name, mod, replaces, launches, err, rep) -> dict:
     return {
         "name": name,
@@ -3691,11 +3970,14 @@ def main() -> int:
     mark("9 families")
     paths["simulator"] = phase_simulator(smi)
     mark("10 simulator")
-    checked = {"flash": fa_checked, "flash_bwd": fa_grad_checked, "gmm": gmm_checked}
+    checked = {"flash": fa_checked, "flash_bwd": fa_grad_checked, "gmm": gmm_checked,
+               "ssd": ssd_checked}
     paths.update(phase_ranks(smi, checked))
     mark("11 ranks")
     paths.update(phase_examples(checked))
     mark("12 examples")
+    paths.update(phase_mesh(smi, checked))
+    mark("13 serving on a model axis")
     log("walls by phase and path: " + ", ".join(f"{what} {w:.1f} s" for what, w in walls))
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)

@@ -18,6 +18,12 @@ of each mixer kind, an encoder-decoder's cross K/V as ``cross_k`` and
 ``cross_v`` over all its decoder layers (``models/transformer.py``).
 ``from_jax_caches`` and ``to_jax_caches`` map one to the other, for the
 tests: the serving path never crosses.
+
+On a mesh (``launch/mesh.py``) ``from_jax_params(cfg, tree, mesh)`` hands
+the calling rank its block of every leaf, ``runtime/sharding.py``'s
+``reshard_params`` of the port's tree under ``Model.param_axes``: the
+block the reference's ``reshard_params`` leaves on the device at the
+rank's place in a JAX mesh of the same shape.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ import numpy as np
 import torch
 
 from .configs.base import ModelConfig
+from .models.model import Model
 from .models.transformer import CACHE_KEYS, CROSS_KEYS, _kind_index, mixer_kind
+from .runtime.sharding import reshard_params
 from .tree import tree_map
 
 __all__ = ["from_jax_params", "to_jax_params", "reference_leaves", "port_leaves", "from_jax_caches",
@@ -75,13 +83,16 @@ def port_leaves(cfg: ModelConfig, tree: dict) -> dict:
     return out
 
 
-def from_jax_params(cfg: ModelConfig, tree: dict) -> dict:
+def from_jax_params(cfg: ModelConfig, tree: dict, mesh=None) -> dict:
     """JAX params (numpy leaves, or arrays numpy can read) -> port params as
     CPU tensors; ``Model.load`` puts them on the model's device.  Leaves keep
-    their dtype."""
+    their dtype.  With ``mesh``, this rank's block of each leaf."""
     _period(cfg, len(tree["decoder"]))
     tensors = tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
-    return tree_map(torch.clone, port_leaves(cfg, tensors))
+    params = tree_map(torch.clone, port_leaves(cfg, tensors))
+    if mesh is None:
+        return params
+    return reshard_params(Model(cfg, device="cpu").param_axes(), params, mesh)
 
 
 def to_jax_params(cfg: ModelConfig, params: dict) -> dict:

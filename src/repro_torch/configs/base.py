@@ -6,8 +6,8 @@ module copies over unchanged; the registry lists the JAX package's ten
 architectures in its order.  ``ParallelConfig`` is copied field for field:
 the port's trainer reads ``hierarchical_grad_sync`` and
 ``compress_cross_pod`` (``runtime/trainer.py``); the other fields steer the
-JAX package's sharding rules, which the port does not have yet (ROADMAP
-A11).  The reference's input-shape cells (``ShapeConfig``, ``SHAPES``)
+JAX package's sharding in training (sequence parallelism, the FSDP axis),
+which waits for ROADMAP A11c.  The reference's input-shape cells (``ShapeConfig``, ``SHAPES``)
 belong to its dry-run tooling (ROADMAP A14).
 """
 

@@ -6,11 +6,11 @@ Counterpart of the JAX package's ``launch/mesh.py``.  A mesh names its axes
 coordinates in row-major order (rank ``r`` of a ``(P, D, M)`` mesh sits at
 ``(r // (D*M), r // M % D, r % M)``, as ``jax.make_mesh`` lays out its
 devices) and holds one process group for each slice of each axis and of the
-data-parallel axes together (``("pod", "data")``), so that a collective
-over ``"pod"`` alone or over the data-parallel axes runs on the group of
-the ranks that share this rank's other coordinates.  Those are the only
-sets of axes the data-parallel path uses; the groups of a ``model`` axis
-with others wait for the sharding rules (ROADMAP A11).
+data-parallel axes together (``("pod", "data")``) and of the
+data-parallel axes with ``model`` (``("pod", "data", "model")``, the
+token blocks of the expert-parallel MoE path), so that a collective over
+``"pod"`` alone, over ``"model"`` alone or over a set of them runs on the
+group of the ranks that share this rank's other coordinates.
 
 The mesh is a small dataclass of named groups, not
 ``torch.distributed.device_mesh.DeviceMesh``: a ``DeviceMesh`` over CUDA
@@ -52,7 +52,8 @@ __all__ = [
 class Mesh:
     """Named axes over the ranks of the default group, and this rank's place
     in them.  ``groups`` maps a tuple of axis names (in mesh order: each
-    axis alone, and ``data_parallel_axes`` together) to the process group
+    axis alone, ``data_parallel_axes`` together and with ``model``) to the
+    process group
     of this rank's slice over those axes (None for a slice of one rank);
     ``sent`` counts the bytes this rank sent in the collectives
     of ``core/collectives.py`` by axis set (``"pod,data"``)."""
@@ -154,6 +155,8 @@ def make_mesh(shape: tuple[int, ...], axis_names: tuple[str, ...]) -> Mesh:
     dp = tuple(i for i, a in enumerate(axis_names) if a in ("pod", "data"))
     if len(dp) > 1:
         sets.append(dp)
+    if dp and "model" in axis_names:
+        sets.append(tuple(sorted(dp + (axis_names.index("model"),))))
     for axes in sets:
         mine = None
         for ranks in _slice_ranks(shape, axes):

@@ -22,6 +22,20 @@ A GQA cache is a dict ``{"k", "v": [B, L, KV, D], "pos": [B, L] int32}``, an
 MLA cache ``{"ckv": [B, L, kv_lora_rank], "k_rope": [B, L, qk_rope],
 "pos"}``; decode writes the new entry into it in place and returns the same
 dict.
+
+On a mesh with a ``model`` axis of ``m`` GQA splits its query heads: rank
+``j`` holds the columns of ``w_q`` and the rows of ``w_o`` of heads ``[j
+H/m, (j+1) H/m)`` (the sharding rules' blocks), attends with them and sums
+its partial output over ``model``.  It keeps the KV heads those query heads
+read (``head_plan``): its block of ``w_k``/``w_v`` and of the cache where
+``m`` divides the KV heads (``cache_shardings``' rule).  Where it does not,
+the rules split ``w_k`` and ``w_v`` in the middle of a head; the rank's
+columns of the new K and V are then gathered over ``model`` (a
+``[B, S, KV D / m]`` block a rank, each call) and it keeps the heads it
+reads, which its cache rows hold.  The reference leaves that case to its
+compiler's split-KV decode; only the result has to match.  Which leaves
+are split is the rules' answer (``sharding.model_split_dim``).  MLA on
+such a mesh waits for ROADMAP A11c.
 """
 
 from __future__ import annotations
@@ -29,8 +43,10 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..core import collectives as col
 from ..kernels.flash_attention import ops as fa_ops
-from .layers import apply_rope, dense_init, rms_norm, zeros_init
+from ..runtime.sharding import model_split_dim
+from .layers import apply_rope, dense_init, model_axis, rms_norm, zeros_init
 
 __all__ = [
     "attention_init",
@@ -106,6 +122,57 @@ def attention_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) 
     return params
 
 
+def attention_axes(cfg: ModelConfig) -> dict:
+    """Logical axes of ``attention_init``'s leaves."""
+    axes = {"w_q": ("embed", "heads"), "w_k": ("embed", "heads"), "w_v": ("embed", "heads"),
+            "w_o": ("heads", "embed")}
+    if cfg.qk_norm:
+        axes.update(q_norm=(None,), k_norm=(None,))
+    return axes
+
+
+MLA_AXES = {"w_dq": ("embed", None), "q_norm": (None,), "w_uq": (None, "heads"),
+            "w_dkv": ("embed", None), "kv_norm": (None,), "w_uk": (None, "heads"),
+            "w_uv": (None, "heads"), "w_o": ("heads", "embed")}
+
+
+def head_plan(cfg: ModelConfig, mesh=None) -> tuple[int, int, list[int]]:
+    """(first query head, number of query heads, the KV heads in the rank's
+    cache) of this rank.  Without a split every head.  With one, the rank's
+    query heads and the KV heads they read: each once where every one of
+    them serves as many of the rank's query heads, else one per query head
+    (a group boundary inside the rank's heads)."""
+    nh, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if model_split_dim(attention_axes(cfg)["w_q"], (cfg.d_model, nh * hd), mesh) is None:
+        return 0, nh, list(range(kv))
+    m, j = model_axis(mesh)
+    if nh % m:
+        raise NotImplementedError(f"{cfg.name}: {nh} query heads do not split over a model "
+                                  f"axis of {m}")
+    hl = nh // m
+    reads = [(j * hl + i) // (nh // kv) for i in range(hl)]
+    heads = sorted(set(reads))
+    if hl % len(heads) == 0 and all(reads.count(h) == hl // len(heads) for h in heads):
+        return j * hl, hl, heads
+    return j * hl, hl, reads
+
+
+def _own_kv(t: torch.Tensor, cfg: ModelConfig, mesh, heads: list[int]) -> torch.Tensor:
+    """``x @ w_k`` (or ``w_v``) of this rank, [B, S, columns] -> [B, S,
+    len(heads), D], the KV heads in its cache (``head_plan``): its block's
+    heads where the model axis splits whole KV heads; else the whole
+    projection (the ranks' columns gathered over ``model`` where the rules
+    split the leaf) and the heads the rank reads."""
+    b, s, _ = t.shape
+    kv, hd = cfg.n_kv_heads, cfg.head_dim
+    if model_split_dim(attention_axes(cfg)["w_k"], (cfg.d_model, kv * hd), mesh) is not None:
+        if kv % model_axis(mesh)[0] == 0:
+            return t.reshape(b, s, len(heads), hd)
+        t = torch.cat(list(col.all_gather(t, "model", mesh=mesh).unbind(0)), dim=-1)
+    t = t.reshape(b, s, kv, hd)
+    return t if heads == list(range(kv)) else t[:, :, heads]
+
+
 def cache_length(cfg: ModelConfig, seq_len: int) -> int:
     """Ring length of a layer's cache: SWA layers keep ``window`` entries."""
     if cfg.attn_type == "swa" and cfg.sliding_window:
@@ -114,9 +181,11 @@ def cache_length(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_attention_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                         dtype=torch.bfloat16, device=None) -> dict:
+                         dtype=torch.bfloat16, device=None, mesh=None) -> dict:
+    """Empty ring caches; on a mesh, of the KV heads of this rank
+    (``head_plan``)."""
     length = cache_length(cfg, seq_len)
-    shape = (batch, length, cfg.n_kv_heads, cfg.head_dim)
+    shape = (batch, length, len(head_plan(cfg, mesh)[2]), cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -151,18 +220,21 @@ def attention_apply(
     cache: dict | None = None,
     update_cache: bool = False,
     ragged: bool = False,
+    mesh=None,
 ):
     """Returns (out [B,S,D], cache).  Without a cache: prefill over the whole
     sequence, returning the new entries when ``update_cache``.  With one:
     a decode step (S == 1) that writes its entry into ``cache`` in place --
     one shared ring slot (``ragged=False``, lockstep batch) or each row's own
-    slot (``ragged=True``, continuous batching)."""
+    slot (``ragged=True``, continuous batching).  On a mesh the params are
+    this rank's blocks and the heads its own (see the module's doc)."""
     dt = x.dtype
     b, s, _ = x.shape
     h = cfg.head_dim
-    q = (x @ params["w_q"].to(dt)).reshape(b, s, cfg.n_heads, h)
-    k = (x @ params["w_k"].to(dt)).reshape(b, s, cfg.n_kv_heads, h)
-    v = (x @ params["w_v"].to(dt)).reshape(b, s, cfg.n_kv_heads, h)
+    _, n_q, heads = head_plan(cfg, mesh)
+    q = (x @ params["w_q"].to(dt)).reshape(b, s, n_q, h)
+    k = _own_kv(x @ params["w_k"].to(dt), cfg, mesh, heads)
+    v = _own_kv(x @ params["w_v"].to(dt), cfg, mesh, heads)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -190,8 +262,8 @@ def attention_apply(
         out = masked_attention(q, ck.to(dt), cv.to(dt), mask, h**-0.5)
         new_cache = cache
 
-    out = out.reshape(b, s, cfg.n_heads * h)
-    return out @ params["w_o"].to(dt), new_cache
+    out = out.reshape(b, s, n_q * h) @ params["w_o"].to(dt)
+    return (out if n_q == cfg.n_heads else col.psum(out, "model", mesh=mesh)), new_cache
 
 
 # --------------------------------------------------------------------------

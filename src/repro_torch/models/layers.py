@@ -5,6 +5,21 @@ dicts of tensors laid out as there (``x @ w`` with ``w`` of shape
 ``[in, out]``), so that weights cross the bridge unchanged.  Initialisers take
 an explicit ``torch.Generator`` and draw from the same distributions as the
 JAX ones; the numbers differ, since the generators do.
+
+On a mesh with a ``model`` axis (``launch/mesh.py``) a rank holds the block
+of each weight that ``runtime/sharding.py``'s rules give it, and the
+activations between layers are whole on every rank.  The gated MLP is then
+column-parallel over ``ff`` (``w_gate``, ``w_up``) and row-parallel
+(``w_down``), its partial outputs summed over ``model``; the embedding is
+vocab-parallel (a masked lookup of the rank's rows, then the sum, exact:
+one row and zeros); the logits are the rank's vocab columns, gathered
+over ``model`` (``gather_vocab``).  Which weights are the rank's blocks
+is the rules' answer (``sharding.model_split_dim`` of the leaf's axes and
+whole shape); a weight they leave whole is used whole, with no
+collective.  The sums are ``psum``'s:
+each element summed once, in rank order, so that every rank holds the
+same bits.  The reference's ``constrain_ff_hidden`` is a layout hint to
+its compiler with no numeric effect; this layout is its counterpart.
 """
 
 from __future__ import annotations
@@ -13,6 +28,9 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from ..core import collectives as col
+from ..runtime.sharding import model_split_dim
 
 __all__ = [
     "dense_init",
@@ -98,12 +116,56 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32)
     }
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+MLP_AXES = {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"), "w_down": ("ff", "embed")}
+EMBED_AXES = ("vocab", "embed")
+LM_HEAD_AXES = ("embed", "vocab")
+
+
+def model_axis(mesh) -> tuple[int, int]:
+    """(size, this rank's index) of ``mesh``'s ``model`` axis; (1, 0)
+    without a mesh or without that axis."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1, 0
+    return mesh.axis_size("model"), mesh.axis_index("model")
+
+
+def gather_vocab(logits: torch.Tensor, mesh) -> torch.Tensor:
+    """[..., V/m] vocab columns of every rank of the ``model`` axis ->
+    [..., V], in rank order."""
+    parts = col.all_gather(logits, "model", mesh=mesh)  # [m, ..., V/m]
+    return torch.cat(list(parts.unbind(0)), dim=-1)
+
+
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor, vocab: int,
+                 mesh=None) -> torch.Tensor:
+    """``embed[tokens]``; with a mesh whose ``model`` axis splits the vocab,
+    ``embed`` is the rank's rows: tokens outside them read zeros, and the
+    rows are summed over ``model``."""
+    if model_split_dim(EMBED_AXES, (vocab, embed.shape[1]), mesh) is None:
+        return embed[tokens]
+    rows = embed.shape[0]
+    local = tokens - model_axis(mesh)[1] * rows
+    inside = (local >= 0) & (local < rows)
+    x = torch.where(inside[..., None], embed[local.clamp(0, rows - 1)], 0)
+    return col.psum(x, "model", mesh=mesh)
+
+
+def mlp_apply(params: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Dense SwiGLU.  The weights are used in ``x``'s dtype; a ``.to`` is a
-    no-op once the model's weights were cast at load time."""
+    no-op once the model's weights were cast at load time.  With ``mesh``
+    the weights are the rank's ``ff`` block (pass it where the rules split
+    ``MLP_AXES``' ``ff``: ``mlp_mesh``) and the partial outputs are summed
+    over ``model``."""
     dt = x.dtype
     h = swiglu(x @ params["w_gate"].to(dt), x @ params["w_up"].to(dt))
-    return h @ params["w_down"].to(dt)
+    out = h @ params["w_down"].to(dt)
+    return out if mesh is None else col.psum(out, "model", mesh=mesh)
+
+
+def mlp_mesh(d_model: int, d_ff: int, mesh):
+    """``mesh`` where the rules split an MLP of these widths over ``model``
+    (``mlp_apply``'s ``mesh``), else None."""
+    return None if model_split_dim(MLP_AXES["w_down"], (d_ff, d_model), mesh) is None else mesh
 
 
 def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,

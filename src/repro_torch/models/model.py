@@ -41,8 +41,19 @@ gradients reach the fp32 leaves.
 
 The entry points take the reference's parameters in its order.  ``impl``
 ("xla" or "pallas") does not choose a path: the port takes its kernels on
-the card and their plain versions on the CPU either way.  ``mesh`` must be
-None (one device) and ``key`` is unused (no dropout).  A config the
+the card and their plain versions on the CPU either way.  ``key`` is unused
+(no dropout).  ``mesh`` (``launch/mesh.py``, every rank of it calling the
+entry point with the same inputs) runs ``prefill`` and ``decode_step``
+tensor- and expert-parallel over its ``model`` axis: ``params`` are this
+rank's blocks (``runtime/sharding.py``'s ``reshard_params`` of
+``param_axes``, then ``load``), ``init_cache(..., mesh=mesh)`` makes this
+rank's cache rows, and the logits come back whole on every rank, the same
+bits on each.  The rows are not split over the
+data-parallel axes: each rank of a ``data`` slice computes them all, and
+only the MoE layers split their tokens over it, as the reference's do.  A
+mesh without a ``model`` axis above 1 changes nothing.  MLA, a frontend,
+an encoder-decoder and ``train_loss`` on a ``model`` axis above 1 wait for
+ROADMAP A11c and raise ``NotImplementedError``.  A config the
 reference could not build raises ``NotImplementedError``: a stack with SSM
 layers and no SSM config, MLA layers with no MLA config, and an
 encoder-decoder with no frontend to project its frames.
@@ -56,8 +67,10 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..tree import tree_map
 from . import transformer as tf
+from ..runtime.sharding import model_split_dim
 from .attention import cache_length
-from .layers import cross_entropy_loss, dense_init, embed_init, rms_norm, zeros_init
+from .layers import (EMBED_AXES, LM_HEAD_AXES, cross_entropy_loss, dense_init, embed_init,
+                     embed_lookup, gather_vocab, model_axis, rms_norm, zeros_init)
 
 __all__ = ["Model", "build_model"]
 
@@ -66,14 +79,24 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _one_device(impl: str, mesh) -> None:
+_NEXT_SLICE = "waits for the next slice of the port (ROADMAP A11c)"
+
+
+def _check(cfg: ModelConfig, impl: str, mesh, train: bool = False) -> None:
     """The reference's ``impl`` and ``mesh``, in their places: both of its
-    ``impl`` values name the port's one path; a mesh waits for the
-    multi-device work (ROADMAP A11)."""
+    ``impl`` values name the port's one path; a ``model`` axis above 1
+    raises for what this slice of the port leaves out."""
     if impl not in ("xla", "pallas"):
         raise NotImplementedError(f'impl must be "xla" or "pallas", got {impl!r}')
-    if mesh is not None:
-        raise NotImplementedError("the port's model runs on one device: mesh must be None")
+    m, _ = model_axis(mesh)
+    if m == 1:
+        return
+    missing = [what for what, on in (("training", train), ("MLA", cfg.attn_type == "mla"),
+                                     ("a frontend", cfg.frontend is not None),
+                                     ("an encoder-decoder", cfg.enc_dec)) if on]
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} on a model axis of {m} "
+                                  f"{_NEXT_SLICE}")
 
 
 def _tokens(batch) -> torch.Tensor:
@@ -133,12 +156,27 @@ class Model:
         params["layers"] = tf.stack_init(gen, cfg, dtype)
         return params
 
+    def param_axes(self) -> dict:
+        """Logical axis names of every leaf, in ``init``'s tree (the layers
+        as a list, one dict per layer)."""
+        cfg = self.cfg
+        axes = {"embed": EMBED_AXES, "final_norm": ("embed",)}
+        if not cfg.tie_embeddings:
+            axes["lm_head"] = LM_HEAD_AXES
+        if cfg.frontend is not None:
+            axes["frontend_proj"] = (None, "embed")
+        if cfg.enc_dec:
+            axes["encoder"] = tf.stack_axes(cfg, n_layers=cfg.n_encoder_layers, encoder=True)
+        axes["layers"] = tf.stack_axes(cfg)
+        return axes
+
     def load(self, params: dict) -> dict:
         """Params on the model's device, matrices in the compute dtype -- the
         one cast of the weights -- and 1-D leaves in fp32.  Tensors already in
-        place are returned as they are."""
-        return tree_map(lambda t: t.to(device=self.device, dtype=self.compute_dtype if t.dim() > 1
-                                   else torch.float32), params)
+        place are returned as they are; a rank's blocks are loaded as they
+        are."""
+        return tree_map(lambda t: t.to(device=self.device, dtype=self.compute_dtype
+                                       if t.dim() > 1 else torch.float32), params)
 
     def decay_mask(self, params: dict) -> dict:
         """A bool per leaf of ``params``: whether AdamW decays it, as the
@@ -156,17 +194,24 @@ class Model:
                 for k, v in params.items()}
 
     # ---------------- caches ----------------
-    def init_cache(self, batch: int, seq_len: int, mem_len: int = 0) -> dict:
+    def check_mesh(self, mesh) -> None:
+        """Raise ``NotImplementedError`` where this config cannot serve on
+        ``mesh`` in this slice of the port (MLA, a frontend, an
+        encoder-decoder on a ``model`` axis above 1)."""
+        _check(self.cfg, "xla", mesh)
+
+    def init_cache(self, batch: int, seq_len: int, mem_len: int = 0, *, mesh=None) -> dict:
         """Empty decode caches of ``seq_len`` ring entries; an
-        encoder-decoder's cross K/V of ``mem_len`` rows."""
+        encoder-decoder's cross K/V of ``mem_len`` rows.  With ``mesh``,
+        this rank's: the KV heads, SSM channels and heads it computes."""
         return tf.init_stack_cache(self.cfg, batch, seq_len, self.compute_dtype, self.device,
-                                   mem_len)
+                                   mem_len, mesh)
 
     # ---------------- shared pieces ----------------
     def _batch(self, batch: dict, name: str) -> torch.Tensor:
         return torch.as_tensor(batch[name], device=self.device)
 
-    def _embed_inputs(self, params: dict, batch, gather_first: bool = False):
+    def _embed_inputs(self, params: dict, batch, gather_first: bool = False, mesh=None):
         """(x [B, S, D] in the compute dtype, loss mask [B, S] fp32): the
         token embeddings, the first ``n`` replaced by the projected
         ``frontend_embeds`` [B, n, D_frontend] where a decoder-only config
@@ -179,7 +224,7 @@ class Model:
         if gather_first:
             x = params["embed"][tokens].to(cd)
         else:
-            x = params["embed"].to(cd)[tokens]
+            x = embed_lookup(params["embed"].to(cd), tokens, cfg.vocab, mesh)
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=self.device)
         if (cfg.frontend is not None and not cfg.enc_dec and isinstance(batch, dict)
                 and "frontend_embeds" in batch):
@@ -205,17 +250,17 @@ class Model:
         return {"cross_k": torch.stack([k for k, _ in kv]),
                 "cross_v": torch.stack([v for _, v in kv])}
 
-    def _decoder(self, params: dict, batch, gather_first: bool = False, **kw):
+    def _decoder(self, params: dict, batch, gather_first: bool = False, mesh=None, **kw):
         """(x, caches, aux, loss mask) of the decoder stack over ``batch``:
         for an encoder-decoder against its encoded ``encoder_frames``."""
         cross = None
         if self.cfg.enc_dec:
             cross = self._decoder_cross_caches(params, self._encode(params, batch))
-        x, mask = self._embed_inputs(params, batch, gather_first)
+        x, mask = self._embed_inputs(params, batch, gather_first, mesh)
         b, s, _ = x.shape
         positions = torch.arange(s, device=self.device).expand(b, s)
         x, caches, aux = tf.stack_apply(params["layers"], x, self.cfg, positions=positions,
-                                        cross=cross, **kw)
+                                        cross=cross, mesh=mesh, **kw)
         return x, caches, aux, mask
 
     # ---------------- training ----------------
@@ -230,7 +275,7 @@ class Model:
         A frontend config's batch may carry ``frontend_embeds`` (their
         positions weigh 0 in the loss); an encoder-decoder's carries
         ``encoder_frames``."""
-        _one_device(impl, mesh)
+        _check(self.cfg, impl, mesh, train=True)
         cfg = self.cfg
         # rows gathered, then cast: the values of the reference's cast-then-gather
         x, _, aux, mask = self._decoder(params, batch, gather_first=True)
@@ -244,10 +289,16 @@ class Model:
         return loss, metrics
 
     # ---------------- serving ----------------
-    def _logits(self, params, x):
+    def _logits(self, params, x, mesh=None):
+        """The logits of the last hidden states ``x``; on a mesh whose
+        ``model`` axis splits the vocab, the rank's columns gathered whole."""
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        return x @ head.to(x.dtype)
+        logits = x @ head.to(x.dtype)
+        cfg = self.cfg
+        axes, whole = ((EMBED_AXES, (cfg.vocab, cfg.d_model)) if cfg.tie_embeddings
+                       else (LM_HEAD_AXES, (cfg.d_model, cfg.vocab)))
+        return logits if model_split_dim(axes, whole, mesh) is None else gather_vocab(logits, mesh)
 
     def prefill(self, params: dict, batch, impl: str = "xla", mesh=None, last_pos=None):
         """Forward over the prompt ``batch`` (``{"tokens": [B, S]}`` as the
@@ -256,15 +307,15 @@ class Model:
         (logits [B, 1, V] at ``last_pos`` (default: the last position),
         caches).  ``last_pos`` [B] selects the last real token of
         right-padded prompts; pair it with :meth:`mask_prompt_cache`."""
-        _one_device(impl, mesh)
-        x, caches, _, _ = self._decoder(params, batch, update_cache=True)
+        _check(self.cfg, impl, mesh)
+        x, caches, _, _ = self._decoder(params, batch, update_cache=True, mesh=mesh)
         b = x.shape[0]
         if last_pos is None:
             x_last = x[:, -1:]
         else:
             idx = torch.as_tensor(last_pos, device=self.device).long().reshape(-1)
             x_last = x[torch.arange(b, device=self.device), idx][:, None]
-        return self._logits(params, x_last), caches
+        return self._logits(params, x_last, mesh), caches
 
     def mask_prompt_cache(self, caches: dict, true_len) -> dict:
         """Invalidate the attention entries written by right-pad positions
@@ -312,13 +363,13 @@ class Model:
         shared ring slot); ``ragged=True`` writes each row's own slot
         (continuous batching).  Writes into ``caches`` in place; returns
         (logits [B, 1, V], caches)."""
-        _one_device(impl, mesh)
+        _check(self.cfg, impl, mesh)
         tokens = tokens.to(self.device)
-        x = params["embed"].to(self.compute_dtype)[tokens]
+        x = embed_lookup(params["embed"].to(self.compute_dtype), tokens, self.cfg.vocab, mesh)
         positions = pos.to(self.device)[:, None]
         x, caches, _ = tf.stack_apply(params["layers"], x, self.cfg, positions=positions,
-                                      caches=caches, ragged=ragged)
-        return self._logits(params, x), caches
+                                      caches=caches, ragged=ragged, mesh=mesh)
+        return self._logits(params, x, mesh), caches
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None) -> Model:

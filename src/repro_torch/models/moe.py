@@ -1,10 +1,9 @@
-"""Mixture-of-Experts layer on one device.
+"""Mixture-of-Experts layer: one device, and expert parallelism on a mesh.
 
-Counterpart of the JAX package's ``models/moe.py`` single-device path:
-top-k routing, capacity-based dispatch into per-expert buckets, the expert
-SwiGLU through ``kernels.moe_gmm`` (the hand-written kernel on the card, its
-plain version on the CPU), and the weighted combine.  The expert-parallel
-paths (all-to-all and replicated experts) wait for the multi-device work.
+Counterpart of the JAX package's ``models/moe.py``: top-k routing,
+capacity-based dispatch into per-expert buckets, the expert SwiGLU through
+``kernels.moe_gmm`` (the hand-written kernel on the card, its plain
+version on the CPU), and the weighted combine.
 
 Routing and dispatch reproduce the reference exactly: the same experts (ties
 go to the lower expert index, as ``jax.lax.top_k`` does), the same bucket
@@ -19,6 +18,35 @@ assignments all read row 0) accumulate through ``index_put_`` with
 deterministically, and the grouped matmul's backward is two more products
 of the kernel, which sums in a fixed order.
 
+On a mesh with a ``model`` axis of ``m`` each rank holds ``E/m`` experts
+(the sharding rules' ``experts``) and the whole router, and ``moe_apply``
+takes the reference's path:
+
+* ``moe_sharded_a2a`` where the call's ``T`` tokens split into ``dp * m``
+  blocks of at least ``top_k`` (prefill shapes): the flattened tokens in
+  contiguous blocks over ``(pod, data, model)``, row-major; each rank
+  routes its block with capacity from the block, fills ``[E, C, D]``
+  buckets, and an all-to-all over ``model`` alone (the paper's CLEX level-1
+  hop) hands each rank ``[E/m, m C, D]`` of its experts; their FFN, the
+  reverse all-to-all and the combine; the blocks are gathered again over
+  ``(pod, data, model)``;
+* ``moe_replicated_ep`` otherwise (decode shapes): the tokens split over
+  the data-parallel axes where they divide, else whole; each rank runs its
+  ``E/m`` experts over its tokens and the partial outputs are summed over
+  ``model``, then the blocks gathered over the data-parallel axes.
+
+Capacity is reckoned per rank from its tokens, so the output depends on the
+mesh's shape, as the reference's does.  Each rank's expert FFN is the
+grouped-matmul kernel (the reference computes these two paths with XLA
+einsums: the same grouped product).  The reference's Valiant shuffle
+(with ``cfg.moe.valiant_shuffle`` and a training key, the all-to-all path
+rotates each block of tokens by a random offset first) is keyed by
+``jax.random``, whose draw ``torch`` cannot repeat: a ``key`` there raises
+``NotImplementedError`` until training on a mesh (ROADMAP A11c) ports the
+draw and holds it against the reference.  Serving passes no key, and
+without one there is no shift.  ``aux`` is each rank's load-balancing
+loss, averaged over the ranks.
+
 The load-balancing loss is the reference's Switch loss, differentiable
 through the router's probabilities (the top expert's one-hot is constant);
 the model adds 0.01 of it, summed over the layers, to the training loss.
@@ -30,10 +58,17 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
+from ..core import collectives as col
 from ..kernels.moe_gmm import ops as gmm_ops
+from ..runtime.sharding import model_split_dim
 from .layers import dense_init
+from .layers import model_axis as _model_axis
 
-__all__ = ["moe_init", "capacity", "router_topk", "moe_local", "moe_apply"]
+__all__ = ["moe_init", "capacity", "router_topk", "moe_local", "moe_sharded_a2a",
+           "moe_replicated_ep", "moe_apply"]
+
+MOE_AXES = {"router": ("embed", None), "w_gate": ("experts", "embed", "ff"),
+            "w_up": ("experts", "embed", "ff"), "w_down": ("experts", "ff", "embed")}
 
 
 def moe_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> dict:
@@ -88,36 +123,124 @@ def _dispatch_indices(experts: torch.Tensor, cap: int):
     return flat_e, slot
 
 
+def _fill(x_flat: torch.Tensor, flat_e: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+          first: int, n: int, cap: int, k: int):
+    """Buckets [n, cap, D] of experts ``[first, first + n)`` as a gather:
+    each bucket row names the token that fills it (or token T, a row of
+    zeros).  Kept assignments own distinct rows; the others all write one
+    discard entry past the end, which is cut off.  Returns (buckets, each
+    assignment's flattened bucket row, 0 where not kept)."""
+    t, d = x_flat.shape
+    row = torch.where(keep, (flat_e - first) * cap + slot, 0)
+    token_of = torch.arange(t, device=x_flat.device).repeat_interleave(k)
+    src = torch.full((n * cap + 1,), t, dtype=torch.long, device=x_flat.device)
+    src[torch.where(keep, row, n * cap)] = token_of
+    x_pad = torch.cat([x_flat, x_flat.new_zeros(1, d)])
+    return x_pad[src[:-1]].view(n, cap, d), row
+
+
+def _combine(out_rows: torch.Tensor, row, keep, weights, t: int, k: int) -> torch.Tensor:
+    """Each token's k weighted expert outputs (0 where dropped), summed in
+    one reduction (no atomics)."""
+    d = out_rows.shape[-1]
+    gathered = out_rows[row]
+    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
+    w = weights.reshape(-1, 1).to(out_rows.dtype)
+    return (gathered * w).view(t, k, d).sum(1)
+
+
+def _route(params: dict, x_flat: torch.Tensor, cfg: ModelConfig):
+    """(weights, flat_e, slot, aux, capacity) of a call over ``x_flat``'s tokens."""
+    weights, experts, aux = router_topk(params["router"], x_flat, cfg.moe.top_k)
+    cap = capacity(cfg, x_flat.shape[0])
+    flat_e, slot = _dispatch_indices(experts, cap)
+    return weights, flat_e, slot, aux, cap
+
+
 def moe_local(params: dict, x_flat: torch.Tensor, cfg: ModelConfig):
     """MoE over the tokens of one device.  x_flat [T, D] -> ([T, D], aux)."""
-    moe = cfg.moe
-    t, d = x_flat.shape
-    e, k = moe.n_experts, moe.top_k
-    weights, experts, aux = router_topk(params["router"], x_flat, k)
-    cap = capacity(cfg, t)
-    flat_e, slot = _dispatch_indices(experts, cap)
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    weights, flat_e, slot, aux, cap = _route(params, x_flat, cfg)
     keep = slot >= 0
-    row = torch.where(keep, flat_e * cap + slot, 0)  # bucket row, flattened
-    token_of = torch.arange(t, device=x_flat.device).repeat_interleave(k)
-
-    # The buckets as a gather: each bucket row names the token that fills it
-    # (or token t, a row of zeros).  Kept assignments own distinct rows; the
-    # dropped ones all write one discard entry past the end, which is cut off.
-    src = torch.full((e * cap + 1,), t, dtype=torch.long, device=x_flat.device)
-    src[torch.where(keep, row, e * cap)] = token_of
-    x_pad = torch.cat([x_flat, x_flat.new_zeros(1, d)])
-    buckets = x_pad[src[:-1]].view(e, cap, d)
-
+    buckets, row = _fill(x_flat, flat_e, slot, keep, 0, e, cap, k)
     out_buckets = gmm_ops.expert_ffn(params, buckets)
-    gathered = out_buckets.view(e * cap, d)[row]
-    gathered = torch.where(keep[:, None], gathered, torch.zeros_like(gathered))
-    w = weights.reshape(-1, 1).to(x_flat.dtype)
-    # each token's k contributions, summed in one reduction (no atomics)
-    return (gathered * w).view(t, k, d).sum(1), aux
+    return _combine(out_buckets.view(e * cap, -1), row, keep, weights, x_flat.shape[0], k), aux
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig):
-    """[B, S, D] -> ([B, S, D], aux)."""
+def moe_sharded_a2a(params: dict, x_flat: torch.Tensor, cfg: ModelConfig, *,
+                    model_axis: str = "model", key=None, mesh):
+    """Token-sharded expert parallelism: x_flat [T_local, D] is this rank's
+    block of distinct tokens, ``params`` its ``E/m`` experts and the whole
+    router.  Local buckets [E, C, D] -> all-to-all over ``model_axis`` ->
+    [E/m, m C, D] -> the expert FFN -> the reverse all-to-all -> combine.
+    Returns (out [T_local, D], aux [1])."""
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    t = x_flat.shape[0]
+    m = mesh.axis_size(model_axis)
+    if cfg.moe.valiant_shuffle and key is not None:
+        raise NotImplementedError("the Valiant shuffle's keyed shift waits for training on a "
+                                  "mesh (ROADMAP A11c)")
+    weights, flat_e, slot, aux, cap = _route(params, x_flat, cfg)
+    keep = slot >= 0
+    buckets, row = _fill(x_flat, flat_e, slot, keep, 0, e, cap, k)
+    # the CLEX level-1 hop: expert block j of every rank to rank j, which
+    # lays the ranks' buckets side by side along capacity
+    recv = col.all_to_all(buckets, model_axis, mesh=mesh)  # [m * E/m, C, D], source-major
+    mine = recv.view(m, e // m, cap, -1).transpose(0, 1).reshape(e // m, m * cap, -1)
+    out_mine = gmm_ops.expert_ffn(params, mine)
+    back = out_mine.view(e // m, m, cap, -1).transpose(0, 1).contiguous()
+    out_buckets = col.all_to_all(back.view(e, cap, -1), model_axis, mesh=mesh)
+    return _combine(out_buckets.view(e * cap, -1), row, keep, weights, t, k), aux[None]
+
+
+def moe_replicated_ep(params: dict, x_flat: torch.Tensor, cfg: ModelConfig, *,
+                      model_axis: str = "model", mesh):
+    """Replicated-token expert parallelism (decode shapes): every rank of the
+    ``model_axis`` slice holds the same tokens x_flat [T_dp, D], runs only
+    its ``E/m`` experts over them (capacity from ``T_dp``), and the partial
+    outputs are summed over the slice.  Returns (out [T_dp, D], aux [1])."""
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    m, j = mesh.axis_size(model_axis), mesh.axis_index(model_axis)
+    e_local = e // m
+    weights, flat_e, slot, aux, cap = _route(params, x_flat, cfg)
+    mine = (slot >= 0) & (flat_e >= j * e_local) & (flat_e < (j + 1) * e_local)
+    buckets, row = _fill(x_flat, flat_e, slot, mine, j * e_local, e_local, cap, k)
+    out_buckets = gmm_ops.expert_ffn(params, buckets)
+    partial = _combine(out_buckets.view(e_local * cap, -1), row, mine, weights,
+                       x_flat.shape[0], k)
+    return col.psum(partial, model_axis, mesh=mesh), aux[None]
+
+
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, key=None, mesh=None):
+    """[B, S, D] -> ([B, S, D], aux).  Without a ``model`` axis above 1 the
+    one-device ``moe_local`` on all tokens; otherwise the reference's choice
+    between the two expert-parallel paths (see the module's doc)."""
     b, s, d = x.shape
-    out, aux = moe_local(params, x.reshape(b * s, d), cfg)
-    return out.reshape(b, s, d), aux
+    x_flat = x.reshape(b * s, d)
+    m, _ = _model_axis(mesh)
+    if m == 1:
+        out, aux = moe_local(params, x_flat, cfg)
+        return out.reshape(b, s, d), aux
+    moe = cfg.moe
+    if model_split_dim(MOE_AXES["w_gate"], (moe.n_experts, d, moe.d_expert_ff), mesh) != 0:
+        raise NotImplementedError(f"{cfg.name}: {cfg.moe.n_experts} experts do not split over "
+                                  f"a model axis of {m}")
+    dp_axes = mesh.data_parallel_axes
+    dp = mesh.axis_size(dp_axes) if dp_axes else 1
+    every = (*dp_axes, "model")
+    tokens = b * s
+    if tokens % (dp * m) == 0 and tokens // (dp * m) >= cfg.moe.top_k:
+        n = tokens // (dp * m)
+        i = mesh.axis_index(every)
+        out, aux = moe_sharded_a2a(params, x_flat[i * n:(i + 1) * n], cfg, key=key, mesh=mesh)
+        out = col.all_gather(out, every, tiled=True, mesh=mesh)
+        aux = col.all_gather(aux, every, tiled=True, mesh=mesh)
+    else:
+        split = dp > 1 and tokens % dp == 0 and tokens >= dp
+        n = tokens // dp if split else tokens
+        i = mesh.axis_index(dp_axes) if split else 0
+        out, aux = moe_replicated_ep(params, x_flat[i * n:(i + 1) * n], cfg, mesh=mesh)
+        if split:
+            out = col.all_gather(out, dp_axes, tiled=True, mesh=mesh)
+            aux = col.all_gather(aux, dp_axes, tiled=True, mesh=mesh)
+    return out.reshape(b, s, d), aux.mean()

@@ -20,6 +20,18 @@ causal depthwise conv runs per part, as in the reference, so weights cross
 the bridge unchanged.  Decode keeps O(1) state per layer: conv ring buffers
 ``conv_x``/``conv_b``/``conv_c`` [B, W-1, C] in the compute dtype and
 ``h`` [B, H, P, N] in fp32; a decode step writes them in place.
+
+On a mesh whose ``model`` axis splits ``d_inner`` (the sharding rules'
+``ff``), tensor parallelism runs per part: rank ``j`` holds its block of
+the channels of ``w_z``, ``w_x``, ``conv_wx``, ``conv_bx`` and ``norm``
+(those of its ``H/m`` heads, ``[j H/m, (j+1) H/m)``) and its rows of
+``w_out``, whose partial outputs are summed over ``model``.  ``w_dt``,
+``a_log``, ``d_skip`` and ``dt_bias`` are whole on every rank, which takes
+its heads' slice; B and C (one group) are computed whole on every rank.
+The gated RMS norm over ``d_inner`` spans the ranks: its sum of squares is
+summed over ``model`` before the scale.  The rank's cache holds its
+channels of ``conv_x`` and its heads of ``h``; the SSD scan runs on its
+heads.
 """
 
 from __future__ import annotations
@@ -30,7 +42,9 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan.ref import ssd_chunked as _ssd_chunked_heads
-from .layers import dense_init, rms_norm, zeros_init
+from ..core import collectives as col
+from ..runtime.sharding import model_split_dim
+from .layers import dense_init, model_axis, rms_norm, zeros_init
 
 __all__ = ["ssm_init", "ssm_apply", "init_ssm_cache", "ssd_chunked", "ssd_step", "softplus"]
 
@@ -39,6 +53,26 @@ def _dims(cfg: ModelConfig) -> tuple[int, int]:
     """(d_inner, n_heads)."""
     d_inner = cfg.ssm.expand * cfg.d_model
     return d_inner, d_inner // cfg.ssm.head_dim
+
+
+SSM_AXES = {"w_z": ("embed", "ff"), "w_x": ("embed", "ff"), "w_b": ("embed", None),
+            "w_c": ("embed", None), "w_dt": ("embed", None), "conv_wx": (None, "ff"),
+            "conv_wb": (None, None), "conv_wc": (None, None), "conv_bx": ("ff",),
+            "conv_bb": (None,), "conv_bc": (None,), "a_log": (None,), "d_skip": (None,),
+            "dt_bias": (None,), "norm": ("ff",), "w_out": ("ff", "embed")}
+
+
+def _local_heads(cfg: ModelConfig, mesh) -> tuple:
+    """(the mesh where the rules split the ``ff`` (d_inner) leaves over its
+    model axis else None, first head, number of heads) of this rank."""
+    d_inner, nh = _dims(cfg)
+    if model_split_dim(SSM_AXES["w_x"], (cfg.d_model, d_inner), mesh) is None:
+        return None, 0, nh
+    m, j = model_axis(mesh)
+    if nh % m:
+        raise NotImplementedError(f"{cfg.name}: {nh} SSM heads do not split over a model "
+                                  f"axis of {m}")
+    return mesh, j * (nh // m), nh // m
 
 
 def ssm_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> dict:
@@ -68,9 +102,12 @@ def ssm_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> dic
     }
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None) -> dict:
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype=torch.bfloat16, device=None,
+                   mesh=None) -> dict:
+    """Zero state; on a mesh, of this rank's channels and heads."""
     c = cfg.ssm
-    d_inner, nh = _dims(cfg)
+    _, _, nh = _local_heads(cfg, mesh)
+    d_inner = nh * c.head_dim
     return {
         "conv_x": torch.zeros((batch, c.conv_width - 1, d_inner), dtype=dtype, device=device),
         "conv_b": torch.zeros((batch, c.conv_width - 1, c.state_dim), dtype=dtype, device=device),
@@ -133,17 +170,34 @@ def ssd_step(h, xt, dtt, a, bt, ct):
     return y, h_next
 
 
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: float,
+                d_inner: int, mesh) -> torch.Tensor:
+    """``rms_norm(y * silu(z))`` over ``d_inner`` channels, of which ``y``
+    holds the rank's; with ``mesh`` the sum of squares is summed over
+    ``model``."""
+    g = y * F.silu(z)
+    if mesh is None:
+        return rms_norm(g, scale, eps)
+    xf = g.float()
+    var = col.psum(xf.square().sum(dim=-1, keepdim=True), "model", mesh=mesh) / d_inner
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(g.dtype)
+
+
 def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | None = None,
-              update_cache: bool = False):
+              update_cache: bool = False, mesh=None):
     """x [B,S,D] -> (out [B,S,D], cache).  Without ``cache`` (prefill) the
     whole sequence runs through the SSD scan from a zero state, and with
     ``update_cache`` the new decode state comes back.  With ``cache``
     (decode, S == 1) the state advances one token and is written into
-    ``cache`` in place; the same dict comes back."""
+    ``cache`` in place; the same dict comes back.  On a mesh the params
+    are this rank's blocks and the heads its own (see the module's doc)."""
     c = cfg.ssm
     compute = x.dtype
     bsz, s, d = x.shape
-    d_inner, nh = _dims(cfg)
+    d_full, _ = _dims(cfg)
+    tp, h0, nh = _local_heads(cfg, mesh)
+    d_inner = nh * c.head_dim
+    heads = slice(h0, h0 + nh)
     w = {k: params[k].to(compute) for k in ("w_z", "w_x", "w_b", "w_c", "w_dt", "w_out",
                                             "conv_wx", "conv_wb", "conv_wc")}
 
@@ -151,14 +205,15 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | 
     xin = x @ w["w_x"]
     braw = x @ w["w_b"]
     craw = x @ w["w_c"]
-    dt = x @ w["w_dt"]
-    a = -torch.exp(params["a_log"].float())
+    dt = (x @ w["w_dt"])[..., heads]
+    a = -torch.exp(params["a_log"][heads].float())
+    dt_bias = params["dt_bias"][heads].float()
 
     if cache is None:
         xc, tail_x = _causal_depthwise_conv(xin, w["conv_wx"], params["conv_bx"], compute)
         bc, tail_b = _causal_depthwise_conv(braw, w["conv_wb"], params["conv_bb"], compute)
         cc, tail_c = _causal_depthwise_conv(craw, w["conv_wc"], params["conv_bc"], compute)
-        dtp = softplus(dt.float() + params["dt_bias"].float())
+        dtp = softplus(dt.float() + dt_bias)
         y, h_final = ssd_ops.ssd(xc.reshape(bsz, s, nh, c.head_dim), dtp, a, bc, cc,
                                  chunk=c.chunk_size)
         new_cache = None
@@ -170,7 +225,7 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | 
         xc, hist_x = _conv_step(cache["conv_x"], xin, w["conv_wx"], params["conv_bx"], compute)
         bc, hist_b = _conv_step(cache["conv_b"], braw, w["conv_wb"], params["conv_bb"], compute)
         cc, hist_c = _conv_step(cache["conv_c"], craw, w["conv_wc"], params["conv_bc"], compute)
-        dtp = softplus(dt[:, 0].float() + params["dt_bias"].float())
+        dtp = softplus(dt[:, 0].float() + dt_bias)
         y, h_next = ssd_step(cache["h"], xc.reshape(bsz, nh, c.head_dim), dtp, a, bc, cc)
         y = y[:, None]  # [B,1,H,P]
         for name, t in (("conv_x", hist_x), ("conv_b", hist_b), ("conv_c", hist_c),
@@ -178,8 +233,9 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | 
             cache[name].copy_(t)
         new_cache = cache
 
-    y = y + xin.reshape(bsz, s, nh, c.head_dim).float() * params["d_skip"].float().reshape(
-        1, 1, nh, 1)
+    y = y + xin.reshape(bsz, s, nh, c.head_dim).float() * params["d_skip"][heads].float(
+        ).reshape(1, 1, nh, 1)
     y = y.reshape(bsz, s, d_inner).to(compute)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return y @ w["w_out"], new_cache
+    y = _gated_norm(y, z, params["norm"], cfg.norm_eps, d_full, tp)
+    out = y @ w["w_out"]
+    return (out if tp is None else col.psum(out, "model", mesh=tp)), new_cache

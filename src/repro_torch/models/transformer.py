@@ -13,8 +13,12 @@ Each MoE layer's load-balancing loss comes back beside x, summed over the
 layers in fp32 by ``stack_apply``, as the reference's stack returns it:
 training adds it to the loss, prefill and decode ignore it.  The JAX stack
 scans over scan-stacked parameters; here the layers are a Python list (one
-param dict per layer) run in a loop.  There is no mesh, so the sharding
-constraints of the JAX stack have no counterpart.  In training (grad mode
+param dict per layer) run in a loop, and ``stack_axes`` names each layer's
+leaves' logical axes in the same list (the reference's leading ``layers``
+entry of a scanned leaf has no dim here).  With a ``mesh`` each layer runs
+on this rank's blocks of its weights (``runtime/sharding.py``), the
+residual stream whole on every rank; the reference's ``constrain_residual``
+is a layout hint to its compiler with no numeric effect.  In training (grad mode
 on, no cache, no ``update_cache``) each block runs under
 ``torch.utils.checkpoint`` when ``cfg.remat`` is set, the counterpart of the
 JAX stack's ``jax.checkpoint`` over the scanned block: its activations are
@@ -54,10 +58,10 @@ from ..configs.base import ModelConfig
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import mlp_apply, mlp_init, rms_norm, zeros_init
+from .layers import MLP_AXES, mlp_apply, mlp_init, mlp_mesh, rms_norm, zeros_init
 
 __all__ = ["mixer_kind", "block_init", "block_apply", "stack_init", "stack_apply",
-           "init_stack_cache", "encoder_block_init", "encoder_apply", "cross_kv"]
+           "stack_axes", "init_stack_cache", "encoder_block_init", "encoder_apply", "cross_kv"]
 
 CACHE_KEYS = {"attn": ("k", "v", "pos"), "mla": ("ckv", "k_rope", "pos"),
               "ssm": ("conv_x", "conv_b", "conv_c", "h")}
@@ -103,6 +107,28 @@ def block_init(gen: torch.Generator, cfg: ModelConfig, i: int, dtype=torch.float
     return params
 
 
+def block_axes(cfg: ModelConfig, i: int, *, encoder: bool = False) -> dict:
+    """Logical axes of the leaves of decoder layer ``i`` (of an encoder
+    layer with ``encoder``), in ``block_init``'s tree."""
+    kind = "attn" if encoder else mixer_kind(cfg, i)
+    mixer = {"attn": lambda: attn_mod.attention_axes(cfg), "mla": lambda: attn_mod.MLA_AXES,
+             "ssm": lambda: ssm_mod.SSM_AXES}[kind]()
+    axes = {"ln1": ("embed",), "mixer": dict(mixer)}
+    if cfg.enc_dec and not encoder:
+        axes["ln_cross"] = ("embed",)
+        axes["cross"] = attn_mod.attention_axes(cfg)
+    if cfg.layer_is_moe(i) and not encoder:
+        axes["ln2"], axes["ffn"] = ("embed",), dict(moe_mod.MOE_AXES)
+    elif cfg.d_ff:
+        axes["ln2"], axes["ffn"] = ("embed",), dict(MLP_AXES)
+    return axes
+
+
+def stack_axes(cfg: ModelConfig, *, n_layers: int | None = None, encoder: bool = False) -> list:
+    """Logical axis names of every layer's leaves, one dict per layer."""
+    return [block_axes(cfg, i, encoder=encoder) for i in range(n_layers or cfg.n_layers)]
+
+
 def _cross_attention(params: dict, x: torch.Tensor, cross: tuple, cfg: ModelConfig):
     """Decoder cross-attention of ``x``'s queries against the encoder
     memory's precomputed ``cross`` = (k, v) [B, M, KV, D]: no mask, no
@@ -130,19 +156,24 @@ def cross_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *, positions,
                 cache: dict | None = None, update_cache: bool = False, ragged: bool = False,
-                cross: tuple | None = None):
+                cross: tuple | None = None, mesh=None):
     """Layer ``i``; returns (x, cache, aux): aux is the MoE layer's
     load-balancing loss (fp32), None on a layer without MoE.  ``cross`` is
-    the layer's encoder-memory (k, v) in an encoder-decoder."""
+    the layer's encoder-memory (k, v) in an encoder-decoder.  With ``mesh``
+    the params are this rank's blocks."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     kind = mixer_kind(cfg, i)
     if kind == "ssm":  # positions unused: the state carries no positional record
         out, new_cache = ssm_mod.ssm_apply(params["mixer"], h, cfg, cache=cache,
-                                           update_cache=update_cache)
+                                           update_cache=update_cache, mesh=mesh)
+    elif kind == "attn":
+        out, new_cache = attn_mod.attention_apply(params["mixer"], h, cfg, positions=positions,
+                                                  cache=cache, update_cache=update_cache,
+                                                  ragged=ragged, mesh=mesh)
     else:
-        apply = attn_mod.attention_apply if kind == "attn" else attn_mod.mla_apply
-        out, new_cache = apply(params["mixer"], h, cfg, positions=positions, cache=cache,
-                               update_cache=update_cache, ragged=ragged)
+        out, new_cache = attn_mod.mla_apply(params["mixer"], h, cfg, positions=positions,
+                                            cache=cache, update_cache=update_cache,
+                                            ragged=ragged)
     x = x + out
     if "cross" in params:
         hc = rms_norm(x, params["ln_cross"], cfg.norm_eps)
@@ -151,10 +182,10 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *, posi
     if "ffn" in params:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         if cfg.layer_is_moe(i):
-            out, aux = moe_mod.moe_apply(params["ffn"], h, cfg)
+            out, aux = moe_mod.moe_apply(params["ffn"], h, cfg, mesh=mesh)
             x = x + out
         else:
-            x = x + mlp_apply(params["ffn"], h)
+            x = x + mlp_apply(params["ffn"], h, mesh=mlp_mesh(cfg.d_model, cfg.d_ff, mesh))
     return x, new_cache, aux
 
 
@@ -163,14 +194,15 @@ def stack_init(gen: torch.Generator, cfg: ModelConfig, dtype=torch.float32) -> l
 
 
 def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfloat16,
-                     device=None, mem_len: int = 0) -> dict:
-    """Empty decode caches; an encoder-decoder's cross K/V hold ``mem_len``
-    zero rows (prefill fills them from the encoder's output)."""
+                     device=None, mem_len: int = 0, mesh=None) -> dict:
+    """Empty decode caches (on a mesh, of this rank's heads and channels);
+    an encoder-decoder's cross K/V hold ``mem_len`` zero rows (prefill fills
+    them from the encoder's output)."""
     kinds = [mixer_kind(cfg, i) for i in range(cfg.n_layers)]
     one_layer = {
-        "attn": lambda: attn_mod.init_attention_cache(cfg, batch, seq_len, dtype, device),
+        "attn": lambda: attn_mod.init_attention_cache(cfg, batch, seq_len, dtype, device, mesh),
         "mla": lambda: attn_mod.init_mla_cache(cfg, batch, seq_len, dtype, device),
-        "ssm": lambda: ssm_mod.init_ssm_cache(cfg, batch, dtype, device),
+        "ssm": lambda: ssm_mod.init_ssm_cache(cfg, batch, dtype, device, mesh),
     }
     out = {}
     for kind, make in one_layer.items():
@@ -185,7 +217,7 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfl
 
 def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positions,
                 caches: dict | None = None, update_cache: bool = False, ragged: bool = False,
-                cross: dict | None = None):
+                cross: dict | None = None, mesh=None):
     """Returns (x, caches, aux).  With ``caches`` (decode) each layer writes
     into its slice in place and the same dict comes back; with
     ``update_cache`` (prefill) the new entries of every layer are stacked
@@ -206,7 +238,8 @@ def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positi
         else:
             layer_cache = None if caches is None else {n: caches[n][k] for n in CACHE_KEYS[kind]}
             x, nc, aux = block_apply(layer, x, cfg, i, positions=positions, cache=layer_cache,
-                                     update_cache=update_cache, ragged=ragged, cross=layer_cross)
+                                     update_cache=update_cache, ragged=ragged, cross=layer_cross,
+                                     mesh=mesh)
             if caches is None and update_cache:
                 emitted[kind].append(nc)
         if aux is not None:

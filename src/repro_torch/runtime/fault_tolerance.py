@@ -14,8 +14,8 @@ Counterpart of the JAX package's ``runtime/fault_tolerance.py``:
   clock is an argument, so tests drive it without sleeping.
 * ``ElasticPlan`` / ``plan_remesh`` -- given the surviving device count,
   the new mesh and microbatching that keep the global batch.  The port's
-  trainer runs on one device (meshes wait for ROADMAP A11); the plan is
-  arithmetic and is ported as it is.
+  trainer runs on one device or data-parallel (a model axis waits for
+  ROADMAP A11c); the plan is arithmetic and is ported as it is.
 """
 
 from __future__ import annotations

@@ -25,6 +25,22 @@ prefill, decode and wakeup spans, shed instants and calibration records sit
 behind ``obs.enabled`` as in the reference.  Migration onto another device
 set waits for the elastic runtime.  Where the JAX engine returns new cache
 buffers, this one writes the pool's tensors in place.
+
+With a ``mesh`` (``launch/mesh.py``) every rank runs an engine: the same
+host-side queue, scheduler, pool ledger and sampler on each, fed the same
+submissions.  Each holds its blocks of the weights (``reshard_params``)
+and the pool rows its computation needs (the KV heads, SSM heads and
+channels of its place on the ``model`` axis; whole over ``data``), and the
+model's entry points give every rank the same logits, so every rank
+samples the same tokens.  The scheduler reads one clock on every rank:
+each ``step`` (and ``run``'s wait for the next arrival, and ``shed_queue``)
+takes rank 0's ``now`` (``mesh_time``, an all-gather of one float), so
+open-loop arrivals and deadlines admit and shed alike on every rank; the
+submissions' ``arrival_time`` and ``deadline`` are in that clock
+(``mesh_time()`` gives a base).  So every rank's scheduler stays in step.
+The engine checks that: after each prefill group and decode step the ranks
+all-gather a checksum of the tokens they sampled, and a difference raises,
+naming the step and the ranks.
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import collectives as col
 from ..core.cost_model import CollectiveCostModel
 from ..models.model import Model
 from ..obs import NULL_SPAN, get_obs
@@ -226,13 +243,13 @@ class KVPool:
     tiered = False  # TieredKVPool overrides; the engine branches on this
     _ALIGN = 16  # bytes: alignment of each leaf in a packed transfer buffer
 
-    def __init__(self, model: Model, n_slots: int, capacity: int):
+    def __init__(self, model: Model, n_slots: int, capacity: int, *, mesh=None):
         if n_slots < 1:
             raise ValueError("KVPool needs at least one slot")
         self.model = model
         self.n_slots = n_slots
         self.capacity = capacity
-        self.caches = model.init_cache(n_slots, capacity)
+        self.caches = model.init_cache(n_slots, capacity, mesh=mesh)  # this rank's rows
         self._free: list[int] = list(range(n_slots - 1, -1, -1))  # pop() -> slot 0 first
         self.slot_rid: list[Optional[int]] = [None] * n_slots
         self.n_alloc = 0
@@ -435,8 +452,8 @@ class TieredKVPool(KVPool):
 
     def __init__(self, model: Model, n_slots: int, capacity: int,
                  tiers: TierConfig = TierConfig(),
-                 cost_model: Optional[CollectiveCostModel] = None, obs=None):
-        super().__init__(model, n_slots, capacity)
+                 cost_model: Optional[CollectiveCostModel] = None, obs=None, *, mesh=None):
+        super().__init__(model, n_slots, capacity, mesh=mesh)
         self.tiers = tiers
         self.cost_model = cost_model or CollectiveCostModel()
         self._obs = obs if obs is not None else get_obs()
@@ -737,11 +754,36 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def _one_device(mesh) -> None:
-    """The engines take the reference's ``mesh`` in its place; the port
-    serves on one device until the multi-device work."""
-    if mesh is not None:
-        raise NotImplementedError("the port serves on one device: mesh must be None")
+def _sent(mesh) -> dict:
+    return {} if mesh is None else dict(mesh.sent)
+
+
+def _sent_since(mesh, before: dict) -> dict:
+    """The bytes the rank sent since ``before`` (``_sent``), by group."""
+    return {k: v - before.get(k, 0) for k, v in _sent(mesh).items() if v != before.get(k, 0)}
+
+
+def _agree(mesh, toks: np.ndarray, device: torch.device, what: str) -> None:
+    """Raise unless every rank of ``mesh`` sampled ``toks``: one all-gather
+    of a checksum of them (the tokens weighted by their place)."""
+    if mesh is None or mesh.size == 1:
+        return
+    t = torch.as_tensor(np.asarray(toks, np.int64).reshape(-1), device=device)
+    mine = (t * torch.arange(1, t.numel() + 1, device=device)).sum().reshape(1)
+    sums = col.all_gather(mine, mesh.axis_names, mesh=mesh).reshape(-1).tolist()
+    bad = [r for r, v in enumerate(sums) if v != sums[0]]
+    if bad:
+        raise RuntimeError(f"ranks {bad} of the mesh sampled other tokens than rank 0 at {what} "
+                           f"(checksums {sums})")
+
+
+def _rank0_time(mesh, now: float, device: torch.device) -> float:
+    """``now`` as rank 0 of ``mesh`` has it: one all-gather of a float64,
+    so that every rank schedules by one clock."""
+    if mesh is None or mesh.size == 1:
+        return now
+    t = torch.tensor([now], dtype=torch.float64, device=device)
+    return float(col.all_gather(t, mesh.axis_names, mesh=mesh).reshape(-1)[0])
 
 
 class EngineMetrics:
@@ -750,7 +792,8 @@ class EngineMetrics:
     property over the ``serve.engine.*`` metric of the same name.  Built
     without a registry it makes a private one.  Beside the view, the
     host-clock wall time of every prefill group and decode step (each ends
-    in a device sync: the sampled tokens are copied to the host)."""
+    in a device sync: the sampled tokens are copied to the host) and, on a
+    mesh, the bytes the rank sent in each, by group of axes."""
 
     _SCALARS = (
         ("steps", 0),
@@ -775,6 +818,10 @@ class EngineMetrics:
             self.registry.counter(f"serve.engine.{name}", default).value = default
         self.prefill_walls: list = []  # (group, bucket, s)
         self.decode_walls: list = []  # (active rows, s)
+        # on a mesh, the bytes this rank sent in each prefill group and
+        # decode step, by group of axes (the mesh's ``sent`` counter)
+        self.prefill_sent: list = []
+        self.decode_sent: list = []
 
     @property
     def slot_utilization(self) -> float:
@@ -834,8 +881,9 @@ class ContinuousBatchingEngine:
     ):
         if model.cfg.enc_dec:  # the reference's refusal, before anything is built
             raise NotImplementedError("continuous batching supports decoder-only models")
-        _one_device(mesh)
+        model.check_mesh(mesh)
         self.model = model
+        self.mesh = mesh
         self.params = model.load(params)
         self.pad_id = pad_id
         self.seed = seed
@@ -880,8 +928,8 @@ class ContinuousBatchingEngine:
     def _make_pool(self, n_slots: int, capacity: int) -> KVPool:
         if self.tiers is not None:
             return TieredKVPool(self.model, n_slots, capacity, self.tiers,
-                                cost_model=self._cost_model, obs=self._obs)
-        return KVPool(self.model, n_slots, capacity)
+                                cost_model=self._cost_model, obs=self._obs, mesh=self.mesh)
+        return KVPool(self.model, n_slots, capacity, mesh=self.mesh)
 
     def absorb_pool_metrics(self, registry: Optional[MetricsRegistry] = None) -> None:
         """Refresh the ``serve.pool.*`` counters of ``registry`` (default: the
@@ -900,6 +948,14 @@ class ContinuousBatchingEngine:
                 demoted_sessions=pool.demoted_sessions,
             )
         reg.absorb("serve.pool", stats)
+
+    def mesh_time(self, now: Optional[float] = None) -> float:
+        """``now`` (default ``time.monotonic()``) as rank 0 of the mesh has
+        it, the clock that ``step`` schedules by; ``now`` itself without a
+        mesh.  On a mesh a collective call: every rank calls it at the same
+        point."""
+        return _rank0_time(self.mesh, time.monotonic() if now is None else now,
+                           self.model.device)
 
     # ---------------- admission control ----------------
 
@@ -1034,10 +1090,11 @@ class ContinuousBatchingEngine:
         obs = self._obs
         span = (obs.tracer.span("prefill", "serve", group=len(group), bucket=bucket)
                 if obs.enabled else NULL_SPAN)
-        t0 = time.perf_counter()
+        t0, sent = time.perf_counter(), _sent(self.mesh)
         with span, torch.no_grad():
             logits, caches = model.prefill(
-                self.params, torch.as_tensor(toks, device=model.device), last_pos=true_len - 1
+                self.params, torch.as_tensor(toks, device=model.device), mesh=self.mesh,
+                last_pos=true_len - 1
             )
             caches = model.mask_prompt_cache(caches, true_len)
             caches = model.prepare_decode_caches(caches, capacity=self.pool.capacity)
@@ -1048,8 +1105,12 @@ class ContinuousBatchingEngine:
                 logits[:, 0], [r.temperature for r in group],
                 self._seeds([r.sample_rid for r in group], [r.idx_base for r in group]),
             )
+            _agree(self.mesh, firsts, model.device,
+                   f"prefill {self.metrics.prefills} (requests {[r.rid for r in group]})")
         wall = time.perf_counter() - t0
         self.metrics.prefill_walls.append((len(group), bucket, wall))
+        if self.mesh is not None:
+            self.metrics.prefill_sent.append(_sent_since(self.mesh, sent))
         self.metrics.prefills += 1
         if obs.enabled:
             # calibration: the modeled cold-prefill price of the group against
@@ -1156,8 +1217,8 @@ class ContinuousBatchingEngine:
         """Shed the newest queued requests until at most ``keep_depth``
         remain in the arrived backlog (the oldest have waited longest).
         ``now=None`` sheds against the whole queue, pending arrivals
-        included.  Returns the number shed."""
-        backlog = self.queue.arrived(now)  # arrival order
+        included (on a mesh, rank 0's ``now``).  Returns the number shed."""
+        backlog = self.queue.arrived(None if now is None else self.mesh_time(now))
         excess = len(backlog) - max(keep_depth, 0)
         if excess <= 0:
             return 0
@@ -1170,16 +1231,19 @@ class ContinuousBatchingEngine:
         rids = [r.sample_rid if r is not None else 0 for r in self._slot_req]
         temps = [r.temperature if r is not None else 0.0 for r in self._slot_req]
         obs = self._obs
-        t0 = time.perf_counter()
+        t0, sent = time.perf_counter(), _sent(self.mesh)
         with (obs.tracer.span("decode", "serve") if obs.enabled else NULL_SPAN), \
                 torch.no_grad():
             logits, _ = model.decode_step(
                 self.params, self.pool.caches,
                 torch.as_tensor(self._tokens[:, None], device=model.device),
-                torch.as_tensor(self._pos, device=model.device), ragged=True,
+                torch.as_tensor(self._pos, device=model.device), mesh=self.mesh, ragged=True,
             )
             toks = sample_tokens(logits[:, 0], temps, self._seeds(rids, idxs))
+            _agree(self.mesh, toks, model.device, f"decode step {self.metrics.decode_steps}")
         self.metrics.decode_walls.append((len(active), time.perf_counter() - t0))
+        if self.mesh is not None:
+            self.metrics.decode_sent.append(_sent_since(self.mesh, sent))
         self.metrics.decode_steps += 1
         self.metrics.total_slot_steps += self.pool.n_slots
         for slot, req in active:
@@ -1199,9 +1263,9 @@ class ContinuousBatchingEngine:
     def step(self, now: Optional[float] = None) -> int:
         """One scheduling round: deadline drops, admission (wakeups and
         prefill groups), then one ragged decode step for all active slots.
-        Returns the number of tokens produced."""
-        if now is None:
-            now = time.monotonic()
+        Returns the number of tokens produced.  On a mesh ``now`` (default
+        the wall clock) is rank 0's (``mesh_time``)."""
+        now = self.mesh_time(now)
         produced = 0
         if self._obs.enabled:
             self._obs.tracer.step = self.metrics.steps
@@ -1253,7 +1317,8 @@ class ContinuousBatchingEngine:
         progress while admission is paused; returns {rid: generated tokens}.
         ``clock`` gates open-loop arrivals (default ``time.monotonic``):
         with the wall clock an idle engine sleeps until the next arrival,
-        with a virtual clock it jumps to it."""
+        with a virtual clock it jumps to it.  On a mesh every rank reads
+        rank 0's clock (``mesh_time``), so all wait and step alike."""
         wall = clock is None
         clock = clock or time.monotonic
         for _ in range(max_steps):
@@ -1264,10 +1329,12 @@ class ContinuousBatchingEngine:
                 if self._paused:
                     break  # admission paused and nothing active: no progress
                 nxt = self.queue.next_arrival()
-                if nxt is not None and clock() < nxt:
+                if nxt is None:
+                    continue
+                now = self.mesh_time(clock())
+                if now < nxt:
                     if wall:
-                        while clock() < nxt:
-                            time.sleep(min(1e-3, max(nxt - clock(), 0.0)))
+                        time.sleep(nxt - now)
                     else:
                         self.step(nxt)
         return {
@@ -1304,8 +1371,9 @@ class ServingEngine:
     unpadded rows of one length: its state would run through the padding."""
 
     def __init__(self, model: Model, params: dict, max_len: int = 512, mesh=None):
-        _one_device(mesh)
+        model.check_mesh(mesh)
         self.model = model
+        self.mesh = mesh
         self.params = model.load(params)
         self.max_len = max_len
 
@@ -1322,15 +1390,19 @@ class ServingEngine:
         temps = [temperature] * b
         with torch.no_grad():
             logits, caches = model.prefill(
-                self.params, torch.as_tensor(prompts, dtype=torch.long, device=model.device)
+                self.params, torch.as_tensor(prompts, dtype=torch.long, device=model.device),
+                mesh=self.mesh,
             )
             caches = model.prepare_decode_caches(caches, capacity=self.max_len)
             pos = torch.full((b,), s, dtype=torch.long, device=model.device)
             out = [sample_tokens(logits[:, 0], temps, self._seeds(seed, 0, b))]
+            _agree(self.mesh, out[-1], model.device, "the prefill")
             for i in range(max_new_tokens - 1):
                 tok = torch.as_tensor(out[-1][:, None], dtype=torch.long, device=model.device)
-                logits, caches = model.decode_step(self.params, caches, tok, pos + i)
+                logits, caches = model.decode_step(self.params, caches, tok, pos + i,
+                                                   mesh=self.mesh)
                 out.append(sample_tokens(logits[:, 0], temps, self._seeds(seed, i + 1, b)))
+                _agree(self.mesh, out[-1], model.device, f"decode step {i}")
         return np.stack(out, axis=1)
 
     @staticmethod

@@ -33,8 +33,9 @@ minor.  Its gradients are then synced in one of three ways:
 Clipping and AdamW run after the sync, identically on every rank, and the
 metrics are averaged over the data-parallel group.  A ``model`` axis above
 1 (tensor parallelism) and an MoE config with a mesh raise
-``NotImplementedError``: the sharding rules and the MoE dispatch across
-ranks are the next slice (ROADMAP A11).  Without a mesh the step is the
+``NotImplementedError``: training on a ``model`` axis and MoE across
+ranks in training are the next slice (ROADMAP A11c; serving on a
+``model`` axis is ported).  Without a mesh the step is the
 single-device one whatever the ``ParallelConfig``, as in the reference.
 """
 
@@ -53,8 +54,8 @@ from ..tree import tree_copy, tree_leaves, tree_map
 
 __all__ = ["Trainer", "make_train_step", "value_and_grads", "local_rows"]
 
-_NEXT_SLICE = ("the sharding rules (a model axis above 1, sharded MoE) are the next slice of "
-               "the port (ROADMAP A11)")
+_NEXT_SLICE = ("training on a model axis above 1 and MoE on a mesh in training are the next "
+               "slice of the port (ROADMAP A11c)")
 
 
 def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1):

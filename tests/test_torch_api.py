@@ -31,7 +31,6 @@ UNPORTED = {
     "launch.dryrun": "A14",
     "launch.specs": "A14",
     "launch.jax_compat": "none: the JAX version seam",
-    "runtime.sharding": "A11 (sharding rules)",
     "runtime.orchestrator": "A12",
     "runtime.autoscale": "A12",
     "runtime.serving_elastic": "A12",

@@ -114,11 +114,13 @@ def test_ranks_sit_row_major_on_the_mesh(results):
 
 
 def test_mesh_groups_only_the_axis_sets_the_data_parallel_path_uses(results):
-    """One group per slice of each axis and of (pod, data): no group of the
-    model axis with others before the sharding rules need one."""
+    """One group per slice of each axis, of (pod, data) and of (pod, data,
+    model) (the expert-parallel MoE path's token blocks): no other set of
+    axes has a group."""
     _, ranks, _ = results
     for out in ranks:
-        assert out["group sets"] == [("data",), ("model",), ("pod",), ("pod", "data")]
+        assert out["group sets"] == [("data",), ("model",), ("pod",), ("pod", "data"),
+                                     ("pod", "data", "model")]
     with pytest.raises(NotImplementedError, match="no process group over"):
         mesh_mod.make_mesh((1, 1, 1), ("pod", "data", "model")).group(("data", "model"))
 

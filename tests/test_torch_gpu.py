@@ -52,6 +52,9 @@ GMM_SHAPES = [  # e, c, d, f: the JAX sweep, ragged capacities, granite's decode
     (4, 1, 128, 64), (8, 50, 128, 64), (32, 8, 1024, 512), (32, 160, 512, 1024),
     # the edges of the bf16 kernels' tiles: 128 x 128 prefill, 8 or 16 columns in decode
     *[(8, c, 256, 128) for c in (1, 7, 9, 16, 17, 63, 65, 127, 129, 2560)],
+    # granite's 16 experts a rank on a model axis of 2: [E/m, m C, D] on the all-to-all path
+    # (a 2 x 1024 prefill group, 512 tokens a rank of 4), [E/m, 8, D] on the replicated one
+    (16, 320, 1024, 512), (16, 320, 512, 1024), (16, 8, 1024, 512), (16, 8, 512, 1024),
 ]
 
 SSD_SHAPES = [  # b, s, h, p, n, the plain version's chunk: the JAX sweep, ragged S, mamba2

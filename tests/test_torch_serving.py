@@ -25,6 +25,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import CollectiveCostModel
 from repro_torch.core import collectives
 from repro_torch.launch import serve
+from repro_torch.launch.mesh import Mesh, make_mesh
 from repro_torch.models import build_model
 from repro_torch.models.model import Model
 from repro_torch.obs import Obs
@@ -264,9 +265,10 @@ def _default(value):
 
 def _without_mesh(fn):
     """``fn``'s signature without its trailing keyword-only ``mesh``: the
-    port's collectives take the reference's parameters, then the mesh whose
-    process groups their axis names select (the reference finds its axes in
-    the enclosing ``shard_map``)."""
+    port's collectives, ``init_cache`` and the pools take the reference's
+    parameters, then the mesh whose process groups their axis names select
+    or whose rank's rows they make (the reference finds its axes in the
+    enclosing ``shard_map`` and its caches' layout in its compiler)."""
     sig = inspect.signature(fn)
     *params, mesh = sig.parameters.values()
     assert mesh.name == "mesh" and mesh.kind is inspect.Parameter.KEYWORD_ONLY, fn
@@ -291,7 +293,7 @@ _SIGNATURES = {
     "prefill": (Model.prefill, JaxModel.prefill),
     "decode_step": (Model.decode_step, JaxModel.decode_step),
     "train_loss": (Model.train_loss, JaxModel.train_loss),
-    "init_cache": (Model.init_cache, JaxModel.init_cache),
+    "init_cache": (_without_mesh(Model.init_cache), JaxModel.init_cache),
     "mask_prompt_cache": (Model.mask_prompt_cache, JaxModel.mask_prompt_cache),
     "prepare_decode_caches": (Model.prepare_decode_caches, JaxModel.prepare_decode_caches),
     "ServingEngine.generate": (ServingEngine.generate, jax_serving.ServingEngine.generate),
@@ -315,6 +317,10 @@ for _name in ("__init__", "demote", "promote", "claim_dropped", "adopt", "sessio
               "lookup"):
     _SIGNATURES[f"TieredKVPool.{_name}"] = (getattr(TieredKVPool, _name),
                                             getattr(jax_serving.TieredKVPool, _name))
+# the pools take the rank's mesh after the reference's parameters, as the
+# collectives do (the reference's caches take their layout from its compiler)
+for _name in ("KVPool.__init__", "TieredKVPool.__init__"):
+    _SIGNATURES[_name] = (_without_mesh(_SIGNATURES[_name][0]), _SIGNATURES[_name][1])
 
 
 @pytest.mark.parametrize("port,ref", list(_SIGNATURES.values()), ids=list(_SIGNATURES))
@@ -356,8 +362,9 @@ def test_engines_take_the_reference_parameter_order(pair):
     eos_id); submit (..., now, session_id, deadline); prefill (params,
     batch, impl, mesh, last_pos); decode_step (params, caches, tokens, pos,
     impl, mesh, ragged).  audit, tiers, obs and a session id are taken in
-    their places; what is not ported raises: a mesh, an impl that is
-    neither "xla" nor "pallas"."""
+    their places, a mesh too (one of one rank serves the same tokens); what
+    is not ported raises: MLA on a model axis above 1 (ROADMAP A11c), an
+    impl that is neither "xla" nor "pallas"."""
     mj, pj, mt, pt = pair
     rng = np.random.default_rng(8)
     prompts = _prompts(rng, mt.cfg.vocab, [5, 9, 13, 3])
@@ -371,9 +378,18 @@ def test_engines_take_the_reference_parameter_order(pair):
     want = jax_serving.ServingEngine(mj, pj, 48, None).generate(static, 6, 0, 0.0, 0)
     got = ServingEngine(mt, pt, 48, None).generate(static, 6, 0, 0.0, 0)
     np.testing.assert_array_equal(got, want)
-    for make in (lambda: ContinuousBatchingEngine(mt, pt, 3, 48, object()),
-                 lambda: ServingEngine(mt, pt, 48, object())):
-        with pytest.raises(NotImplementedError, match="mesh"):
+    one = make_mesh((1, 1), ("data", "model"))
+    np.testing.assert_array_equal(ServingEngine(mt, pt, 48, one).generate(static, 6, 0, 0.0, 0),
+                                  want)
+    for w, g in zip(jax_serving.ContinuousBatchingEngine(mj, pj, 3, 48, None).generate(
+            prompts, budgets), ContinuousBatchingEngine(mt, pt, 3, 48, one).generate(
+            prompts, budgets)):
+        np.testing.assert_array_equal(g, w)
+    mla = build_model(get_config("minicpm3-4b", reduced=True), device="cpu")
+    two = Mesh(("data", "model"), (1, 2), 0, {}, "none")
+    for make in (lambda: ContinuousBatchingEngine(mla, {}, 3, 48, two),
+                 lambda: ServingEngine(mla, {}, 48, two)):
+        with pytest.raises(NotImplementedError, match="MLA on a model axis of 2.*A11c"):
             make()
 
     # the constructor's tail: max_queue_depth is 14th, after audit and tiers
@@ -404,8 +420,8 @@ def test_engines_take_the_reference_parameter_order(pair):
     last = torch.as_tensor([len(p) - 1 for p in prompts])
     with torch.no_grad():
         want_logits, want_caches = mt.prefill(pt, toks, last_pos=last)
-        for impl in ("xla", "pallas"):
-            logits, caches = mt.prefill(pt, {"tokens": toks}, impl, None, last)
+        for impl, mesh in (("xla", None), ("pallas", None), ("xla", one)):
+            logits, caches = mt.prefill(pt, {"tokens": toks}, impl, mesh, last)
             torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
         caches = mt.prepare_decode_caches(want_caches, 32)
         tok, pos = want_logits[:, 0].argmax(-1)[:, None], last + 1
@@ -414,8 +430,8 @@ def test_engines_take_the_reference_parameter_order(pair):
         step, _ = mt.decode_step(pt, caches, tok, pos, "pallas", None, True)
         torch.testing.assert_close(step, want_step, rtol=0, atol=0)
         for call in (lambda: mt.prefill(pt, toks, "triton"),
-                     lambda: mt.prefill(pt, toks, "xla", object()),
-                     lambda: mt.decode_step(pt, caches, tok, pos, "xla", object(), True),
+                     lambda: mla.prefill({}, toks, "xla", two),
+                     lambda: mla.decode_step({}, {}, tok, pos, "xla", two, True),
                      lambda: mt.decode_step(pt, caches, tok, pos, True)):
             with pytest.raises(NotImplementedError):
                 call()

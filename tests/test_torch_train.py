@@ -36,6 +36,7 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.moe_gmm import ops as gmm_ops
 from repro_torch.launch import train as train_launcher
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import build_model
 from repro_torch.models.layers import cross_entropy_loss
 from repro_torch.optim import adamw
@@ -273,13 +274,14 @@ def test_train_loss_refuses_moe_and_ssm_stacks(arch, name):
     """MoE and SSM stacks train (the grouped matmul and the SSD scan have
     their backward): a finite loss, with a positive load-balancing loss on
     MoE, and a finite gradient that reaches every leaf.  What ``train_loss``
-    still refuses on them is what the port has not ported: a mesh and an
-    ``impl`` that is neither of the reference's."""
+    still refuses on them is what the port has not ported: a model axis
+    above 1 (ROADMAP A11c) and an ``impl`` that is neither of the
+    reference's."""
     model = build_model(get_config(arch, reduced=True), device="cpu")
     params = tree_map(lambda t: t.requires_grad_(), model.init(torch.Generator().manual_seed(0)))
     batch = batch_of(model.cfg.vocab, s=16)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        model.train_loss(params, batch, mesh=object())
+    with pytest.raises(NotImplementedError, match="training on a model axis of 2.*A11c"):
+        model.train_loss(params, batch, mesh=Mesh(("data", "model"), (1, 2), 0, {}, "none"))
     with pytest.raises(NotImplementedError, match="impl"):
         model.train_loss(params, batch, impl="triton")
     loss, metrics = model.train_loss(params, batch)

@@ -1,20 +1,27 @@
 """One rank of the port's multi-rank CPU tests (gloo), run as a script:
 
-  python tests/torch_ranks.py <case> <workdir> <rank> <world>
+  python tests/torch_ranks.py <case> <workdir> <rank> <world> [<mesh>]
 
-The ranks join through ``file://<workdir>/init``, build a (pod 2, data 2,
-model 1) mesh, run every check of ``<case>`` on the inputs the test wrote
-to ``<workdir>`` and save what they got to ``<workdir>/<case>.<rank>.pt``
-for the test to compare with the JAX package's results.  This file imports
-torch, numpy and ``repro_torch`` only: the ranks load no JAX.
+The ranks join through ``file://<workdir>/init``, build a mesh (``<mesh>``
+as the launchers' ``--mesh`` takes it, ``DxM`` or ``PxDxM``; by default pod
+2 x data 2 x model 1), run every check of ``<case>`` on the inputs the
+test wrote to ``<workdir>`` and save what they got to
+``<workdir>/<case>.<rank>.pt`` for the test to compare with the JAX
+package's results.  This file imports torch, numpy and ``repro_torch``
+only: the ranks load no JAX.
 
-Cases: ``collectives`` (each collective of ``core/collectives.py``) and
+Cases: ``collectives`` (each collective of ``core/collectives.py``),
 ``train`` (the flat, hierarchical and compressed train steps, and the
-checkpoints of the compressed state with a mesh).
+checkpoints of the compressed state with a mesh) and ``serve`` (the runs
+``serve.json`` lists on a mesh with a ``model`` axis: the engines' token
+streams, a prefill's logits and single layers, from the JAX package's
+params, which the bridge hands each rank as its block).
 """
 
 import dataclasses
+import json
 import os
+import pickle
 import subprocess
 import sys
 from pathlib import Path
@@ -23,12 +30,17 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.bridge import from_jax_params
 from repro_torch.checkpoint.checkpointing import restore_checkpoint, save_checkpoint
 from repro_torch.configs.base import ParallelConfig, get_config
 from repro_torch.core import collectives as col
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.mesh import make_mesh, parse_mesh_flag
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import build_model
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine
 from repro_torch.runtime.trainer import Trainer
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -129,17 +141,122 @@ def case_train(mesh, inputs: dict, workdir: str) -> dict:
     return out
 
 
-def spawn(case: str, workdir: Path, world: int = 4, timeout: float = 120.0) -> list[dict]:
+def serve_cfg(arch: str, layers: int):
+    """The serve case's configs: REDUCED, fp32 compute, cut to ``layers``."""
+    return dataclasses.replace(get_config(arch, reduced=True), compute_dtype="float32",
+                               n_layers=layers)
+
+
+def case_serve(mesh, inputs: dict, workdir: str) -> dict:
+    """Each run of ``serve.json`` on this rank's block of the JAX package's
+    params (pickled numpy trees, ``params_<arch>.pkl``, handed across by
+    ``from_jax_params(cfg, tree, mesh)``).  ``continuous``: the prompts
+    through ``ContinuousBatchingEngine`` (3 slots, capacity 40), then the
+    logits of a ``Model.prefill`` of the first two prompts right-padded to
+    16; ``one_shot``: ``ServingEngine.generate`` of the prompts cut to the
+    shortest; ``open_loop``: the prompts submitted with the run's arrival
+    times and deadlines, run on a virtual clock that each rank skews by
+    ``skew`` times its rank (``open_loop``); ``moe``, ``ssm`` and ``attn``:
+    layer 0's FFN or mixer on the test's inputs (and, for ``moe``, whether
+    a Valiant key raises)."""
+    out = {}
+    prompts = [inputs[f"prompt{i}"] for i in range(int(inputs["n_prompts"]))]
+    for run in json.loads(Path(workdir, "serve.json").read_text()):
+        arch, kind = run["arch"], run["kind"]
+        cfg = serve_cfg(arch, run["layers"])
+        model = build_model(cfg, device="cpu")
+        with open(os.path.join(workdir, f"params_{arch}.pkl"), "rb") as f:
+            block = from_jax_params(cfg, pickle.load(f), mesh=mesh)
+        name = f"{kind} {arch}"
+        if kind == "continuous":
+            engine = ContinuousBatchingEngine(model, block, n_slots=3, max_len=40, mesh=mesh)
+            out[name] = [o.tolist() for o in engine.generate(prompts, 6)]
+            toks = np.zeros((2, 16), np.int64)
+            for i, p in enumerate(prompts[:2]):
+                toks[i, :len(p)] = p
+            last = torch.as_tensor([len(p) - 1 for p in prompts[:2]])
+            with torch.no_grad():
+                logits, _ = model.prefill(engine.params, torch.as_tensor(toks), mesh=mesh,
+                                          last_pos=last)
+            out[f"logits {arch}"] = logits
+        elif kind == "open_loop":
+            engine = ContinuousBatchingEngine(model, block, n_slots=3, max_len=40, mesh=mesh)
+            out[name] = open_loop(engine, prompts, run["arrivals"], run["deadlines"],
+                                  run["skew"] * mesh.rank)
+        elif kind == "one_shot":
+            short = min(len(p) for p in prompts)
+            batch = np.stack([p[:short] for p in prompts])
+            out[name] = ServingEngine(model, block, max_len=40, mesh=mesh).generate(batch, 6)
+        else:
+            layer = model.load(block)["layers"][0]
+            x = torch.from_numpy(inputs[run["input"]])
+            with torch.no_grad():
+                if kind == "moe":
+                    mesh.sent.clear()
+                    out[name + " " + run["input"]] = moe_mod.moe_apply(layer["ffn"], x, cfg,
+                                                                        mesh=mesh)[0]
+                    out[f"bytes {run['input']}"] = dict(mesh.sent)
+                    try:
+                        moe_mod.moe_sharded_a2a(
+                            layer["ffn"], x.reshape(-1, x.shape[-1]),
+                            dataclasses.replace(cfg, moe=dataclasses.replace(
+                                cfg.moe, valiant_shuffle=True)), key=0, mesh=mesh)
+                        out["valiant"] = ""
+                    except NotImplementedError as e:
+                        out["valiant"] = str(e)
+                elif kind == "ssm":
+                    y, cache = ssm_mod.ssm_apply(layer["mixer"], x[:, :-1], cfg,
+                                                 update_cache=True, mesh=mesh)
+                    step, _ = ssm_mod.ssm_apply(layer["mixer"], x[:, -1:], cfg, cache=cache,
+                                                mesh=mesh)
+                    out[name] = torch.cat([y, step], dim=1)
+                else:
+                    b, s, _ = x.shape
+                    pos = torch.arange(s).expand(b, s)
+                    y, cache = attn_mod.attention_apply(layer["mixer"], x[:, :-1], cfg,
+                                                        positions=pos[:, :-1],
+                                                        update_cache=True, mesh=mesh)
+                    ring = {k: torch.cat([v, torch.zeros_like(v[:, :1])], dim=1)
+                            for k, v in cache.items()}
+                    ring["pos"][:, -1] = -1
+                    step, _ = attn_mod.attention_apply(layer["mixer"], x[:, -1:], cfg,
+                                                       positions=pos[:, -1:], cache=ring,
+                                                       ragged=True, mesh=mesh)
+                    out[name] = torch.cat([y, step], dim=1)
+                    out["kv heads"] = attn_mod.head_plan(cfg, mesh)
+    return out
+
+
+def open_loop(engine, prompts, arrivals, deadlines, skew: float) -> list:
+    """[state, tokens] of each of ``prompts`` (6 new tokens each) submitted
+    with ``arrivals`` and ``deadlines`` (None for closed loop or none) and
+    run on a virtual clock of one unit an engine step, plus ``skew``."""
+    rids = [engine.submit(p, 6, arrival_time=a, deadline=d)
+            for p, a, d in zip(prompts, arrivals, deadlines)]
+    got = engine.run(clock=lambda: engine.metrics.steps + skew)
+    return [[engine.requests[r].state, [int(t) for t in got.get(r, [])]] for r in rids]
+
+
+def spawn(case: str, workdir: Path, world: int = 4, timeout: float = 120.0,
+          mesh: str | None = None, wait: bool = True):
     """Run ``case`` on ``world`` ranks (this file as a script, two threads
-    each) and return each rank's saved results.  A rank that fails or does
-    not finish within ``timeout`` seconds fails the call, with every rank's
-    stderr; no rank is left running."""
+    each, on ``mesh`` where given) and return each rank's saved results.  A
+    rank that fails or does not finish within ``timeout`` seconds fails the
+    call, with every rank's stderr; no rank is left running.  With ``wait``
+    False, return a function that waits and returns them, so that the
+    caller can work while the ranks run."""
     root = Path(__file__).resolve().parents[1]
     env = {**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "2"}
     logs = [open(workdir / f"{case}.{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, __file__, case, str(workdir), str(r), str(world)],
-                              env=env, stdout=log, stderr=subprocess.STDOUT)
+    extra = [mesh] if mesh else []
+    procs = [subprocess.Popen([sys.executable, __file__, case, str(workdir), str(r), str(world),
+                               *extra], env=env, stdout=log, stderr=subprocess.STDOUT)
              for r, log in enumerate(logs)]
+    collect = lambda: _collect(case, workdir, world, timeout, procs, logs)  # noqa: E731
+    return collect() if wait else collect
+
+
+def _collect(case, workdir, world, timeout, procs, logs) -> list[dict]:
     try:
         for p in procs:
             p.wait(timeout=timeout)
@@ -164,11 +281,13 @@ def main() -> None:
     torch.set_num_threads(2)
     dist.init_process_group("gloo", init_method=f"file://{workdir}/init", rank=rank,
                             world_size=world)
-    mesh = make_mesh(*MESH)
+    mesh = parse_mesh_flag(sys.argv[5]) if len(sys.argv) > 5 else make_mesh(*MESH)
     with np.load(os.path.join(workdir, "inputs.npz")) as f:
         inputs = {k: f[k] for k in f.files}
-    out = case_collectives(mesh, inputs) if case == "collectives" else case_train(
-        mesh, inputs, workdir)
+    cases = {"collectives": lambda: case_collectives(mesh, inputs),
+             "train": lambda: case_train(mesh, inputs, workdir),
+             "serve": lambda: case_serve(mesh, inputs, workdir)}
+    out = cases[case]()
     out["coords"] = mesh.coords
     out["group sets"] = sorted(mesh.groups)
     torch.save(out, os.path.join(workdir, f"{case}.{rank}.pt"))
