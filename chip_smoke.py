@@ -71,13 +71,14 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
 4. the three main paths at full width (random weights from a seed, bf16),
    each serving 8 ragged requests on 4 slots through
    ``ContinuousBatchingEngine`` and one 4 x 512 batch through the one-shot
-   ``ServingEngine``, each at half its depth (``EARLIER_LAYERS``):
-   internlm2-1.8b (dense, 12 of 24 layers), granite-moe-1b-a400m
-   (MoE, 12 of 24 layers, expert FFNs through the grouped matmul), then
-   mamba2-1.3b (24 of 48 SSM layers, each prefill through the SSD scan, every
+   ``ServingEngine``, each cut in depth (``EARLIER_LAYERS``):
+   internlm2-1.8b (dense, 2 of 24 layers), granite-moe-1b-a400m
+   (MoE, 2 of 24 layers, expert FFNs through the grouped matmul), then
+   mamba2-1.3b (2 of 48 SSM layers, each prefill through the SSD scan, every
    prompt prefilled alone at its exact length), then jamba-v0.1-52b cut to
-   one pattern period of 8 layers (7 Mamba-2 layers, one attention layer,
-   4 MoE FFNs of 16 experts top-2, 13.27 B parameters; all three kernels,
+   2 layers, one of each kind (a Mamba-2 layer with a dense FFN, an
+   attention layer with an MoE FFN of 16 experts top-2, 3.675 B
+   parameters: ``hybrid_cut``; all three kernels,
    every prompt alone at its exact length; its weights built a layer at a
    time on the card).  Each model's weights come from seed 0, as
    ``Model.init`` makes them.  The launch counters are
@@ -89,8 +90,8 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    prefill of one 866-token prompt at full width, cut to 4 layers, through
    the SSD kernel against the same model with the plain ``ssd_chunked`` in
    every layer, within the port's whole-model bf16 bound (5e-2 + 2e-2
-   relative); and the wall and device busy time of that prefill at 24
-   layers, with the SSD kernel's part; each path's decode profiled over 6
+   relative); and the wall and device busy time of that prefill at phase
+   4's depth, with the SSD kernel's part; each path's decode profiled over 6
    engine steps;
 5. card against CPU: each model cut to 2 layers in fp32 (jamba: layer 0
    Mamba-2 with a dense FFN, layer 1 attention with MoE, 3.675 B
@@ -132,17 +133,18 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    tokens/s, peak memory and one profiled step; then each model cut to 2
    layers in fp32 (jamba's with 4 of its 16 experts, every width kept: the
    host holds both runs' state) trained 2 steps on the card and on the
-   CPU, gradients within 1e-4 of each leaf's largest value, losses within
-   1e-4 relative and params within 1e-4;
+   CPU, the first step's gradient (read back from its first moment) within
+   1e-4 of each leaf's largest value, losses within 1e-4 relative and
+   params within 1e-4;
 7. checkpoints and restarts: granite-moe-1b-a400m cut to 2 layers at full
-   width trained 6 steps straight, then 6 steps through
+   width trained 4 steps straight, then 4 steps through
    ``run_with_restarts`` with a checkpoint every 2 steps and one failure
    injected after step 3's update; params, moments, step and losses
    bit-identical to the straight run; an ``AsyncCheckpointer`` save of the
    final state passes ``verify_checkpoint``; the bytes and seconds of a
    save and a restore (the directory, under ``build/``, is removed);
 8. multi-turn sessions through the tiered KV pool, on phase 4's weights
-   right after their path (internlm2-1.8b's 12 layers and jamba-v0.1-52b's
+   right after their path (internlm2-1.8b's 4 layers and jamba-v0.1-52b's
    period): the
    same 8 prompts, greedy, as sessions of two turns of 16 tokens (the
    second turn resubmits each history), each run held bit for bit against
@@ -163,17 +165,18 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    (and ``insert_all`` against ``insert``), each with the card's name and
    power limit;
 9. the MLA, vision-frontend and encoder-decoder families at full width, bf16, random
-   weights from seed 0: minicpm3-4b (62 layers of multi-head latent
-   attention, 4.26 B parameters) served as phase 4 serves (its path
+   weights from seed 0: minicpm3-4b (multi-head latent attention, 4 of its
+   62 layers: ``FAMILY_SERVE_LAYERS``) served as phase 4 serves (its path
    launches no kernel: the reference runs MLA outside its kernels) and
    through phase 8's two-turn sessions (4 host, 4 pooled, bit-identical to
-   a never-demoted run; its row bytes); phi-3-vision-4.2b (32 layers) served
-   on text as phase 4 serves (flash 32 times per prefill group), then
+   a never-demoted run; its row bytes); phi-3-vision-4.2b (4 of 32
+   layers) served on text as phase 4 serves (flash 4 times per prefill
+   group), then, at 8 layers (``FAMILY_PREFILL_LAYERS``),
    ``Model.prefill`` on 2 rows of 576 patch rows of width 1024 and 256
-   text tokens and 32 greedy ``decode_step``s; seamless-m4t-large-v2 (24
-   encoder and 24 decoder layers), whose engines refuse it with the
-   reference's messages, through ``Model.prefill`` on 4 rows of 512
-   encoder frames of width 160 and a 64-token prompt (flash 24 times,
+   text tokens and 32 greedy ``decode_step``s; seamless-m4t-large-v2 (8 of
+   its 24 encoder and 8 of its 24 decoder layers), whose engines refuse it
+   with the reference's messages, through ``Model.prefill`` on 4 rows of 512
+   encoder frames of width 160 and a 64-token prompt (flash 8 times,
    the decoder's self-attention) and 32 greedy decode steps; both
    prefills through the kernel against the plain version on the same
    weights (logits within phase 4's bound; on every row the plain logit
@@ -183,7 +186,7 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    layers (seamless 2 + 2) in fp32 on the card against the CPU, 16 greedy
    steps, and one gradient pass held to phase 6's rule (each leaf within
    1e-4 of its largest value); and each trained 8 steps as phase
-   6 trains (minicpm3 and phi-3-vision cut to 8 layers, seamless whole;
+   6 trains (minicpm3 and phi-3-vision cut to 4 layers, seamless to 4 + 4;
    phi-3-vision's batches carry 128 frontend rows, seamless's 256 encoder
    frames), with the launches, peak memory and a step profile;
 10. the CLEX topology simulator (``repro_torch.core``), which launches none
@@ -216,15 +219,15 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    cross-pod sum on every rank's shard of each gradient leaf within one
    quantum of the exact sum, its residuals nonzero and total + residuals
    equal to the exact sum within 1e-5 of the leaf's largest value.  In
-   bf16 (B 8 x S 256 a rank), two steps of each sync: the walls, the bytes
-   each rank sent (counted in the collectives) beside the cost model's
-   cross-pod wire bytes and modeled seconds, and the peak memory; then a
-   third step profiled on rank 0 (device busy, the host copies, the host
-   time in the collectives).  Each
+   bf16 (B 8 x S 256 a rank), one step of each sync, profiled on rank 0: its
+   wall, the bytes each rank sent (counted in the collectives) beside the
+   cost model's cross-pod wire bytes and modeled seconds, the peak memory,
+   and rank 0's device busy time, host copies and host time in the
+   collectives.  Each
    rank's launches (held to the passes it made) and the shapes it
    launched the kernels at (any not checked before held against the plain
-   versions); then the train launcher on 4 ranks under torchrun
-   (``--mesh 2x2x1 --hierarchical-sync --compress --reduced``, 3 steps);
+   versions); its train launcher (``--mesh 2x2x1 --hierarchical-sync
+   --compress --reduced``, 3 steps) runs after phase 14 (item 15);
 12. the port's three examples (``examples/torch_*.py``) run in this
    process with ``--device cuda``: the quickstart (the simulator at m 16,
    L 3, then 30 steps of REDUCED internlm2), the MoE serving example
@@ -237,7 +240,7 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    under gloo, data 2 x model 2, internlm2-1.8b (16 query heads over 8 KV
    heads, 8 and 4 a rank; its vocab of 92544 split), granite-moe-1b-a400m
    (32 experts, 16 a rank; its vocab of 49155 whole) and mamba2-1.3b (64
-   SSM heads, 32 a rank), each at full width cut to 4 layers, each rank
+   SSM heads, 32 a rank), each at full width cut to 2 layers, each rank
    holding its blocks of the seed-0 weights (``runtime/sharding.py``),
    phase 4's traffic through ``ContinuousBatchingEngine(mesh=)``: in fp32
    every rank's streams bit-identical, the dense and SSM streams equal to
@@ -250,15 +253,34 @@ torch and numpy.  Phases, one line or more each; any failure exits non-zero:
    bytes each rank sent by group and the peak memory; each rank's
    launches held to its prefills and decode steps, their shapes checked
    (flash at 8 of 16 heads, gmm at 16 of 32 experts, the SSD scan at 32 of
-   64 heads); then the serve launcher under torchrun (``--mesh 2x2
-   --reduced``);
-14. the walls by phase and path, a JSON line of the kernels (the flash and SSD
+   64 heads); its serve launcher (``--mesh 2x2 --reduced``) runs after
+   phase 14 (item 15);
+14. training on a mesh with a ``model`` axis: 4 processes sharing the card
+   under gloo, data 2 x model 2 for the flat sync and pod 2 x data 1 x
+   model 2 for the staged and int8 ones, internlm2-1.8b, granite-moe-1b-a400m
+   and mamba2-1.3b at full width cut to 2 layers, each rank holding its
+   blocks of the seed-0 params and of AdamW's moments: in fp32 the dense
+   and SSM synced gradients (the blocks gathered) against one process's
+   gradient of the whole batch, the leaves whole over ``model``
+   bit-identical on every rank after two steps, the int8 step against the
+   staged one, granite's MoE layer on both expert-parallel paths forward
+   and backward against its block emulation; in bf16 internlm2's step
+   wall on each sync, profiled on rank 0, the bytes a rank sent by group
+   and the peak memory; every new kernel shape checked before the ranks start,
+   each rank's launches held to its gradient passes;
+15. the launchers of phases 11, 13 and 14 under torchrun, each on 4 ranks
+   sharing the card (gloo), all three started together so that their 12
+   processes' start-up overlaps: the train launcher on ``--mesh 2x2x1
+   --hierarchical-sync --compress --reduced`` and on ``--mesh 2x1x2
+   --hierarchical-sync --compress --reduced`` (3 step lines each), the
+   serve launcher on ``--mesh 2x2 --reduced``, each exiting 0;
+16. the walls by phase and path, a JSON line of the kernels (the flash and SSD
    backwards beside the three forward kernels; the SSD backward's launches
    by route and its FMA route's time beside; launches by path, the train
    paths, the checkpoint phase, the session paths, phase 9's paths, the
    simulator's (all 0), each rank's of phase 11, each example's of
-   phase 12 and each rank's of phase 13 among them), and as the last line
-   ``{"ok": true, "device": {...}}``.
+   phase 12 and each rank's of phases 13 and 14 among them), and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 It exits non-zero, printing no result, where no CUDA card is visible.
 """
@@ -269,6 +291,7 @@ import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import faulthandler
 import io
 import itertools
 import json
@@ -282,9 +305,24 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+# the script's start, for the progress lines on stderr
+T0 = time.monotonic()
+# seconds after the start at which every process of the script still running
+# writes its threads' stacks to stderr, ahead of the 1200 s limit; the rank
+# processes (spawned, so importing this file) read the moment from the
+# environment
+DUMP_AFTER_S = 1140.0
+if os.environ.get("CHIP_SMOKE_DUMP_AT"):
+    faulthandler.dump_traceback_later(
+        max(float(os.environ["CHIP_SMOKE_DUMP_AT"]) - time.time(), 1.0), exit=False)
+# torch.profiler warns once a process that a second cycle drops the first's
+# events; each profile here is one cycle
+warnings.filterwarnings("ignore", message="Warning: Profiler clears events")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -330,7 +368,7 @@ from repro_torch.core.scenarios import asymmetric_bandwidth  # noqa: E402
 from repro_torch.obs import Obs, get_obs, set_obs  # noqa: E402
 from repro_torch.runtime.serving import (  # noqa: E402
     ContinuousBatchingEngine, KVPool, ServingEngine, TierConfig)
-from repro_torch.runtime.sharding import reshard_params  # noqa: E402
+from repro_torch.runtime.sharding import reshard_params, whole_leaves  # noqa: E402
 from repro_torch.runtime.trainer import Trainer, local_rows, value_and_grads  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
@@ -358,24 +396,31 @@ MLA, VLM, ENCDEC = "minicpm3-4b", "phi-3-vision-4.2b", "seamless-m4t-large-v2"
 FAMILIES = (MLA, VLM, ENCDEC)
 # phase 9's training cuts: minicpm3 (4.26 B parameters) and phi-3-vision
 # (3.82 B) need 68 and 61 GB of fp32 params and AdamW moments at full
-# depth, before activations; seamless (2.04 B, 33 GB) trains whole
-FAMILY_TRAIN_LAYERS = {MLA: 8, VLM: 8, ENCDEC: None}
+# depth, before activations; seamless (2.04 B, 33 GB) would fit whole; each
+# is cut to 4 layers (seamless 4 + 4 encoder layers) for the script's time
+FAMILY_TRAIN_LAYERS = {MLA: 4, VLM: 4, ENCDEC: 4}
+# phase 9's serving cuts: minicpm3's MLA path launches no kernel and is
+# host-bound (about 1 s a layer over its runs and sessions), phi-3-vision's
+# text path is flash's at phase 4's shapes
+FAMILY_SERVE_LAYERS = {MLA: 4, VLM: 4}
+# the depth of phase 9's frontend prefill and decode (phi-3-vision) and of
+# seamless's encoder-decoder prefill and decode (each side)
+FAMILY_PREFILL_LAYERS = {VLM: 8, ENCDEC: 8}
 # phi-3-vision's frontend prefill: 576 patch rows of width 1024, then 256
 # text tokens (S 832), 2 rows; seamless's: 512 encoder frames of width 160
 # and a 64-token decoder prompt, 4 rows; then greedy decode steps
 VLM_PATCHES, VLM_TEXT, VLM_ROWS = 576, 256, 2
 ENCDEC_FRAMES, ENCDEC_PROMPT, ENCDEC_ROWS = 512, 64, 4
 FAMILY_DECODE_STEPS = 32
-# the hybrid, served at full width cut to one pattern period of its 32
-# layers: 13.27 B parameters, 26.5 GB in bf16 (the whole model does not fit
-# one card)
+# the hybrid, at full width cut to 2 layers, one of each kind (``hybrid_cut``:
+# Mamba-2 with a dense FFN, attention with 16 experts top-2; 3.675 B
+# parameters) wherever it runs: the whole model (52 B) does not fit one card
 HYBRID = "jamba-v0.1-52b"
-HYBRID_LAYERS = 8
-# phases 4, 6 and 8 run the three one-family models at half their depth,
-# every width kept (internlm2-1.8b and granite-moe-1b-a400m 12 of 24
-# layers, mamba2-1.3b 24 of 48), so that the whole script stays near 11
-# minutes beside phase 9
-EARLIER_LAYERS = {DENSE: 12, MOE: 12, SSM: 24}
+# phases 4, 6 and 8 run the three one-family models at 2 layers, every
+# width kept (internlm2-1.8b and granite-moe-1b-a400m 2 of 24 layers,
+# mamba2-1.3b 2 of 48), so that the whole script stays within half its time
+# limit beside phases 9 to 14 on a host twice as slow (PERF.md section 5)
+EARLIER_LAYERS = {DENSE: 2, MOE: 2, SSM: 2}
 KERNELS = {"flash_attention": fa_kernel, "moe_gmm": gmm_kernel, "ssd_scan": ssd_kernel}
 # launch counters by kernel: each backward is a kernel of its forward's
 # library with a counter of its own
@@ -412,7 +457,7 @@ TRAIN_CPU_TOL = 1e-4
 TRAIN_CPU_HYBRID_EXPERTS = 4
 # the checkpoint phase: steps, a checkpoint every CKPT_EVERY steps, and one
 # failure injected after this step's update (after the step-2 checkpoint)
-CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 6, 2, 3
+CKPT_STEPS, CKPT_EVERY, CKPT_FAIL_AT = 4, 2, 3
 # flash dq/dk/dv against autograd through the plain version
 FLASH_GRAD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # the forward kernel's logsumexp rows against the plain version's: both sum
@@ -440,15 +485,48 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def progress(msg: str) -> None:
+    """``msg`` on stderr after the seconds since the script started: the
+    end of stderr then says how far a run that was stopped had come."""
+    print(f"chip_smoke {time.monotonic() - T0:.1f} s: {msg}", file=sys.stderr, flush=True)
+
+
 def wall_marks():
     """(mark, walls): ``mark(what)`` appends (what, the seconds since the
-    previous mark) to ``walls``."""
+    previous mark) to ``walls`` and reports it on stderr."""
     t0, walls = time.perf_counter(), []
 
     def mark(what: str) -> None:
         walls.append((what, time.perf_counter() - t0 - sum(w for _, w in walls)))
+        progress(f"{what} took {walls[-1][1]:.1f} s")
 
     return mark, walls
+
+
+def host_cpus() -> int:
+    """The CPUs this process may use: its affinity, capped by the cgroup's
+    CPU quota where one is set (torch sizes its thread pool by the cores it
+    sees, which a quota does not lower)."""
+    cpus = len(os.sched_getaffinity(0))
+    try:
+        quota, period = Path("/sys/fs/cgroup/cpu.max").read_text().split()[:2]
+    except (OSError, ValueError):
+        return cpus
+    return cpus if quota == "max" else max(1, min(cpus, math.ceil(int(quota) / int(period))))
+
+
+def host_facts() -> str:
+    """The host's CPUs (seen, usable, the cgroup's quota), torch's threads,
+    its load and its memory, for the log."""
+    try:
+        quota = Path("/sys/fs/cgroup/cpu.max").read_text().strip()
+    except OSError:
+        quota = "not readable"
+    load = Path("/proc/loadavg").read_text().split()[:3]
+    return (f"host: {os.cpu_count()} CPUs seen, {len(os.sched_getaffinity(0))} in this "
+            f"process's affinity, cgroup cpu.max {quota!r}, torch threads "
+            f"{torch.get_num_threads()}, load average {' '.join(load)}, memory available "
+            f"{_host_gib():.1f} of {_host_gib('MemTotal'):.1f} GiB")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -703,6 +781,10 @@ def phase_card_and_build() -> tuple[str, str]:
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
     log(f"phase 1 card: {kind}, torch {torch.__version__} cuda {torch.version.cuda}")
+    torch.set_num_threads(min(torch.get_num_threads(), host_cpus()))
+    facts = host_facts()
+    log(f"phase 1 {facts}")
+    progress(f"{smi}; {facts}")
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc each
         built = dict(zip(KERNELS, pool.map(lambda k: k.load(), KERNELS.values())))
@@ -1160,12 +1242,17 @@ def ssd_grad_cases() -> list[tuple[SsdShape, bool]]:
     bf16 = torch.bfloat16
     cases = [(sh, False) for arch in (SSM, HYBRID) for sh in train_ssd_shapes(arch)]
     cases += [(SsdShape(1, 64, 2, 16, 16, torch.float32, 32), False)]
+    cases += [(tp_ssd_shape(), False)]  # phase 14: a rank's 32 of mamba2's 64 heads
     for dt in (torch.float32, bf16):
         cases += [(SsdShape(2, 200, 4, 64, 128, dt, 64), True),
                   (SsdShape(2, 200, 4, 64, 128, dt, 64, edges=True), False)]
     cases += [(SsdShape(1, 64, 2, 16, 16, bf16, 32), False), (SsdShape(2, 130, 4, 8, 16, bf16, 64), True),
               (SsdShape(2, 130, 3, 16, 32, bf16, 64), True), (SsdShape(2, 100, 3, 12, 20, bf16, 64), True)]
     return cases
+
+
+def ssd_grad_cases_shapes() -> set[SsdShape]:
+    return {shape for shape, _ in ssd_grad_cases()}
 
 
 def phase_check_ssd_grads() -> tuple[float, set[SsdShape]]:
@@ -1343,19 +1430,18 @@ def init_loaded(model, seed: int = 0) -> dict:
 
 def phase_serve(arch: str, flash_checked: set[Shape], gmm_checked: set[GmmShape],
                 ssd_checked: set[SsdShape], n_layers: int | None = None,
-                sessions: dict | None = None, phase: int = 4) -> dict:
-    """One main path at full width (cut to ``n_layers`` layers when given);
+                sessions: dict | None = None, phase: int = 4, cfg=None) -> dict:
+    """One main path at full width (cut to ``n_layers`` layers when given,
+    or run as the cut config ``cfg``);
     returns the launches it made by kernel.  Fails if a launch count does
     not match the path, or if the path ran a kernel at a shape phase 2 did
     not check.  For the hybrid, then its bf16 prefill against the plain
     versions on the same weights (``check_prefill_vs_plain``).  With
     ``sessions``, then phase 8 on the same weights, its launches stored
     there under ``sessions <arch>``."""
-    cfg = get_config(arch)
-    cut = ""
-    if n_layers:
-        cut = f" (cut from {cfg.n_layers})"
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    full = get_config(arch)
+    cfg = cfg or (dataclasses.replace(full, n_layers=n_layers) if n_layers else full)
+    cut = f" (cut from {full.n_layers})" if cfg.n_layers != full.n_layers else ""
     model = build_model(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1758,8 +1844,13 @@ def phase_prefill_then_decode(arch: str, flash_checked: set[Shape]) -> dict:
     greedy decode steps.  Flash runs once per decoder layer in the prefill
     (at a shape phase 2 checked) and never in decode; then the prefill
     through the kernel against the plain version (``check_kernels_vs_plain``).
-    Returns the launches of the prefill and the decode."""
-    cfg = get_config(arch)
+    Each runs ``FAMILY_PREFILL_LAYERS`` layers (seamless as many on each
+    side).  Returns the launches of the prefill and the decode."""
+    full = get_config(arch)
+    cut = dict(n_layers=FAMILY_PREFILL_LAYERS[arch])
+    if full.enc_dec:
+        cut["n_encoder_layers"] = cut["n_layers"]
+    cfg = dataclasses.replace(full, **cut)
     model = build_model(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1817,8 +1908,9 @@ def phase_prefill_then_decode(arch: str, flash_checked: set[Shape]) -> dict:
     inputs = ", ".join(f"{k} {tuple(v.shape)}" for k, v in batch.items())
     cross = (f", cross K/V {sum(caches[n].nbytes for n in tf.CROSS_KEYS) / 1e6:.1f} MB"
              if cfg.enc_dec else "")
-    log(f"phase 9 {cfg.name} full width ({cfg.n_layers} layers"
-        + (f" + {cfg.n_encoder_layers} encoder layers" if cfg.enc_dec else "")
+    log(f"phase 9 {cfg.name} full width ({cfg.n_layers} of {full.n_layers} layers"
+        + (f" + {cfg.n_encoder_layers} of {full.n_encoder_layers} encoder layers"
+           if cfg.enc_dec else "")
         + f", {n_params / 1e9:.3f} B params, built in {init_s:.1f} s): prefill of {inputs} in "
         f"{prefill_ms:.1f} ms, then {FAMILY_DECODE_STEPS} greedy decode steps at "
         f"{step_ms:.2f} ms a step ({rows * 1e3 / step_ms:.1f} tok/s; host clock, ends in a "
@@ -1845,9 +1937,11 @@ def phase_families(flash_checked: set[Shape], flash_grad_checked: set[Shape]) ->
     mark, walls = wall_marks()
     paths, sessions = {}, {}
     none = dict.fromkeys(COUNTERS, 0)
-    paths[MLA] = phase_serve(MLA, flash_checked, set(), set(), sessions=sessions, phase=9)
+    paths[MLA] = phase_serve(MLA, flash_checked, set(), set(), FAMILY_SERVE_LAYERS[MLA],
+                             sessions=sessions, phase=9)
     mark(f"{MLA} serve and sessions")
-    paths[VLM] = phase_serve(VLM, flash_checked, set(), set(), phase=9)
+    paths[VLM] = phase_serve(VLM, flash_checked, set(), set(), FAMILY_SERVE_LAYERS[VLM],
+                             phase=9)
     paths[f"frontend {VLM}"] = phase_prefill_then_decode(VLM, flash_checked)
     paths[f"prefill and decode {ENCDEC}"] = phase_prefill_then_decode(ENCDEC, flash_checked)
     mark(f"{VLM} and {ENCDEC}")
@@ -1858,8 +1952,10 @@ def phase_families(flash_checked: set[Shape], flash_grad_checked: set[Shape]) ->
     mark("card vs cpu")
     for arch in FAMILIES:
         cfg = get_config(arch)
-        if FAMILY_TRAIN_LAYERS[arch]:
-            cfg = dataclasses.replace(cfg, n_layers=FAMILY_TRAIN_LAYERS[arch])
+        cut = dict(n_layers=FAMILY_TRAIN_LAYERS[arch])
+        if cfg.enc_dec:
+            cut["n_encoder_layers"] = cut["n_layers"]
+        cfg = dataclasses.replace(cfg, **cut)
         paths[f"train {arch}"] = phase_train(arch, flash_checked, flash_grad_checked, set(), set(),
                                              set(), cfg=cfg, phase=9)
     mark("train")
@@ -2610,10 +2706,11 @@ def grads_card_vs_cpu(cfg, init: dict, batch: dict) -> dict:
 
 def phase_train_card_vs_cpu(arch: str, cfg=None) -> None:
     """``arch`` (or ``cfg``) cut to 2 layers of full width, in fp32, from the
-    same params on the card and on the CPU: the gradients of the first
-    batch, each leaf within 1e-4 of its largest value (``grads_card_vs_cpu``);
-    then ``TRAIN_CPU_STEPS`` Trainer steps on the same batches, losses within
-    1e-4 relative and params within 1e-4."""
+    same params on the card and on the CPU: ``TRAIN_CPU_STEPS`` Trainer
+    steps on the same batches, the gradient of the first batch (read back
+    from the first step's first moment, ``_synced_grads``) each leaf within
+    1e-4 of its largest value, losses within 1e-4 relative and params within
+    1e-4."""
     full = get_config(arch)
     cfg = two_layers(cfg or full)
     cut = ""
@@ -2630,7 +2727,6 @@ def phase_train_card_vs_cpu(arch: str, cfg=None) -> None:
     # taking other signs on the two devices
     init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     n_params = sum(t.numel() for t in tree_leaves(init))
-    gr = grads_card_vs_cpu(cfg, init, batches[0])
     runs = {}
     for dev in ("cuda", "cpu"):
         model = build_model(cfg, device=dev)
@@ -2639,31 +2735,34 @@ def phase_train_card_vs_cpu(arch: str, cfg=None) -> None:
         opt = adamw_init(params, trainer.opt_cfg)
         before = _launches()
         t0 = time.perf_counter()
-        losses = []
+        losses, grads = [], None
         for batch in batches:
             params, opt, m = trainer.step(params, opt, batch)
             losses.append(float(m["loss"]))
+            if grads is None:
+                grads = [t.cpu() for t in _synced_grads(cfg, opt, m, trainer.opt_cfg)]
         made = {k: n - before[k] for k, n in _launches().items()}
-        runs[dev] = (losses, [t.detach().cpu() for t in tree_leaves(params)], made,
+        runs[dev] = (losses, grads, [t.detach().cpu() for t in tree_leaves(params)], made,
                      time.perf_counter() - t0)
-    (l_gpu, p_gpu, n_gpu, s_gpu), (l_cpu, p_cpu, n_cpu, s_cpu) = runs["cuda"], runs["cpu"]
+        del params, opt, trainer
+    (l_gpu, g_gpu, p_gpu, n_gpu, s_gpu), (l_cpu, g_cpu, p_cpu, n_cpu, s_cpu) = (runs["cuda"],
+                                                                              runs["cpu"])
+    g_rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(g_gpu, g_cpu))
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
     gaps = [(a - b).abs() for a, b in zip(p_gpu, p_cpu)]
     p_gap = max(d.max().item() for d in gaps)
     over = sum(int((d > 1e-5).sum()) for d in gaps)
-    n_gpu = {k: n + gr["launches"][k] for k, n in n_gpu.items()}
-    want_launches = train_launches(cfg, TRAIN_CPU_STEPS + 1)  # + the gradient pass
-    ok = (max(gr["g_rel"], gr["loss_rel"], loss_rel, p_gap) <= TRAIN_CPU_TOL
-          and n_gpu == want_launches)
+    want_launches = train_launches(cfg, TRAIN_CPU_STEPS)
+    ok = max(g_rel, loss_rel, p_gap) <= TRAIN_CPU_TOL and n_gpu == want_launches
     log(f"phase 6 train card vs cpu ({cfg.name} 2 layers fp32, {n_params / 1e9:.3f} B params"
-        f"{cut}; B{TRAIN_CPU_BATCH} S{TRAIN_CPU_SEQ}, lr {TRAIN_CPU_LR:g}): gradients of batch 0 "
-        f"within {gr['g_rel']:.3e} of each leaf's largest value, its loss within "
-        f"{gr['loss_rel']:.3e} relative; {TRAIN_CPU_STEPS} steps, losses card "
+        f"{cut}; B{TRAIN_CPU_BATCH} S{TRAIN_CPU_SEQ}, lr {TRAIN_CPU_LR:g}): {TRAIN_CPU_STEPS} "
+        f"steps; the gradient of batch 0 (from the first moment) within {g_rel:.3e} of each "
+        f"leaf's largest value; losses card "
         + " ".join(f"{x:.6f}" for x in l_gpu) + " cpu " + " ".join(f"{x:.6f}" for x in l_cpu)
         + f", max loss gap {loss_rel:.3e} relative, max param gap {p_gap:.3e} ({over} of "
         f"{sum(d.numel() for d in gaps)} elements over 1e-5); bound {TRAIN_CPU_TOL:g}; card "
-        f"launches {n_gpu} (want {want_launches}), cpu {n_cpu}; {gr['s'][0] + s_gpu:.1f} s card, "
-        f"{gr['s'][1] + s_cpu:.1f} s cpu; host peak rss {_peak_rss_gib():.1f} GiB "
+        f"launches {n_gpu} (want {want_launches}), cpu {n_cpu}; {s_gpu:.1f} s card, "
+        f"{s_cpu:.1f} s cpu; host peak rss {_peak_rss_gib():.1f} GiB "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("training on the card and on the CPU disagree")
@@ -3121,7 +3220,7 @@ RANK_MESH = (2, 2, 1)  # pod x data x model: 4 ranks on the one card, under gloo
 RANK_LAYERS = 2  # internlm2-1.8b at full width, cut to 2 layers
 RANK_FP32 = (TRAIN_CPU_BATCH * 4, TRAIN_CPU_SEQ)  # global batch: B 2 x S 128 a rank, fp32
 RANK_BF16 = (TRAIN_BATCH * 4, TRAIN_SEQ)  # B 8 x S 256 a rank, bf16
-RANK_BF16_STEPS = 2
+RANK_BF16_STEPS = 0  # then one more, profiled on rank 0
 RANK_TIMEOUT = 420.0
 SYNC_MODES = {"flat": ParallelConfig(hierarchical_grad_sync=False),
               "staged": ParallelConfig(hierarchical_grad_sync=True),
@@ -3234,6 +3333,7 @@ def _int8_step_check(local, staged, int8, err, mesh) -> dict:
         return torch.cat([flat, flat.new_zeros(-flat.numel() % n)]) if flat.numel() % n else flat
 
     for g, mean, comp, row in zip(local, staged, int8, err):
+        g, mean, comp = (t.to(row.device) for t in (g, mean, comp))  # each leaf on the card
         chunk = col.psum_scatter(padded(g), "data", mesh=mesh)
         k = chunk.numel()
         quantum = float(col.all_gather(col.quantize_int8(chunk)[1], "pod", mesh=mesh).max())
@@ -3317,10 +3417,35 @@ def _rank_fp32(mesh, out: dict) -> None:
     dist.barrier()
 
 
+def _bf16_steps(trainer, params, opt, pipe, mesh, steps: int) -> dict:
+    """``steps`` bf16 train steps, then one more, profiled on rank 0 (the
+    other ranks run it plain): the walls of all (host clock, the profiled
+    one last), their losses, the bytes this rank sent in the last one by
+    group, rank 0's profile and the peak memory."""
+    torch.cuda.reset_peak_memory_stats()
+    rec, walls, losses = {}, [], []
+    for i in range(steps + 1):
+        batch = pipe.global_batch_arrays(i)
+        mesh.sent.clear()
+        dist.barrier()
+        t0 = time.perf_counter()
+        if i == steps and mesh.rank == 0:
+            done = []
+            rec["profile"] = _profile_sync_step(
+                lambda: done.append(trainer.step(params, opt, batch)))  # noqa: B023
+            params, opt, m = done[0]
+        else:
+            params, opt, m = trainer.step(params, opt, batch)
+        losses.append(float(m["loss"]))  # waits for the step
+        walls.append(time.perf_counter() - t0)
+    rec.update(walls=walls, losses=losses, bytes=dict(mesh.sent),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return rec
+
+
 def _rank_bf16(mesh, out: dict) -> None:
-    """Each sync in bf16 compute for ``RANK_BF16_STEPS`` steps: the walls,
-    losses and the bytes this rank sent in the last step; then one more
-    step, profiled on rank 0."""
+    """Each sync in bf16 compute for ``RANK_BF16_STEPS`` steps and one
+    more profiled on rank 0 (``_bf16_steps``)."""
     cfg = dataclasses.replace(get_config(DENSE), n_layers=RANK_LAYERS)
     model = build_model(cfg)
     pipe = SyntheticLM(vocab=cfg.vocab, seq_len=RANK_BF16[1], global_batch=RANK_BF16[0], seed=0)
@@ -3328,27 +3453,7 @@ def _rank_bf16(mesh, out: dict) -> None:
     for mode, pcfg in SYNC_MODES.items():
         trainer = Trainer(model, opt_cfg, pcfg, mesh=mesh)
         params, opt = trainer.init(torch.Generator(device="cuda").manual_seed(0))
-        torch.cuda.reset_peak_memory_stats()
-        walls, losses = [], []
-        for i in range(RANK_BF16_STEPS):
-            batch = pipe.global_batch_arrays(i)
-            mesh.sent.clear()
-            dist.barrier()
-            t0 = time.perf_counter()
-            params, opt, m = trainer.step(params, opt, batch)
-            losses.append(float(m["loss"]))  # waits for the step
-            walls.append(time.perf_counter() - t0)
-        out[f"bf16 {mode}"] = {"walls": walls, "losses": losses, "bytes": dict(mesh.sent),
-                               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        # one more step, profiled on rank 0 (its wall not among the walls)
-        batch = pipe.global_batch_arrays(RANK_BF16_STEPS)
-        dist.barrier()
-        if mesh.rank == 0:
-            out[f"bf16 {mode}"]["profile"] = _profile_sync_step(
-                lambda: trainer.step(params, opt, batch))
-        else:
-            trainer.step(params, opt, batch)
-        torch.cuda.synchronize()
+        out[f"bf16 {mode}"] = _bf16_steps(trainer, params, opt, pipe, mesh, RANK_BF16_STEPS)
         del params, opt, trainer
         torch.cuda.empty_cache()
     out["cfg16"] = cfg
@@ -3455,34 +3560,71 @@ def _spawn_ranks(world: int, workdir: str, target=None, phase: int = 11,
     return [torch.load(f"{workdir}/rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def _launcher_on_ranks(args: list[str] | None = None, phase: int = 11, healthy=None) -> None:
-    """A launcher under torchrun on 4 ranks sharing the card (gloo): by
-    default the train launcher, pod 2 x data 2 x model 1, CLEX-staged int8
-    sync, REDUCED internlm2, 3 steps.  ``healthy`` judges its stdout lines
-    after the first, which must name gloo."""
-    if args is None:
-        args = ["repro_torch.launch.train", "--mesh", "2x2x1", "--hierarchical-sync",
-                "--compress", "--reduced", "--steps", "3", "--log-every", "1"]
+def _train_launcher_ok(lines: list[str]) -> bool:
+    """3 step lines with a finite loss."""
+    steps = [ln for ln in lines if ln.startswith("step ")]
+    return len(steps) == 3 and all(math.isfinite(float(ln.split()[3])) for ln in steps)
 
-        def healthy(lines):
-            steps = [ln for ln in lines if ln.startswith("step ")]
-            return len(steps) == 3 and all(math.isfinite(float(ln.split()[3])) for ln in steps)
 
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
-           "4", "-m", *args]
+# the launchers under torchrun on 4 ranks sharing the card (gloo), by phase:
+# the train launcher on pod 2 x data 2 x model 1 (data-parallel, CLEX-staged
+# int8 sync), the serve launcher on data 2 x model 2 and the train launcher
+# on pod 2 x data 1 x model 2; REDUCED internlm2 each
+LAUNCHERS = (
+    (11, ["repro_torch.launch.train", "--mesh", "2x2x1", "--hierarchical-sync", "--compress",
+          "--reduced", "--steps", "3", "--log-every", "1"], _train_launcher_ok),
+    (13, ["repro_torch.launch.serve", "--mesh", "2x2", "--arch", DENSE, "--reduced"],
+     lambda lines: any(ln.startswith("served ") and ln.endswith("tok/s)") for ln in lines)),
+    (14, ["repro_torch.launch.train", "--mesh", "2x1x2", "--hierarchical-sync", "--compress",
+          "--reduced", "--steps", "3", "--log-every", "1"],
+     lambda lines: _train_launcher_ok(lines)
+     and any(ln.startswith("bytes rank 0 sent") for ln in lines)))
+LAUNCHER_TIMEOUT = 300.0
+
+
+def phase_launchers() -> None:
+    """The launchers of phases 11, 13 and 14 (``LAUNCHERS``), each under
+    torchrun on 4 ranks sharing the card (gloo), all started together: 12
+    rank processes whose start-up (imports, the card's context) overlaps.
+    Each must exit 0 with a first line naming gloo and the stdout its
+    phase's check calls healthy; every process of a launcher still running
+    at ``LAUNCHER_TIMEOUT`` is killed with its process group."""
     root = Path(__file__).resolve().parent
     env = {**os.environ, "PYTHONPATH": str(root / "src"), "OMP_NUM_THREADS": "2"}
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, env=env, cwd=root, timeout=300,
-                          start_new_session=True)
-    wall = time.perf_counter() - t0
-    lines = proc.stdout.splitlines()
-    ok = (proc.returncode == 0 and bool(lines) and lines[0].startswith("backend gloo")
-          and healthy(lines))
-    log(f"phase {phase} launcher: torchrun --nproc-per-node 4 -m {' '.join(args)}: exit "
-        f"{proc.returncode} in {wall:.1f} s: {' | '.join(lines)} {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit(f"the launcher on ranks failed:\n{proc.stderr[-4000:]}")
+    build = root / "build"
+    build.mkdir(exist_ok=True)
+    fails = []
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        runs = []
+        t0 = time.perf_counter()
+        for phase, args, healthy in LAUNCHERS:
+            cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                   "--nproc-per-node", "4", "-m", *args]
+            out, err = (open(f"{workdir}/{phase}.{k}", "w+") for k in ("out", "err"))
+            runs.append((phase, args, healthy, out, err, subprocess.Popen(
+                cmd, stdout=out, stderr=err, text=True, env=env, cwd=root,
+                start_new_session=True)))
+        for phase, args, healthy, out, err, proc in runs:
+            try:
+                proc.wait(max(t0 + LAUNCHER_TIMEOUT - time.perf_counter(), 0.0))
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            wall = time.perf_counter() - t0
+            out.seek(0)
+            err.seek(0)
+            lines, stderr = out.read().splitlines(), err.read()
+            out.close()
+            err.close()
+            ok = (proc.returncode == 0 and bool(lines) and lines[0].startswith("backend gloo")
+                  and healthy(lines))
+            log(f"phase {phase} launcher: torchrun --nproc-per-node 4 -m {' '.join(args)}: "
+                f"exit {proc.returncode} {wall:.1f} s after the launchers started: "
+                f"{' | '.join(lines)} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fails.append(f"phase {phase}'s launcher:\n{stderr[-4000:]}")
+    if fails:
+        raise SystemExit("\n".join(fails))
 
 
 def phase_ranks(smi: str, checked: dict) -> dict:
@@ -3502,9 +3644,9 @@ def phase_ranks(smi: str, checked: dict) -> dict:
     staged one, its ``err`` rows nonzero and sum + rows exact within 1e-5;
     gloo taking the two collectives the module calls on CUDA tensors; in
     bf16, each sync's step walls and the bytes each rank sent a step beside
-    ``CollectiveCostModel``'s; each rank's launches and their shapes; then
-    the train launcher on 4 ranks under torchrun.  Returns each rank's
-    launches by path."""
+    ``CollectiveCostModel``'s; each rank's launches and their shapes (its
+    launcher runs in ``phase_launchers``).  Returns each rank's launches by
+    path."""
     cfg = dataclasses.replace(get_config(DENSE), n_layers=RANK_LAYERS)
     # the launcher's ranks: REDUCED internlm2, B 2 x S 256 a rank, bf16
     launcher = cfg_shape(get_config(DENSE, reduced=True), 2, 256)
@@ -3592,8 +3734,8 @@ def phase_ranks(smi: str, checked: dict) -> dict:
         across = sum(v for k, v in sent.items() if "pod" in k.split(","))
         walls = [r[f"bf16 {mode}"]["walls"] for r in ranks]
         log(f"phase 11 bf16 {mode} sync, B{RANK_BF16[0]} S{RANK_BF16[1]} (B"
-            f"{RANK_BF16[0] // world} a rank), {RANK_BF16_STEPS} steps: walls (host clock, "
-            f"first step first) by rank "
+            f"{RANK_BF16[0] // world} a rank), {RANK_BF16_STEPS + 1} step(s): walls (host "
+            f"clock, the last profiled on rank 0) by rank "
             + "; ".join(" ".join(f"{1e3 * w:.1f}" for w in ws) + " ms" for ws in walls)
             + f"; loss {' '.join(f'{x:.4f}' for x in rec['losses'])}; bytes rank 0 sent a "
             f"step, by group: {sent}, over groups that span the pods {across / 1e6:.2f} MB "
@@ -3602,8 +3744,8 @@ def phase_ranks(smi: str, checked: dict) -> dict:
             f"({modeled[mode] / grad:.4f}) and modeled seconds {seconds[mode]:.4f} (the "
             f"reference's TPU link constants, not this card's); peak "
             f"{max(r[f'bf16 {mode}']['peak_gib'] for r in ranks):.2f} GiB a rank; {smi}")
-        log(f"phase 11 bf16 {mode} sync, rank 0's third step profiled: {rec['profile']}")
-    _launcher_on_ranks()
+        log(f"phase 11 bf16 {mode} sync, rank 0's step {RANK_BF16_STEPS + 1} profiled: "
+            f"{rec['profile']}")
     if fails:
         raise SystemExit(f"phase 11 failed: {fails}")
     return paths
@@ -3670,7 +3812,7 @@ def phase_examples(checked: dict) -> dict:
 # ---------------------------------------------------------------- phase 13: serving on a model axis
 
 MESH_SHAPE = (2, 2)  # data x model: 4 ranks sharing the card under gloo
-MESH_LAYERS = 4  # each model at full width, cut to 4 layers
+MESH_LAYERS = 2  # each model at full width, cut to 2 layers
 MESH_TIMEOUT = 420.0
 # the MoE layer check's inputs: a 2 x 1024 prefill group (2048 tokens, 512 a
 # rank: the all-to-all path) and a decode step on 4 slots (the replicated
@@ -3795,7 +3937,7 @@ def _mesh_rank_main(rank: int, world: int, workdir: str) -> None:
 def phase_mesh(smi: str, checked: dict) -> dict:
     """Phase 13: serving on a mesh with a ``model`` axis, 4 ranks sharing
     the card (gloo), data 2 x model 2 (``launch/mesh.py``): internlm2-1.8b,
-    granite-moe-1b-a400m and mamba2-1.3b at full width cut to 4 layers,
+    granite-moe-1b-a400m and mamba2-1.3b at full width cut to 2 layers,
     each rank holding its blocks of the seed-0 weights
     (``runtime/sharding.py``), phase 4's traffic (8 prompts of 114 to 866
     tokens, 32 greedy tokens, 4 slots, capacity 1040) through
@@ -3809,7 +3951,7 @@ def phase_mesh(smi: str, checked: dict) -> dict:
     rank 0, the bytes each rank sent by group, peak memory a rank; each
     rank's launches, held to its engine's prefills and decode steps, and
     their shapes (any not checked before held against the plain versions
-    through ``check_launched``); then the serve launcher under torchrun.
+    through ``check_launched``; its launcher runs in ``phase_launchers``).
     Returns each rank's launches by path."""
     world = math.prod(MESH_SHAPE)
     build = Path(__file__).resolve().parent / "build"
@@ -3887,12 +4029,373 @@ def phase_mesh(smi: str, checked: dict) -> dict:
     log(f"phase 13 launch shapes: flash {sorted(map(str, shapes[0]))}; gmm "
         f"{sorted(map(str, shapes[2]))}; ssd_scan {sorted(map(str, shapes[3]))}; {new} not "
         "checked before, now checked")
-    _launcher_on_ranks(["repro_torch.launch.serve", "--mesh", "2x2", "--arch", DENSE,
-                        "--reduced"], 13,
-                       lambda lines: any(ln.startswith("served ") and ln.endswith("tok/s)")
-                                         for ln in lines))
     if fails:
         raise SystemExit(f"phase 13 failed: {fails}")
+    return paths
+
+
+# ---------------------------------------------------------------- phase 14: training on a model axis
+
+# meshes of 4 ranks sharing the card under gloo, by sync: data 2 x model 2
+# for the flat sync, pod 2 x data 1 x model 2 for the staged and int8 ones
+TP_MESHES = {"flat": ((2, 2), ("data", "model")),
+             "staged": ((2, 1, 2), ("pod", "data", "model")),
+             "int8": ((2, 1, 2), ("pod", "data", "model"))}
+TP_M = 2  # the model axis
+TP_LAYERS = 2  # each model at full width, cut to 2 layers
+TP_FP32 = (TRAIN_CPU_BATCH * 2, TRAIN_CPU_SEQ)  # global batch: B 2 x S 128 a data-parallel rank
+TP_BF16 = (TRAIN_BATCH * 2, TRAIN_SEQ)  # B 8 x S 256 a data-parallel rank
+TP_FP32_RUNS = ((DENSE, "flat"), (DENSE, "staged"), (DENSE, "int8"), (SSM, "flat"),
+                (MOE, "flat"))
+TP_BF16_STEPS = 0  # then one more, profiled on rank 0
+TP_TIMEOUT = 420.0
+# granite's MoE layer on a rank: a data rank's 256 tokens (128 a token
+# block: the all-to-all path) and a decode-sized 2 (the replicated path)
+TP_MOE_TOKENS = {"all-to-all": 256, "replicated": 2}
+TP_MOE_GRAD_TOL = 2e-4  # each gradient relative to its largest value
+
+
+def tp_cfg(arch: str, dtype: str = "float32"):
+    return dataclasses.replace(get_config(arch), n_layers=TP_LAYERS, compute_dtype=dtype)
+
+
+def tp_flash_shapes() -> set[Shape]:
+    """The flash calls on a rank: 8 of 16 query heads over 4 of 8 KV heads,
+    internlm2's (D 128) in fp32 B 2 x S 128 and bf16 B 8 x S 256, granite's
+    (D 64) in fp32 B 2 x S 128; and rank 0's one-process gradient of the
+    whole fp32 batch, internlm2's 16 heads at B 4 x S 128."""
+    cfg = get_config(DENSE)
+    out = {Shape(TP_FP32[0], TP_FP32[1], cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                 torch.float32)}
+    for arch, dt, b, s in ((DENSE, torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ),
+                           (DENSE, torch.bfloat16, TRAIN_BATCH, TRAIN_SEQ),
+                           (MOE, torch.float32, TRAIN_CPU_BATCH, TRAIN_CPU_SEQ)):
+        cfg = get_config(arch)
+        out.add(Shape(b, s, cfg.n_heads // TP_M, cfg.n_kv_heads // TP_M, cfg.head_dim, dt))
+    return out
+
+
+def tp_gmm_shapes() -> set[GmmShape]:
+    """granite's grouped matmuls on a rank in fp32, forward, dx and dw: 16
+    of 32 experts, over ``TP_M`` token blocks' buckets on the all-to-all
+    path (its train step and the layer check) and one data rank's on the
+    replicated path."""
+    cfg = get_config(MOE)
+    e = cfg.moe.n_experts // TP_M
+    caps = [TP_M * capacity(cfg, TRAIN_CPU_BATCH * TRAIN_CPU_SEQ // TP_M),
+            capacity(cfg, TP_MOE_TOKENS["replicated"])]
+    return {dataclasses.replace(sh, e=e, layout=lay) for c in caps
+            for sh in expert_shapes(c, torch.float32) for lay in GMM_LAYOUTS}
+
+
+def tp_ssd_shape() -> SsdShape:
+    """mamba2's SSD scan on a rank: 32 of 64 heads, fp32 B 2 x S 128."""
+    sh = ssm_shape(TRAIN_CPU_BATCH, TRAIN_CPU_SEQ, torch.float32)
+    return dataclasses.replace(sh, h=sh.h // TP_M)
+
+
+def tp_ssd_whole_shape() -> SsdShape:
+    """mamba2's SSD scan in rank 0's one-process gradient: 64 heads, fp32
+    B 4 x S 128."""
+    return ssm_shape(TP_FP32[0], TP_FP32[1], torch.float32)
+
+
+def _tp_fp32(meshes, out: dict, passes: collections.Counter) -> None:
+    """``TP_FP32_RUNS`` in fp32 from one init and one batch: of each, the
+    loss and grad norm of a first ``Trainer.step``, the gradient it synced
+    (read back from the first moment, its blocks gathered; dense and SSM)
+    and, after a second step, a checksum of every leaf of the params and a
+    flag for the leaves whole over ``model``; on rank 0 the flat and staged gradients
+    of the dense and SSM models against one process's gradient of the whole
+    batch (the other ranks waiting), and on every rank the int8 step's
+    check against the staged one (``_int8_step_check``)."""
+    opt_cfg = _train_opt(TRAIN_STEPS, TRAIN_LR)
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
+    for arch in (DENSE, SSM, MOE):
+        cfg = tp_cfg(arch)
+        model = build_model(cfg)
+        pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TP_FP32[1], global_batch=TP_FP32[0], seed=0)
+        batches = [pipe.global_batch_arrays(i) for i in range(2)]
+        single = None
+        if arch != MOE:  # one process's gradient of the whole batch, on rank 0
+            dist.barrier()
+            if meshes["flat"].rank == 0:
+                grads, sm = value_and_grads(model, tree_map(lambda t: t.requires_grad_(),
+                                                            model.init(gen())), batches[0])
+                norm = float(torch.sqrt(sum(g.square().sum() for g in tree_leaves(grads))))
+                single = {"grads": [t.cpu() for t in tree_leaves(reference_leaves(cfg, grads))],
+                          "loss": float(sm["loss"]), "grad_norm": norm}
+                passes["float32", arch] += 1
+                del grads
+            dist.barrier()
+        synced = {}
+        for a, sync in TP_FP32_RUNS:
+            if a != arch:
+                continue
+            mesh = meshes[sync]
+            trainer = Trainer(model, opt_cfg, SYNC_MODES[sync], mesh=mesh)
+            params, opt = trainer.init(gen())
+            if sync == "int8":  # the rank's own gradient, before any sync
+                g, _ = value_and_grads(model, params, local_rows(batches[0], mesh), 1, mesh)
+                local = [t.cpu() for t in tree_leaves(reference_leaves(
+                    cfg, whole_leaves(g, trainer.dims, mesh)))]
+                passes["float32", arch] += 1
+                del g
+            params, opt, m1 = trainer.step(params, opt, batches[0])
+            if arch != MOE:  # the synced gradient, compared below
+                whole_m = whole_leaves(opt["m"], trainer.dims, mesh)
+                synced[sync] = [t.cpu() for t in _synced_grads(cfg, {"m": whole_m}, m1, opt_cfg)]
+                del whole_m
+            rec = {"loss": float(m1["loss"]), "grad_norm": float(m1["grad_norm"])}
+            if sync == "int8":
+                err = [e[0] for e in tree_leaves(opt["err"])]
+                rec["int8 step"] = _int8_step_check(local, synced["staged"], synced["int8"],
+                                                    err, mesh)
+                del local, err
+            params, opt, _ = trainer.step(params, opt, batches[1])  # bit identity after two
+            steps = 2
+            rec.update(sums=_leaf_sums(params), steps=steps,
+                       whole=[d is None for d in tree_leaves(trainer.dims)],
+                       leaves=len(tree_leaves(params)))
+            passes["float32", arch] += steps
+            if single is not None and sync != "int8":
+                rec["vs single"] = _max_rel(synced[sync], single["grads"])
+                rec["single"] = {k: single[k] for k in ("loss", "grad_norm")}
+            out[f"fp32 {arch} {sync}"] = rec
+            synced = {k: v for k, v in synced.items() if k == "staged" and sync == "staged"}
+            del params, opt, trainer
+            torch.cuda.empty_cache()
+        del single, synced
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def _tp_bf16(meshes, out: dict, passes: collections.Counter) -> None:
+    """internlm2 in bf16 on each sync: ``TP_BF16_STEPS`` steps and one more
+    profiled on rank 0 (``_bf16_steps``)."""
+    cfg = tp_cfg(DENSE, "bfloat16")
+    model = build_model(cfg)
+    pipe = SyntheticLM(vocab=cfg.vocab, seq_len=TP_BF16[1], global_batch=TP_BF16[0], seed=0)
+    opt_cfg = _train_opt(TRAIN_STEPS, TRAIN_LR)
+    for sync in SYNC_MODES:
+        mesh = meshes[sync]
+        trainer = Trainer(model, opt_cfg, SYNC_MODES[sync], mesh=mesh)
+        params, opt = trainer.init(torch.Generator(device="cuda").manual_seed(0))
+        out[f"bf16 {sync}"] = _bf16_steps(trainer, params, opt, pipe, mesh, TP_BF16_STEPS)
+        passes["bfloat16", DENSE] += TP_BF16_STEPS + 1
+        del params, opt, trainer
+        torch.cuda.empty_cache()
+
+
+def _tp_moe_layer(mesh) -> dict:
+    """granite's layer-0 MoE FFN in fp32 on this rank's experts, on both
+    expert-parallel paths (``TP_MOE_TOKENS`` of its data rank's tokens, as
+    training runs them: ``mesh.over("model")``), forward and backward
+    under the loss ``sum(out * dy) + 0.01 aux``; against the emulation on
+    this rank: the data rank's token blocks (``TP_M`` on the all-to-all
+    path, one on the replicated) each through ``moe_local`` on the whole
+    layer with its own capacity.  The output's max abs error, and of dx,
+    the router's gradient and the rank's experts' gradients each the
+    largest error over the leaf's largest value."""
+    cfg = tp_cfg(MOE)
+    model = build_model(cfg)
+    full = model.init(torch.Generator(device="cuda").manual_seed(0))
+    layer = {k: v.detach() for k, v in full["layers"][0]["ffn"].items()}
+    mine = {k: v.detach() for k, v in
+            reshard_params(model.param_axes(), full, mesh)["layers"][0]["ffn"].items()}
+    del full
+    tp, d, j = mesh.over("model"), mesh.axis_index("data"), mesh.axis_index("model")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xs = torch.randn(mesh.axis_size("data"), 256, cfg.d_model, generator=gen, device="cuda")
+    dys = torch.randn(xs.shape, generator=gen, device="cuda")
+    e = cfg.moe.n_experts // TP_M
+    names = ("router", "w_gate", "w_up", "w_down")
+    out = {}
+    for path, tokens in TP_MOE_TOKENS.items():
+        x = xs[d, :tokens].clone().requires_grad_()
+        dy = dys[d, :tokens]
+        p = {k: v.clone().requires_grad_() for k, v in mine.items()}
+        y, aux = moe_mod.moe_apply(p, x[None], cfg, mesh=tp)
+        got = torch.autograd.grad((y[0] * dy).sum() + 0.01 * aux, [x] + [p[k] for k in names])
+        q = {k: v.clone().requires_grad_() for k, v in layer.items()}
+        xe = x.detach().clone().requires_grad_()
+        blocks = TP_M if path == "all-to-all" else 1
+        outs = [moe_mod.moe_local(q, blk, cfg) for blk in xe.reshape(blocks, -1, cfg.d_model)]
+        ye = torch.cat([o for o, _ in outs])
+        want = torch.autograd.grad((ye * dy).sum() + 0.01 * torch.stack([a for _, a in outs])
+                                   .mean(), [xe] + [q[k] for k in names])
+        want = [want[0], want[1]] + [w[j * e:(j + 1) * e] for w in want[2:]]
+        y, ye = y.detach(), ye.detach()
+        out[path] = {"out err": float((y[0] - ye).abs().max()), "scale": float(ye.abs().max()),
+                     "grad rel": {n: float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                                  for n, g, w in zip(("dx",) + names, got, want)},
+                     "capacity": capacity(cfg, tokens // blocks), "blocks": blocks}
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank_main(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 14, a spawned process: joins the gloo group
+    through a file in ``workdir``, builds the meshes, trains in fp32 and
+    bf16 (its launches and their shapes counted), then checks granite's MoE
+    layer, and saves its results.  The synced gradients compared are kept
+    on the host, and the allocator's segments grow in place: four ranks
+    share the card's memory."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/init", rank=rank,
+                            world_size=world)
+    meshes, made = {}, {}
+    for sync, (shape, names) in TP_MESHES.items():
+        if shape not in made:
+            made[shape] = make_mesh(shape, names)
+        meshes[sync] = made[shape]
+    out = {"coords": {s: m.coords for s, m in meshes.items()}}
+    passes = collections.Counter()
+    walls = [time.perf_counter()]
+    _reset_launches()
+    with LaunchShapes() as shapes:
+        _tp_fp32(meshes, out, passes)
+        walls.append(time.perf_counter())
+        _tp_bf16(meshes, out, passes)
+        walls.append(time.perf_counter())
+    out["launches"], out["shapes"], out["passes"] = _launches(), shapes.sets(), dict(passes)
+    out["moe layer"] = _tp_moe_layer(meshes["flat"])
+    walls.append(time.perf_counter())
+    out["walls"] = dict(zip(("fp32 runs", "bf16 runs", "moe layer"), np.diff(walls)))
+    torch.save(out, f"{workdir}/rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_tp_train(smi: str, checked: dict) -> dict:
+    """Phase 14: training on a ``model`` axis, 4 ranks sharing the card
+    (gloo), data 2 x model 2 for the flat sync and pod 2 x data 1 x model 2
+    for the staged and int8 ones; internlm2-1.8b (8 of 16 query heads and
+    4 of 8 KV heads a rank, its vocab split), granite-moe-1b-a400m (16 of
+    32 experts a rank) and mamba2-1.3b (32 of 64 SSM heads a rank) at full
+    width cut to 2 layers, each rank holding its blocks of the seed-0
+    params and of AdamW's moments.  In fp32 (B 2 x S 128 a data-parallel
+    rank), a ``Trainer.step`` of each run from one init: the dense and SSM
+    synced gradients (read back from the first moment, the blocks gathered)
+    within ``TRAIN_CPU_TOL`` of each leaf's largest value of one process's
+    gradient of the whole batch, the loss and grad norm within 1e-5
+    relative of it; after a second step every leaf whole over ``model``
+    bit-identical on every rank (the blocks on the ranks of a ``model``
+    index); the int8 step within one quantum of the staged one, sum + the
+    ``err`` rows exact within 1e-5; granite's MoE layer on both
+    expert-parallel paths against its block emulation, forward and
+    backward.  In bf16 (B 8 x S 256 a rank), internlm2's step wall on each
+    sync, profiled on rank 0, the bytes a rank sent by group and peak
+    memory.  Every new kernel shape (flash at 8 heads forward and backward,
+    the grouped matmul's forward, dx and dw at 16 experts, the SSD scan at
+    32 heads; its backward's in phase 2) is held against its plain version
+    before the ranks start; each rank's launches are held to its gradient
+    passes (its launcher, on pod 2 x data 1 x model 2, runs in
+    ``phase_launchers``).  Returns each rank's launches by path."""
+    pre = check_launched((tp_flash_shapes(), tp_flash_shapes(), tp_gmm_shapes(),
+                          {tp_ssd_shape(), tp_ssd_whole_shape()}), checked, phase=14)
+    if tp_ssd_shape() not in ssd_grad_cases_shapes():
+        raise SystemExit(f"phase 2 did not check the SSD backward at {tp_ssd_shape()}")
+    torch.cuda.empty_cache()  # the ranks share the card's memory
+    world = 4
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as workdir:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(world, workdir, _tp_rank_main, 14, TP_TIMEOUT)
+        wall = time.perf_counter() - t0
+    first = ranks[0]
+    log(f"phase 14 ranks: {world} processes sharing the card (gloo), meshes "
+        f"{ {s: dict(zip(n, sh)) for s, (sh, n) in TP_MESHES.items()} }, coordinates "
+        f"{[r['coords']['staged'] for r in ranks]} (pod, data, model); {DENSE}, {MOE} and {SSM} "
+        f"at full width, {TP_LAYERS} layers each; {pre} kernel shapes checked first; all in "
+        f"{wall:.1f} s (rank 0: " + ", ".join(f"{k} {v:.1f} s" for k, v in first["walls"].items())
+        + ")")
+    fails = []
+    for arch, sync in TP_FP32_RUNS:
+        key = f"fp32 {arch} {sync}"
+        rec = first[key]
+        # bit-identical: whole leaves on every rank, blocks on the ranks of a model index
+        same = all(all(a == b for a, b, w in zip(r[key]["sums"], ranks[i % TP_M][key]["sums"],
+                                                 rec["whole"]) if not w)
+                   and all(a == b for a, b, w in zip(r[key]["sums"], rec["sums"], rec["whole"])
+                           if w) for i, r in enumerate(ranks))
+        line = (f"phase 14 check {arch} fp32 {sync}: loss {rec['loss']:.6f}, grad norm "
+                f"{rec['grad_norm']:.6f}; after {rec['steps']} step(s) the {sum(rec['whole'])} "
+                f"leaves whole "
+                f"over model bit-identical on every rank and the "
+                f"{rec['leaves'] - sum(rec['whole'])} blocks on the ranks of each model index "
+                f"{same}")
+        ok = same and math.isfinite(rec["loss"])
+        if "vs single" in rec:
+            sg = rec["single"]
+            norm_rel = abs(rec["grad_norm"] - sg["grad_norm"]) / sg["grad_norm"]
+            loss_rel = abs(rec["loss"] - sg["loss"]) / abs(sg["loss"])
+            ok = ok and rec["vs single"] <= TRAIN_CPU_TOL and norm_rel <= 1e-5 and loss_rel <= 1e-5
+            line += (f"; the synced gradient (blocks gathered) against one process's gradient "
+                     f"of the whole batch: largest leaf diff over the leaf's largest value "
+                     f"{rec['vs single']:.3e} (tol {TRAIN_CPU_TOL:g}), grad norm {norm_rel:.2e} "
+                     f"rel and loss {loss_rel:.2e} rel (one process {sg['loss']:.6f}, "
+                     f"{sg['grad_norm']:.6f}; tol 1e-5)")
+        if "int8 step" in rec:
+            shard = [r[key]["int8 step"] for r in ranks]
+            q, e = max(s["quanta"] for s in shard), max(s["feedback_rel"] for s in shard)
+            nz = [s["nonzero"] for s in shard]
+            ok = ok and q <= 1.0 and e <= 1e-5 and min(nz) > 0
+            line += (f"; the int8 step's synced gradient against the staged one on each rank's "
+                     f"shard of the {shard[0]['leaves']} reference leaves: max |int8 - exact| "
+                     f"{q:.3f} quanta (tol 1), |sum + the pods' err rows - exact| over the "
+                     f"leaf's largest value {e:.2e} (tol 1e-5), leaves with a nonzero err row "
+                     f"by rank {nz}")
+        fails += [] if ok else [key]
+        log(line + (" ok" if ok else " FAIL"))
+    for path in TP_MOE_TOKENS:
+        recs = [r["moe layer"][path] for r in ranks]
+        out_err = max(x["out err"] for x in recs)
+        grad = {n: max(x["grad rel"][n] for x in recs) for n in recs[0]["grad rel"]}
+        ok = out_err <= GMM_TOL[torch.float32] and max(grad.values()) <= TP_MOE_GRAD_TOL
+        fails += [] if ok else [f"moe layer {path}"]
+        log(f"phase 14 check {MOE} layer-0 MoE fp32, {TP_MOE_TOKENS[path]} tokens a data rank, "
+            f"{path} path, on every rank's experts against {recs[0]['blocks']} token block(s) "
+            f"through moe_local (capacity {recs[0]['capacity']} each): output max abs err "
+            f"{out_err:.3e} of {recs[0]['scale']:.3e} (tol {GMM_TOL[torch.float32]:g}); "
+            "gradients, the largest error over the leaf's largest value: "
+            + ", ".join(f"{n} {v:.3e}" for n, v in grad.items())
+            + f" (tol {TP_MOE_GRAD_TOL:g}) {'ok' if ok else 'FAIL'}")
+    paths = {}
+    for r, out in enumerate(ranks):
+        want = collections.Counter()
+        for (dtype, arch), n in out["passes"].items():
+            want.update(train_launches(tp_cfg(arch, dtype), n))
+        want = {k: want.get(k, 0) for k in COUNTERS}
+        if out["launches"] != want:
+            fails.append(f"rank {r} launches {out['launches']}, want {want}")
+        paths[f"train mesh rank {r}"] = out["launches"]
+    log("phase 14 launches by rank, held to its gradient passes "
+        f"({ {f'{a} {d}': n for (d, a), n in first['passes'].items()} } on rank 0): "
+        + "; ".join(f"rank {r} {paths[f'train mesh rank {r}']}" for r in range(world))
+        + (" ok" if not any(f.startswith("rank") for f in fails) else " FAIL"))
+    shapes = tuple(set().union(*(r["shapes"][i] for r in ranks)) for i in range(4))
+    new = check_launched(shapes, checked, phase=14)
+    log(f"phase 14 launch shapes: flash {sorted(map(str, shapes[0]))}, backward "
+        f"{sorted(map(str, shapes[1]))}; gmm {sorted(map(str, shapes[2]))}; ssd_scan "
+        f"{sorted(map(str, shapes[3]))}; {new} not checked before, now checked")
+    for sync in SYNC_MODES:
+        rec = first[f"bf16 {sync}"]
+        walls = [r[f"bf16 {sync}"]["walls"] for r in ranks]
+        log(f"phase 14 bf16 {DENSE} {sync} sync on {TP_MESHES[sync][0]}, B{TP_BF16[0]} "
+            f"S{TP_BF16[1]} (B{TRAIN_BATCH} a data-parallel rank), {TP_BF16_STEPS + 1} step(s): "
+            "walls (host clock, the last profiled on rank 0) by rank "
+            + "; ".join(" ".join(f"{1e3 * w:.1f}" for w in ws) + " ms" for ws in walls)
+            + f"; loss {' '.join(f'{x:.4f}' for x in rec['losses'])}; bytes rank 0 sent a "
+            f"step, by group: {rec['bytes']}; peak "
+            f"{max(r[f'bf16 {sync}']['peak_gib'] for r in ranks):.2f} GiB a rank; {smi}")
+        log(f"phase 14 bf16 {sync} sync, rank 0's step {TP_BF16_STEPS + 1} profiled: "
+            f"{rec['profile']}")
+    if fails:
+        raise SystemExit(f"phase 14 failed: {fails}")
     return paths
 
 
@@ -3918,6 +4421,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+    os.environ["CHIP_SMOKE_DUMP_AT"] = str(time.time() + DUMP_AFTER_S - (time.monotonic() - T0))
+    faulthandler.dump_traceback_later(DUMP_AFTER_S - (time.monotonic() - T0), exit=False)
     mark, walls = wall_marks()
     smi, kind = phase_card_and_build()
     mark("1 build")
@@ -3936,8 +4441,8 @@ def main() -> int:
                                   EARLIER_LAYERS[arch],
                                   sessions=sessions if arch == DENSE else None)
         mark(f"4 serve {arch}" + (", 8 sessions" if arch == DENSE else ""))
-    paths[HYBRID] = phase_serve(HYBRID, fa_checked, gmm_checked, ssd_checked, HYBRID_LAYERS,
-                                sessions=sessions)
+    paths[HYBRID] = phase_serve(HYBRID, fa_checked, gmm_checked, ssd_checked,
+                                sessions=sessions, cfg=hybrid_cut())
     mark(f"4 serve {HYBRID}, 8 sessions")
     phase_ssm_prefill_vs_plain()
     phase_prefill_profile()
@@ -3978,6 +4483,10 @@ def main() -> int:
     mark("12 examples")
     paths.update(phase_mesh(smi, checked))
     mark("13 serving on a model axis")
+    paths.update(phase_tp_train(smi, checked))
+    mark("14 training on a model axis")
+    phase_launchers()
+    mark("11, 13 and 14 launchers, together")
     log("walls by phase and path: " + ", ".join(f"{what} {w:.1f} s" for what, w in walls))
     fa_rep = next(r for r in fa_rows if r["shape"] == str(main_shape(4, 1024)))
     decode_c = capacity(get_config(MOE), N_SLOTS)
@@ -4000,6 +4509,7 @@ def main() -> int:
     log(f"kernels: {', '.join(e['name'] for e in kernels)} (each launched on a main path, held "
         "against its plain version)")
     log(f"card: {smi}; total {time.perf_counter() - t_start:.1f} s")
+    faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

@@ -23,7 +23,12 @@ On a mesh (``launch/mesh.py``) ``from_jax_params(cfg, tree, mesh)`` hands
 the calling rank its block of every leaf, ``runtime/sharding.py``'s
 ``reshard_params`` of the port's tree under ``Model.param_axes``: the
 block the reference's ``reshard_params`` leaves on the device at the
-rank's place in a JAX mesh of the same shape.
+rank's place in a JAX mesh of the same shape.  ``from_jax_opt_state`` does
+the same for the reference's AdamW state (``m`` and ``v`` as the
+reference's ``opt_state_shardings`` places them, the params' blocks; a
+compressed trainer's ``err`` as the rank's row), so that a step on ranks
+can start from the reference's state; ``gather_blocks`` puts the blocks of
+the ranks of a ``model`` slice back together into whole leaves.
 """
 
 from __future__ import annotations
@@ -34,11 +39,11 @@ import torch
 from .configs.base import ModelConfig
 from .models.model import Model
 from .models.transformer import CACHE_KEYS, CROSS_KEYS, _kind_index, mixer_kind
-from .runtime.sharding import reshard_params
+from .runtime.sharding import map_blocks, reshard_params
 from .tree import tree_map
 
 __all__ = ["from_jax_params", "to_jax_params", "reference_leaves", "port_leaves", "from_jax_caches",
-           "to_jax_caches"]
+           "to_jax_caches", "from_jax_opt_state", "port_order", "gather_blocks"]
 
 
 def _period(cfg: ModelConfig, n_pattern: int) -> tuple[int, int]:
@@ -93,6 +98,48 @@ def from_jax_params(cfg: ModelConfig, tree: dict, mesh=None) -> dict:
     if mesh is None:
         return params
     return reshard_params(Model(cfg, device="cpu").param_axes(), params, mesh)
+
+
+def port_order(cfg: ModelConfig, tree: dict) -> dict:
+    """``tree`` (mirroring a model's params) with its dict entries in the
+    order of ``Model.init``'s tree, which the port's optimizer state
+    follows (a tree from numpy's side of the bridge has JAX's sorted
+    keys)."""
+    def walk(axes, t):
+        if isinstance(axes, dict):
+            return {k: walk(axes[k], t[k]) for k in axes}
+        if isinstance(axes, list):
+            return [walk(a, x) for a, x in zip(axes, t)]
+        return t
+    return walk(Model(cfg, device="cpu").param_axes(), tree)
+
+
+def from_jax_opt_state(cfg: ModelConfig, state: dict, mesh=None) -> dict:
+    """The reference's AdamW state (numpy leaves) -> the port's: ``step``
+    a Python int, ``m`` and ``v`` as ``from_jax_params`` hands the params
+    (with ``mesh``, this rank's blocks) in ``port_order``, and a compressed
+    trainer's ``err`` (the reference's ``[dp_total, ...]`` rows of its
+    stacked leaves) as the ``[1, ...]`` row at the rank's (pod, data)
+    index."""
+    out = {"step": int(np.asarray(state["step"]))}
+    for name in ("m", "v"):
+        out[name] = port_order(cfg, from_jax_params(cfg, state[name], mesh))
+    if "err" in state:
+        row = 0 if mesh is None else mesh.axis_index(mesh.data_parallel_axes)
+        like = reference_leaves(cfg, out["m"])
+        out["err"] = tree_map(lambda _, e: torch.from_numpy(np.array(e)[row:row + 1]), like,
+                              state["err"])
+    return out
+
+
+def gather_blocks(blocks: list, dims):
+    """The whole leaves of ``blocks``, the trees of the ranks of one
+    ``model`` slice in rank order: each leaf that ``dims`` (mirroring the
+    trees, or a prefix of them; ``Trainer.dims``) names as split over
+    ``model`` concatenated along that dim, any other taken from the first
+    tree."""
+    return map_blocks(lambda d, *bs: torch.cat([torch.as_tensor(b) for b in bs], dim=d), dims,
+                      *blocks)
 
 
 def to_jax_params(cfg: ModelConfig, params: dict) -> dict:

@@ -30,8 +30,14 @@ whose leaves are each rank's ``[1, ...]`` row (``rows``, its path from the
 root: for the trainer's ``(params, opt)`` with a compressed sync,
 ``(1, "err")``, the error-feedback residuals); those leaves are gathered
 over the mesh's data-parallel axes to the reference's ``[dp_total, ...]``
-layout, and on restore every rank takes its own row back.  Every other
-leaf is the same on every rank.
+layout, and on restore every rank takes its own row back.  On a ``model``
+axis above 1 the caller also names the leaves that are the rank's blocks
+(``dims``: a tree mirroring ``tree``, or a prefix of it, whose leaves give
+the dim each leaf is split at over ``model``, None or a missing entry where
+it is whole; ``Trainer.checkpoint_dims``, which a mesh with such an axis
+requires); those blocks are gathered over ``model`` into the reference's
+whole leaves before rank 0 writes, and on restore every rank takes its
+block of each.  Every other leaf is the same on every rank.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.collectives import all_gather
+from ..runtime.sharding import model_blocks, whole_leaves
 
 __all__ = [
     "save_checkpoint",
@@ -156,14 +163,25 @@ def _gather_rows(tree, mesh, prefix: str, name: str = ""):
     return all_gather(tree, mesh.data_parallel_axes, tiled=True, mesh=mesh)
 
 
+def _check_dims(mesh, dims) -> None:
+    """On a ``model`` axis above 1 the ranks hold blocks, which a
+    checkpoint without ``dims`` would write as if they were whole leaves."""
+    if dims is None and mesh is not None and mesh.axis_sizes().get("model", 1) > 1:
+        raise ValueError(f"a model axis of {mesh.axis_sizes()['model']}: pass dims, the split "
+                         f"dim of each leaf (Trainer.checkpoint_dims(); {{}} where none is)")
+
+
 def save_checkpoint(directory: str, step: int, tree, keep: int = 3, *, mesh=None,
-                    rows=None) -> str:
+                    rows=None, dims=None) -> str:
     """Writes ``tree`` as step ``step``; returns the step's directory.  With
     a ``mesh`` every rank calls, the leaves under the path ``rows`` are
-    gathered and rank 0 writes."""
+    gathered over the data-parallel axes, the blocks ``dims`` names over
+    ``model``, and rank 0 writes."""
     prefix = _rows_prefix(rows, mesh)
     if mesh is None:
         return _write_arrays(directory, step, *_flatten(tree), keep)
+    _check_dims(mesh, dims)
+    tree = whole_leaves(tree, dims, mesh)
     if prefix is not None:
         tree = _gather_rows(tree, mesh, prefix)
     final = os.path.join(directory, f"step_{step:010d}")
@@ -288,11 +306,11 @@ def _read(directory: str, step: int) -> tuple[dict, dict]:
 
 
 def restore_checkpoint(directory: str, tree_like, step: int | None = None, *, mesh=None,
-                       rows=None):
+                       rows=None, dims=None):
     """Restore into the structure of ``tree_like`` (shape validated; each
     leaf takes ``tree_like``'s leaf's kind, dtype and device).  With a
     ``mesh`` each rank takes its own row of the gathered leaves under the
-    path ``rows``.
+    path ``rows``, and its block of each whole leaf that ``dims`` names.
 
     Returns (tree, step).  With an explicit ``step`` any damage raises; with
     ``step=None`` the newest *intact* checkpoint is restored, silently
@@ -316,15 +334,18 @@ def restore_checkpoint(directory: str, tree_like, step: int | None = None, *, me
         manifest, arrays = _read(directory, step)
     prefix = _rows_prefix(rows, mesh)
     row = None if prefix is None else mesh.axis_index(mesh.data_parallel_axes)
+    _check_dims(mesh, dims)
     values = {}
-    for key, like in _paths(tree_like):
+    for key, _ in _paths(tree_like):
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key}")
         arr = arrays.pop(key)
-        if row is not None and key.startswith(prefix):
-            arr = arr[row:row + 1]
-        values[key] = _leaf_like(arr, manifest["leaves"][key]["dtype"], like, key)
-    return _unflatten_like(tree_like, values), step
+        values[key] = arr[row:row + 1] if row is not None and key.startswith(prefix) else arr
+    if mesh is not None:  # this rank's block of each whole leaf that dims names
+        values = dict(_paths(model_blocks(_unflatten_like(tree_like, values), dims, mesh)))
+    out = {key: _leaf_like(values[key], manifest["leaves"][key]["dtype"], like, key)
+           for key, like in _paths(tree_like)}
+    return _unflatten_like(tree_like, out), step
 
 
 class AsyncCheckpointer:

@@ -35,6 +35,33 @@ tensor sizes, the send volume of the ring algorithm (all-reduce
 it, all-gather ``n-1`` times this rank's piece; ``psum_scatter`` is an
 all-to-all, ``psum`` an all-to-all and an all-gather).  ``CollectiveCostModel``
 (``core/cost_model.py``) is re-exported here, as in the reference.
+
+**The backward convention** (tensor parallelism over ``model``, Megatron's
+*f* and *g*).  ``psum``, ``all_gather`` and ``all_to_all`` are
+differentiable, and ``replicate`` is the identity whose backward sums:
+
+* an activation that every rank of a ``model`` slice holds whole has a
+  whole gradient, bit-identical on each of those ranks;
+* where rank-local work reads such a value (the input of a column-parallel
+  product, a rank's block of the tokens, its slice of the heads, a leaf
+  that is whole on every rank but read in part, the input of a gathered
+  K/V), it is read through ``replicate``, whose backward is the ``psum``
+  of the ranks' partial gradients (*f*);
+* a forward ``psum`` whose result every rank uses the same way has an
+  identity backward (*g*); where each rank uses the sum on its own part
+  (the gated norm's sum of squares), it is read through ``replicate`` too;
+* ``all_gather``'s backward is the rank's slice of the gradient: taken as
+  it is where every rank uses the gathered tensor the same way
+  (``grad="slice"``: the logits before the loss, the MoE layer's output),
+  summed over the slice first where each rank uses its own part of it
+  (``grad="sum"``, a ``psum_scatter``: the K/V gather);
+* ``all_to_all``'s backward is the reverse ``all_to_all``.
+
+Every backward sum is the ordered ``psum`` / ``psum_scatter`` below, so
+leaves that are whole on every rank stay bit-identical across the ranks
+after any number of steps, and the backward's bytes are counted in
+``mesh.sent`` like the forward's.  The gradient syncs run outside autograd
+and call the same functions on tensors that need no gradient.
 """
 
 from __future__ import annotations
@@ -59,6 +86,7 @@ __all__ = [
     "psum_scatter",
     "all_gather",
     "all_to_all",
+    "replicate",
     "CollectiveCostModel",
 ]
 
@@ -75,7 +103,7 @@ def _collective(fn, out_shape, x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
-def psum(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+def _psum(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     """The sum of ``x`` over the ranks of this rank's slice over ``axes``
     (``jax.lax.psum``); a new tensor.  It runs as a reduce-scatter and an
     all-gather (the two halves of a ring all-reduce, the same bytes), so
@@ -89,7 +117,7 @@ def psum(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
     flat = x.reshape(-1)
     if flat.numel() % n:
         flat = torch.cat([flat, flat.new_zeros(n - flat.numel() % n)])
-    out = all_gather(psum_scatter(flat, axes, mesh=mesh), axes, tiled=True, mesh=mesh)
+    out = _all_gather(_psum_scatter(flat, axes, mesh), axes, True, mesh)
     return out[: x.numel()].reshape(x.shape)
 
 
@@ -98,7 +126,7 @@ def pmean(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
     return psum(x, axes, mesh=mesh) / mesh.axis_size(axes)
 
 
-def psum_scatter(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+def _psum_scatter(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     """``jax.lax.psum_scatter(x, axes, scatter_dimension=0, tiled=True)``:
     the sum's ``i``-th block of rows on the rank at index ``i`` of the
     slice.  It runs as an all-to-all of the blocks (the bytes of a
@@ -109,11 +137,11 @@ def psum_scatter(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
         return x.clone()
     if x.shape[0] % n:
         raise ValueError(f"{x.shape[0]} rows do not split over {n} ranks")
-    blocks = all_to_all(x, axes, mesh=mesh)
+    blocks = _all_to_all(x, axes, mesh)
     return blocks.reshape((n, x.shape[0] // n) + tuple(x.shape[1:])).sum(dim=0)
 
 
-def all_gather(x: torch.Tensor, axes, tiled: bool = False, *, mesh) -> torch.Tensor:
+def _all_gather(x: torch.Tensor, axes, tiled: bool, mesh) -> torch.Tensor:
     """``jax.lax.all_gather(x, axes, axis=0, tiled=tiled)``: every rank's
     ``x`` in slice order, stacked on a new leading axis, or with ``tiled``
     concatenated along axis 0."""
@@ -128,7 +156,7 @@ def all_gather(x: torch.Tensor, axes, tiled: bool = False, *, mesh) -> torch.Ten
     return out if tiled else out.reshape((n,) + tuple(x.shape))
 
 
-def all_to_all(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+def _all_to_all(x: torch.Tensor, axes, mesh) -> torch.Tensor:
     """``jax.lax.all_to_all(x, axes, 0, 0, tiled=True)`` on x [n * m, ...]:
     block ``j`` of ``n`` goes to the rank at index ``j`` of the slice; the
     result's block ``i`` came from the rank at index ``i``."""
@@ -137,6 +165,113 @@ def all_to_all(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
         return x.clone()
     _count(mesh, axes, (n - 1) / n * x.numel() * x.element_size())
     return _collective(lambda o, i, g: dist.all_to_all_single(o, i, group=g), x.shape, x, group)
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Psum(torch.autograd.Function):
+    """The ordered ``psum``; backward the identity (*g*)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return _psum(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Replicate(torch.autograd.Function):
+    """The identity; backward the ordered ``psum`` (*f*)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g, ctx.axes, ctx.mesh), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather``; backward the rank's slice of the gradient, summed
+    over the slice first (``psum_scatter``) where ``grad`` is "sum"."""
+
+    @staticmethod
+    def forward(ctx, x, axes, tiled, mesh, grad):
+        ctx.axes, ctx.tiled, ctx.mesh, ctx.grad, ctx.shape = axes, tiled, mesh, grad, x.shape
+        return _all_gather(x, axes, tiled, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, i = ctx.mesh.axis_size(ctx.axes), ctx.mesh.axis_index(ctx.axes)
+        if ctx.tiled:  # [n * rows, ...] -> [n, rows, ...]
+            g = g.reshape((n, -1) + tuple(g.shape[1:]))
+        if ctx.grad == "sum" and n > 1:
+            mine = _psum_scatter(g.contiguous(), ctx.axes, ctx.mesh)[0]
+        else:
+            mine = g[i]
+        return mine.reshape(ctx.shape), None, None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all``; backward the reverse ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return _all_to_all(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.axes, ctx.mesh), None, None
+
+
+def psum(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of this rank's slice over ``axes``
+    (``jax.lax.psum``); a new tensor, the same bits on every rank (see
+    ``_psum``).  Its gradient is passed through as it is (*g*): read the
+    sum through ``replicate`` where each rank uses it on its own part."""
+    return _Psum.apply(x, axes, mesh) if _needs_grad(x) else _psum(x, axes, mesh)
+
+
+def replicate(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+    """``x`` itself, marked as read by rank-local work: its gradient is
+    the ordered ``psum`` of the ranks' partial gradients over ``axes``
+    (Megatron's *f*).  Without a gradient to take, or on a slice of one
+    rank, ``x`` as it is."""
+    if mesh is None or mesh.axis_size(axes) == 1 or not _needs_grad(x):
+        return x
+    return _Replicate.apply(x, axes, mesh)
+
+
+def psum_scatter(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axes, scatter_dimension=0, tiled=True)``
+    (see ``_psum_scatter``); not differentiable."""
+    return _psum_scatter(x, axes, mesh)
+
+
+def all_gather(x: torch.Tensor, axes, tiled: bool = False, *, mesh,
+               grad: str = "sum") -> torch.Tensor:
+    """``jax.lax.all_gather(x, axes, axis=0, tiled=tiled)`` (see
+    ``_all_gather``).  Its gradient is the rank's slice of the result's:
+    ``grad="sum"`` sums it over the slice first (each rank uses its own
+    part of the result), ``grad="slice"`` takes it as it is (every rank
+    uses the result the same way)."""
+    if grad not in ("sum", "slice"):
+        raise ValueError(f'grad must be "sum" or "slice", got {grad!r}')
+    if _needs_grad(x):
+        return _AllGather.apply(x, axes, tiled, mesh, grad)
+    return _all_gather(x, axes, tiled, mesh)
+
+
+def all_to_all(x: torch.Tensor, axes, *, mesh) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axes, 0, 0, tiled=True)`` (see
+    ``_all_to_all``); its gradient goes back by the reverse all-to-all."""
+    return _AllToAll.apply(x, axes, mesh) if _needs_grad(x) else _all_to_all(x, axes, mesh)
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -110,6 +110,18 @@ class Mesh:
             idx = idx * sizes[a] + coords[a]
         return idx
 
+    def over(self, axes) -> "Mesh":
+        """This rank's slice over ``axes`` as a mesh of its own: those axes
+        only, the groups over them, and the same ``sent`` counter.  A
+        training rank's model runs on ``over("model")``: its rows are
+        already its data-parallel block, so the MoE layer splits them over
+        ``model`` alone."""
+        axes = self.ordered_axes(axes)
+        sizes = self.axis_sizes()
+        return Mesh(axes, tuple(sizes[a] for a in axes), self.axis_index(axes),
+                    {k: g for k, g in self.groups.items() if set(k) <= set(axes)},
+                    self.backend, self.sent)
+
     def group(self, axes):
         """The process group of this rank's slice over ``axes`` (None when
         the slice is this rank alone)."""

@@ -19,6 +19,10 @@
   torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2x2x1 \
       --hierarchical-sync --compress --device cpu --reduced --steps 3
 
+  # pod 2 x data 1 x model 2: tensor- and expert-parallel over model
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --mesh 2x1x2 \
+      --hierarchical-sync --compress --device cpu --reduced --steps 3
+
 Random weights (seed 0), ``SyntheticLM`` batches (seed 0): tokens and
 targets only, as the JAX launcher's, so an encoder-decoder
 (``seamless-m4t-large-v2``), whose loss reads ``encoder_frames``, fails
@@ -27,11 +31,16 @@ ranks ``torchrun`` starts (its environment names them; the mesh's size
 must be the world's), each on the global batch's rows of its ``(pod,
 data)`` index, the gradients synced flat, or CLEX-staged with
 ``--hierarchical-sync`` (a no-op without a pod axis, as in the reference),
-the cross-pod shard in int8 with ``--compress``; a ``model`` axis above 1
-and MoE configs wait for the next slice.  The backend is NCCL when each
-rank on a host has a card of its own, and gloo otherwise (the CPU, or
-ranks sharing a card); the first line says which.  Rank 0 prints and
-writes the checkpoints.  The JAX launcher's orchestrator flags wait for
+the cross-pod shard in int8 with ``--compress`` (an MoE config takes the
+flat sync, as in the reference).  On a ``model`` axis above 1 every rank
+draws the whole params from the seed and keeps its blocks, and the ranks
+of a ``model`` slice compute their rows tensor- and expert-parallel; MLA,
+a frontend and an encoder-decoder refuse such an axis (ROADMAP A11d).  The
+backend is NCCL when each rank on a host has a card of its own, and gloo
+otherwise (the CPU, or ranks sharing a card); the first line says which.
+Rank 0 prints, with the bytes a rank sent in the last step by group of
+ranks, and writes the checkpoints (the blocks gathered into whole
+leaves).  The JAX launcher's orchestrator flags wait for
 the elastic runtime (ROADMAP A12).  It prints the reference's ``step N
 loss ... gnorm ... lr ...`` lines (`` [straggler]`` after a step slower
 than twice the running median), then the median step time (host clock,
@@ -151,6 +160,8 @@ def main(argv=None) -> None:
             f"{mesh.size} ranks, rank 0 on {device}")
     cfg = get_config(args.arch, reduced=args.reduced)
     model = build_model(cfg, device=device)
+    if mesh is not None:
+        model.check_mesh(mesh)  # what a model axis does not run yet raises here
     pcfg = ParallelConfig(hierarchical_grad_sync=args.hierarchical_sync,
                           compress_cross_pod=args.compress)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 5),
@@ -158,6 +169,7 @@ def main(argv=None) -> None:
     trainer = Trainer(model, opt_cfg, pcfg, mesh=mesh, microbatches=args.microbatches)
     params, opt = trainer.init(torch.Generator(device=model.device).manual_seed(0))
     rows = (1, "err") if "err" in opt else None  # each rank's error-feedback row
+    dims = trainer.checkpoint_dims()  # each rank's blocks on a model axis
     n_params = sum(t.numel() for t in tree_leaves(params))
     say(f"arch={cfg.name} params={n_params / 1e6:.1f}M {cfg.compute_dtype} on {model.device}")
     on_card = model.device.type == "cuda"
@@ -168,7 +180,7 @@ def main(argv=None) -> None:
     if args.resume and args.ckpt_dir:
         try:  # the newest intact checkpoint, read once
             (params, opt), last = restore_checkpoint(args.ckpt_dir, (params, opt), mesh=mesh,
-                                                    rows=rows)
+                                                    rows=rows, dims=dims)
             start = last + 1
             log.info(f"resumed from step {last}")
         except OSError:  # none there, or none intact: start afresh
@@ -182,6 +194,8 @@ def main(argv=None) -> None:
             ob.tracer.step = step
         batch = pipe.global_batch_arrays(step)
         monitor.step_start()
+        if mesh is not None:
+            mesh.sent.clear()
         t0 = time.perf_counter()
         with ob.span("train_step", "train"):
             params, opt, metrics = trainer.step(params, opt, batch)
@@ -189,6 +203,7 @@ def main(argv=None) -> None:
                 torch.cuda.synchronize(model.device)
             straggler = monitor.step_end()
         walls.append(time.perf_counter() - t0)
+        sent = dict(mesh.sent) if mesh is not None else {}
         if ob.enabled:
             ob.registry.histogram("train.step_ms").observe(1e3 * walls[-1])
             ob.registry.counter("train.straggler_steps").inc(int(straggler))
@@ -198,13 +213,16 @@ def main(argv=None) -> None:
                   f"{' [straggler]' if straggler else ''}")
         if args.ckpt_dir and (step % args.ckpt_every == 0 or step == args.steps - 1):
             with ob.span("ckpt", "train"):
-                save_checkpoint(args.ckpt_dir, step, (params, opt), mesh=mesh, rows=rows)
+                save_checkpoint(args.ckpt_dir, step, (params, opt), mesh=mesh, rows=rows,
+                                dims=dims)
     if walls:  # none when a resumed run's checkpoint is its last step
         median = float(np.median(walls))
         peak = (f"{torch.cuda.max_memory_allocated(model.device) / 2**30:.2f} GiB" if on_card
                 else "not measured (cpu)")
         say(f"median step {1e3 * median:.1f} ms over {len(walls)} steps, "
               f"{args.batch * args.seq / median:.0f} tokens/s, peak device memory {peak}")
+        if mesh is not None:
+            say(f"bytes rank 0 sent in the last step, by group: {sent}")
     if mesh is None or mesh.rank == 0:
         finish_obs(ob, args.trace, args.metrics)
     if mesh is not None:

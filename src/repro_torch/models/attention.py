@@ -34,8 +34,12 @@ columns of the new K and V are then gathered over ``model`` (a
 ``[B, S, KV D / m]`` block a rank, each call) and it keeps the heads it
 reads, which its cache rows hold.  The reference leaves that case to its
 compiler's split-KV decode; only the result has to match.  Which leaves
-are split is the rules' answer (``sharding.model_split_dim``).  MLA on
-such a mesh waits for ROADMAP A11c.
+are split is the rules' answer (``sharding.model_split_dim``).  Training
+runs the same way, the flash kernel forward and backward on the rank's
+heads, its backward following ``core/collectives.py``'s convention: ``x``
+and the qk-norm scales are read through ``replicate``, the K/V gather's
+gradient is summed over the ranks before each takes its columns.  MLA on
+such a mesh waits for ROADMAP A11d.
 """
 
 from __future__ import annotations
@@ -157,19 +161,26 @@ def head_plan(cfg: ModelConfig, mesh=None) -> tuple[int, int, list[int]]:
     return j * hl, hl, reads
 
 
-def _own_kv(t: torch.Tensor, cfg: ModelConfig, mesh, heads: list[int]) -> torch.Tensor:
-    """``x @ w_k`` (or ``w_v``) of this rank, [B, S, columns] -> [B, S,
-    len(heads), D], the KV heads in its cache (``head_plan``): its block's
-    heads where the model axis splits whole KV heads; else the whole
-    projection (the ranks' columns gathered over ``model`` where the rules
-    split the leaf) and the heads the rank reads."""
-    b, s, _ = t.shape
+def _own_kv(x: torch.Tensor, xr: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, mesh,
+            heads: list[int], tp) -> torch.Tensor:
+    """``x @ w_k`` (or ``w_v``) of this rank -> [B, S, len(heads), D], the
+    KV heads in its cache (``head_plan``): its block's heads where the
+    model axis splits whole KV heads; else the whole projection (the ranks'
+    columns gathered over ``model`` where the rules split the leaf) and the
+    heads the rank reads.  ``xr`` is ``x`` read through ``replicate`` (the
+    input of a split product); a whole projection is read through
+    ``replicate`` on ``tp`` (the mesh where the query heads are split, else
+    None) before the rank takes its heads, and the gather's gradient is
+    summed over the ranks, each of which reads its own heads of it."""
+    b, s, _ = x.shape
     kv, hd = cfg.n_kv_heads, cfg.head_dim
     if model_split_dim(attention_axes(cfg)["w_k"], (cfg.d_model, kv * hd), mesh) is not None:
+        t = xr @ w
         if kv % model_axis(mesh)[0] == 0:
             return t.reshape(b, s, len(heads), hd)
         t = torch.cat(list(col.all_gather(t, "model", mesh=mesh).unbind(0)), dim=-1)
-    t = t.reshape(b, s, kv, hd)
+        return t.reshape(b, s, kv, hd)[:, :, heads]
+    t = col.replicate((x @ w).reshape(b, s, kv, hd), "model", mesh=tp)
     return t if heads == list(range(kv)) else t[:, :, heads]
 
 
@@ -232,12 +243,15 @@ def attention_apply(
     b, s, _ = x.shape
     h = cfg.head_dim
     _, n_q, heads = head_plan(cfg, mesh)
-    q = (x @ params["w_q"].to(dt)).reshape(b, s, n_q, h)
-    k = _own_kv(x @ params["w_k"].to(dt), cfg, mesh, heads)
-    v = _own_kv(x @ params["w_v"].to(dt), cfg, mesh, heads)
+    tp = mesh if n_q != cfg.n_heads else None
+    # rank-local work reads the whole x and the whole norm scales (module doc)
+    xr = col.replicate(x, "model", mesh=tp)
+    q = (xr @ params["w_q"].to(dt)).reshape(b, s, n_q, h)
+    k = _own_kv(x, xr, params["w_k"].to(dt), cfg, mesh, heads, tp)
+    v = _own_kv(x, xr, params["w_v"].to(dt), cfg, mesh, heads, tp)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        q = rms_norm(q, col.replicate(params["q_norm"], "model", mesh=tp), cfg.norm_eps)
+        k = rms_norm(k, col.replicate(params["k_norm"], "model", mesh=tp), cfg.norm_eps)
     if cfg.use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -263,7 +277,7 @@ def attention_apply(
         new_cache = cache
 
     out = out.reshape(b, s, n_q * h) @ params["w_o"].to(dt)
-    return (out if n_q == cfg.n_heads else col.psum(out, "model", mesh=mesh)), new_cache
+    return (out if tp is None else col.psum(out, "model", mesh=tp)), new_cache
 
 
 # --------------------------------------------------------------------------

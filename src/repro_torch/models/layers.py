@@ -13,7 +13,11 @@ column-parallel over ``ff`` (``w_gate``, ``w_up``) and row-parallel
 (``w_down``), its partial outputs summed over ``model``; the embedding is
 vocab-parallel (a masked lookup of the rank's rows, then the sum, exact:
 one row and zeros); the logits are the rank's vocab columns, gathered
-over ``model`` (``gather_vocab``).  Which weights are the rank's blocks
+over ``model`` (``gather_vocab``).  In training the backward follows
+``core/collectives.py``'s convention: the input of each column-parallel
+product is read through ``replicate``, the embedding's gradient lands in
+the rank's rows only, and the logits' gradient is the rank's columns of
+the whole one.  Which weights are the rank's blocks
 is the rules' answer (``sharding.model_split_dim`` of the leaf's axes and
 whole shape); a weight they leave whole is used whole, with no
 collective.  The sums are ``psum``'s:
@@ -131,8 +135,9 @@ def model_axis(mesh) -> tuple[int, int]:
 
 def gather_vocab(logits: torch.Tensor, mesh) -> torch.Tensor:
     """[..., V/m] vocab columns of every rank of the ``model`` axis ->
-    [..., V], in rank order."""
-    parts = col.all_gather(logits, "model", mesh=mesh)  # [m, ..., V/m]
+    [..., V], in rank order.  Every rank uses the whole logits the same
+    way, so the gradient of its columns is its slice of theirs."""
+    parts = col.all_gather(logits, "model", mesh=mesh, grad="slice")  # [m, ..., V/m]
     return torch.cat(list(parts.unbind(0)), dim=-1)
 
 
@@ -155,8 +160,11 @@ def mlp_apply(params: dict, x: torch.Tensor, mesh=None) -> torch.Tensor:
     no-op once the model's weights were cast at load time.  With ``mesh``
     the weights are the rank's ``ff`` block (pass it where the rules split
     ``MLP_AXES``' ``ff``: ``mlp_mesh``) and the partial outputs are summed
-    over ``model``."""
+    over ``model``; ``x`` is read through ``replicate``, so its gradient
+    sums the ranks' parts."""
     dt = x.dtype
+    if mesh is not None:
+        x = col.replicate(x, "model", mesh=mesh)
     h = swiglu(x @ params["w_gate"].to(dt), x @ params["w_up"].to(dt))
     out = h @ params["w_down"].to(dt)
     return out if mesh is None else col.psum(out, "model", mesh=mesh)

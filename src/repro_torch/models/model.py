@@ -41,9 +41,10 @@ gradients reach the fp32 leaves.
 
 The entry points take the reference's parameters in its order.  ``impl``
 ("xla" or "pallas") does not choose a path: the port takes its kernels on
-the card and their plain versions on the CPU either way.  ``key`` is unused
-(no dropout).  ``mesh`` (``launch/mesh.py``, every rank of it calling the
-entry point with the same inputs) runs ``prefill`` and ``decode_step``
+the card and their plain versions on the CPU either way.  ``key`` keys
+only the MoE layers' Valiant shuffle on a ``model`` axis (no dropout).
+``mesh`` (``launch/mesh.py``, every rank of it calling the entry point with
+the same inputs) runs ``prefill``, ``decode_step`` and ``train_loss``
 tensor- and expert-parallel over its ``model`` axis: ``params`` are this
 rank's blocks (``runtime/sharding.py``'s ``reshard_params`` of
 ``param_axes``, then ``load``), ``init_cache(..., mesh=mesh)`` makes this
@@ -51,9 +52,11 @@ rank's cache rows, and the logits come back whole on every rank, the same
 bits on each.  The rows are not split over the
 data-parallel axes: each rank of a ``data`` slice computes them all, and
 only the MoE layers split their tokens over it, as the reference's do.  A
-mesh without a ``model`` axis above 1 changes nothing.  MLA, a frontend,
-an encoder-decoder and ``train_loss`` on a ``model`` axis above 1 wait for
-ROADMAP A11c and raise ``NotImplementedError``.  A config the
+mesh without a ``model`` axis above 1 changes nothing.  In training the
+rows are split over the data-parallel axes (see ``train_loss``).  MLA, a
+frontend and an encoder-decoder on a ``model`` axis above 1 wait for
+ROADMAP A11d and raise ``NotImplementedError``, in serving and in
+training.  A config the
 reference could not build raises ``NotImplementedError``: a stack with SSM
 layers and no SSM config, MLA layers with no MLA config, and an
 encoder-decoder with no frontend to project its frames.
@@ -64,6 +67,7 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
+from ..core import collectives as col
 from ..device import resolve_device
 from ..tree import tree_map
 from . import transformer as tf
@@ -79,19 +83,20 @@ def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-_NEXT_SLICE = "waits for the next slice of the port (ROADMAP A11c)"
+_NEXT_SLICE = "waits for a later slice of the port (ROADMAP A11d)"
 
 
-def _check(cfg: ModelConfig, impl: str, mesh, train: bool = False) -> None:
+def _check(cfg: ModelConfig, impl: str, mesh) -> None:
     """The reference's ``impl`` and ``mesh``, in their places: both of its
     ``impl`` values name the port's one path; a ``model`` axis above 1
-    raises for what this slice of the port leaves out."""
+    raises for what the port does not run on one yet, in serving and in
+    training."""
     if impl not in ("xla", "pallas"):
         raise NotImplementedError(f'impl must be "xla" or "pallas", got {impl!r}')
     m, _ = model_axis(mesh)
     if m == 1:
         return
-    missing = [what for what, on in (("training", train), ("MLA", cfg.attn_type == "mla"),
+    missing = [what for what, on in (("MLA", cfg.attn_type == "mla"),
                                      ("a frontend", cfg.frontend is not None),
                                      ("an encoder-decoder", cfg.enc_dec)) if on]
     if missing:
@@ -221,10 +226,8 @@ class Model:
         the values of the reference's cast-then-gather."""
         cfg, cd = self.cfg, self.compute_dtype
         tokens = torch.as_tensor(_tokens(batch), device=self.device).long()
-        if gather_first:
-            x = params["embed"][tokens].to(cd)
-        else:
-            x = embed_lookup(params["embed"].to(cd), tokens, cfg.vocab, mesh)
+        embed = params["embed"] if gather_first else params["embed"].to(cd)
+        x = embed_lookup(embed, tokens, cfg.vocab, mesh).to(cd)
         mask = torch.ones(tokens.shape, dtype=torch.float32, device=self.device)
         if (cfg.frontend is not None and not cfg.enc_dec and isinstance(batch, dict)
                 and "frontend_embeds" in batch):
@@ -274,12 +277,33 @@ class Model:
         entropy, which ``metrics["loss"]`` holds alone, as in the reference.
         A frontend config's batch may carry ``frontend_embeds`` (their
         positions weigh 0 in the loss); an encoder-decoder's carries
-        ``encoder_frames``."""
-        _check(self.cfg, impl, mesh, train=True)
+        ``encoder_frames``.
+
+        With a ``mesh`` whose ``model`` axis is above 1, ``params`` are this
+        rank's blocks and ``batch`` its rows of the data-parallel split
+        (``runtime/trainer.py``'s ``local_rows``; the ranks of a ``model``
+        slice hold the same rows): the loss is theirs, computed
+        tensor-parallel over ``model`` (the stack runs on ``mesh.over(
+        "model")``, so the MoE layers split the rows over ``model`` alone),
+        and its gradients are the rank's blocks of the whole leaves'
+        gradients of that loss (``core/collectives.py``'s convention); the
+        trainer syncs them over the data-parallel axes.  ``key``, the
+        reference's key as its two uint32 words
+        (``jax.random.key_data(PRNGKey(k))``), keys the Valiant shuffle of
+        the expert-parallel MoE layers where the config asks for it.  On a
+        mesh whose ``model`` axis is 1 the params are whole and ``batch`` is
+        the rank's rows all the same: the MoE layers route the rows of every
+        data-parallel rank as one block, as the reference routes its global
+        batch there."""
+        _check(self.cfg, impl, mesh)
         cfg = self.cfg
+        tp = mesh.over("model") if model_axis(mesh)[0] > 1 else None
+        # on a data-parallel mesh the MoE layers route every rank's rows as one block
+        rows = mesh if tp is None and mesh is not None and cfg.moe is not None else None
         # rows gathered, then cast: the values of the reference's cast-then-gather
-        x, _, aux, mask = self._decoder(params, batch, gather_first=True)
-        logits = self._logits(params, x)
+        x, _, aux, mask = self._decoder(params, batch, gather_first=True, mesh=tp, key=key,
+                                        rows=rows)
+        logits = self._logits(params, x, tp)
         if "mask" in batch:
             mask = mask * self._batch(batch, "mask")
         loss = cross_entropy_loss(logits, self._batch(batch, "targets"), mask)
@@ -292,13 +316,14 @@ class Model:
     def _logits(self, params, x, mesh=None):
         """The logits of the last hidden states ``x``; on a mesh whose
         ``model`` axis splits the vocab, the rank's columns gathered whole."""
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        head = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
-        logits = x @ head.to(x.dtype)
         cfg = self.cfg
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         axes, whole = ((EMBED_AXES, (cfg.vocab, cfg.d_model)) if cfg.tie_embeddings
                        else (LM_HEAD_AXES, (cfg.d_model, cfg.vocab)))
-        return logits if model_split_dim(axes, whole, mesh) is None else gather_vocab(logits, mesh)
+        if model_split_dim(axes, whole, mesh) is None:
+            return x @ head.to(x.dtype)
+        return gather_vocab(col.replicate(x, "model", mesh=mesh) @ head.to(x.dtype), mesh)
 
     def prefill(self, params: dict, batch, impl: str = "xla", mesh=None, last_pos=None):
         """Forward over the prompt ``batch`` (``{"tokens": [B, S]}`` as the

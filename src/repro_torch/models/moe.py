@@ -40,12 +40,24 @@ mesh's shape, as the reference's does.  Each rank's expert FFN is the
 grouped-matmul kernel (the reference computes these two paths with XLA
 einsums: the same grouped product).  The reference's Valiant shuffle
 (with ``cfg.moe.valiant_shuffle`` and a training key, the all-to-all path
-rotates each block of tokens by a random offset first) is keyed by
-``jax.random``, whose draw ``torch`` cannot repeat: a ``key`` there raises
-``NotImplementedError`` until training on a mesh (ROADMAP A11c) ports the
-draw and holds it against the reference.  Serving passes no key, and
-without one there is no shift.  ``aux`` is each rank's load-balancing
-loss, averaged over the ranks.
+rolls each block of tokens by ``jax.random.randint(key, (), 0, T_block)``
+first and rolls the output back) draws its shift with the port's copy of
+that draw (``core/threefry.py``) from the key's two uint32 words: every
+rank holds the same key and draws the same shift, with no communication.
+Serving passes no key, and without one there is no shift.  ``aux`` is
+each rank's load-balancing loss, averaged over the ranks.
+
+In training (the model on ``mesh.over("model")``, each rank's rows its
+data-parallel block) the backward follows ``core/collectives.py``'s
+convention.  On the all-to-all path the whole tokens are read through
+``replicate`` before the rank takes its block, and so is the router, which
+routes only that block; the all-to-alls go back by the reverse
+all-to-all, the gathered output and ``aux`` give each rank its slice of
+their gradients, and the experts' dx and dw are the grouped-matmul
+kernel's.  On the replicated path every rank routes the same tokens, so
+the routing is whole; the tokens that fill the rank's buckets and the
+combine weights of its experts are read through ``replicate``, and the
+partial outputs' sum passes its gradient through.
 
 The load-balancing loss is the reference's Switch loss, differentiable
 through the router's probabilities (the top expert's one-hot is constant);
@@ -59,6 +71,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
 from ..core import collectives as col
+from ..core import threefry
 from ..kernels.moe_gmm import ops as gmm_ops
 from ..runtime.sharding import model_split_dim
 from .layers import dense_init
@@ -173,13 +186,19 @@ def moe_sharded_a2a(params: dict, x_flat: torch.Tensor, cfg: ModelConfig, *,
     block of distinct tokens, ``params`` its ``E/m`` experts and the whole
     router.  Local buckets [E, C, D] -> all-to-all over ``model_axis`` ->
     [E/m, m C, D] -> the expert FFN -> the reverse all-to-all -> combine.
-    Returns (out [T_local, D], aux [1])."""
+    With ``cfg.moe.valiant_shuffle`` and a ``key`` (two uint32 words, the
+    reference's key data) the block is rolled by ``randint(key, 0,
+    T_local)`` first and the output rolled back.  Returns (out [T_local,
+    D], aux [1])."""
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     t = x_flat.shape[0]
     m = mesh.axis_size(model_axis)
+    shift = 0
     if cfg.moe.valiant_shuffle and key is not None:
-        raise NotImplementedError("the Valiant shuffle's keyed shift waits for training on a "
-                                  "mesh (ROADMAP A11c)")
+        shift = threefry.randint(key, 0, t)
+        x_flat = torch.roll(x_flat, shift, 0)
+    # the router is whole on every rank, which routes only its block
+    params = {**params, "router": col.replicate(params["router"], model_axis, mesh=mesh)}
     weights, flat_e, slot, aux, cap = _route(params, x_flat, cfg)
     keep = slot >= 0
     buckets, row = _fill(x_flat, flat_e, slot, keep, 0, e, cap, k)
@@ -190,7 +209,8 @@ def moe_sharded_a2a(params: dict, x_flat: torch.Tensor, cfg: ModelConfig, *,
     out_mine = gmm_ops.expert_ffn(params, mine)
     back = out_mine.view(e // m, m, cap, -1).transpose(0, 1).contiguous()
     out_buckets = col.all_to_all(back.view(e, cap, -1), model_axis, mesh=mesh)
-    return _combine(out_buckets.view(e * cap, -1), row, keep, weights, t, k), aux[None]
+    out = _combine(out_buckets.view(e * cap, -1), row, keep, weights, t, k)
+    return (torch.roll(out, -shift, 0) if shift else out), aux[None]
 
 
 def moe_replicated_ep(params: dict, x_flat: torch.Tensor, cfg: ModelConfig, *,
@@ -204,23 +224,38 @@ def moe_replicated_ep(params: dict, x_flat: torch.Tensor, cfg: ModelConfig, *,
     e_local = e // m
     weights, flat_e, slot, aux, cap = _route(params, x_flat, cfg)
     mine = (slot >= 0) & (flat_e >= j * e_local) & (flat_e < (j + 1) * e_local)
-    buckets, row = _fill(x_flat, flat_e, slot, mine, j * e_local, e_local, cap, k)
+    # the routing is whole on every rank; the rank's buckets and combine are its own
+    rep = lambda t: col.replicate(t, model_axis, mesh=mesh)  # noqa: E731
+    buckets, row = _fill(rep(x_flat), flat_e, slot, mine, j * e_local, e_local, cap, k)
     out_buckets = gmm_ops.expert_ffn(params, buckets)
-    partial = _combine(out_buckets.view(e_local * cap, -1), row, mine, weights,
+    partial = _combine(out_buckets.view(e_local * cap, -1), row, mine, rep(weights),
                        x_flat.shape[0], k)
     return col.psum(partial, model_axis, mesh=mesh), aux[None]
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, key=None, mesh=None):
+def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, key=None, mesh=None,
+              rows=None):
     """[B, S, D] -> ([B, S, D], aux).  Without a ``model`` axis above 1 the
     one-device ``moe_local`` on all tokens; otherwise the reference's choice
-    between the two expert-parallel paths (see the module's doc)."""
+    between the two expert-parallel paths (see the module's doc).  ``rows``
+    is a mesh whose data-parallel ranks each hold their own rows of the
+    batch in ``x`` (training where the ``model`` axis is 1): the reference
+    routes the rows of all of them as one block, so they are gathered over
+    its data-parallel axes, ``moe_local`` runs on them all, and each rank
+    keeps the output of its rows (their gradient summed over the ranks, as
+    the aux loss reads every rank's rows)."""
     b, s, d = x.shape
     x_flat = x.reshape(b * s, d)
     m, _ = _model_axis(mesh)
     if m == 1:
-        out, aux = moe_local(params, x_flat, cfg)
-        return out.reshape(b, s, d), aux
+        dp_axes = rows.data_parallel_axes if rows is not None else ()
+        if not dp_axes or rows.axis_size(dp_axes) == 1:
+            out, aux = moe_local(params, x_flat, cfg)
+            return out.reshape(b, s, d), aux
+        every = col.all_gather(x_flat, dp_axes, tiled=True, mesh=rows, grad="sum")
+        out, aux = moe_local(params, every, cfg)
+        i = rows.axis_index(dp_axes)
+        return out[i * b * s:(i + 1) * b * s].reshape(b, s, d), aux
     moe = cfg.moe
     if model_split_dim(MOE_AXES["w_gate"], (moe.n_experts, d, moe.d_expert_ff), mesh) != 0:
         raise NotImplementedError(f"{cfg.name}: {cfg.moe.n_experts} experts do not split over "
@@ -232,9 +267,10 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, key=None, mesh
     if tokens % (dp * m) == 0 and tokens // (dp * m) >= cfg.moe.top_k:
         n = tokens // (dp * m)
         i = mesh.axis_index(every)
+        x_flat = col.replicate(x_flat, "model", mesh=mesh)  # each rank takes its block
         out, aux = moe_sharded_a2a(params, x_flat[i * n:(i + 1) * n], cfg, key=key, mesh=mesh)
-        out = col.all_gather(out, every, tiled=True, mesh=mesh)
-        aux = col.all_gather(aux, every, tiled=True, mesh=mesh)
+        out = col.all_gather(out, every, tiled=True, mesh=mesh, grad="slice")
+        aux = col.all_gather(aux, every, tiled=True, mesh=mesh, grad="slice")
     else:
         split = dp > 1 and tokens % dp == 0 and tokens >= dp
         n = tokens // dp if split else tokens

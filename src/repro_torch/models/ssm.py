@@ -32,6 +32,13 @@ The gated RMS norm over ``d_inner`` spans the ranks: its sum of squares is
 summed over ``model`` before the scale.  The rank's cache holds its
 channels of ``conv_x`` and its heads of ``h``; the SSD scan runs on its
 heads.
+
+In training the backward follows ``core/collectives.py``'s convention:
+``x``, the whole ``x @ w_dt``, B and C after their convolutions, and
+``a_log``, ``dt_bias`` and ``d_skip`` are read through ``replicate`` where
+the rank takes its heads' part of them, and so is the norm's sum of
+squares, which every rank scales its own channels by; the SSD kernel runs
+forward and backward on the rank's heads.
 """
 
 from __future__ import annotations
@@ -179,7 +186,9 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, eps: floa
     if mesh is None:
         return rms_norm(g, scale, eps)
     xf = g.float()
-    var = col.psum(xf.square().sum(dim=-1, keepdim=True), "model", mesh=mesh) / d_inner
+    # every rank scales its own channels by the sum: its gradient sums too
+    ss = col.psum(xf.square().sum(dim=-1, keepdim=True), "model", mesh=mesh)
+    var = col.replicate(ss, "model", mesh=mesh) / d_inner
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(g.dtype)
 
 
@@ -200,21 +209,24 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | 
     heads = slice(h0, h0 + nh)
     w = {k: params[k].to(compute) for k in ("w_z", "w_x", "w_b", "w_c", "w_dt", "w_out",
                                             "conv_wx", "conv_wb", "conv_wc")}
+    # rank-local work reads x and the per-head leaves whole (module doc)
+    rep = lambda t: col.replicate(t, "model", mesh=tp)  # noqa: E731
 
-    z = x @ w["w_z"]
-    xin = x @ w["w_x"]
+    xr = rep(x)
+    z = xr @ w["w_z"]
+    xin = xr @ w["w_x"]
     braw = x @ w["w_b"]
     craw = x @ w["w_c"]
-    dt = (x @ w["w_dt"])[..., heads]
-    a = -torch.exp(params["a_log"][heads].float())
-    dt_bias = params["dt_bias"][heads].float()
+    dt = rep(x @ w["w_dt"])[..., heads]
+    a = -torch.exp(rep(params["a_log"])[heads].float())
+    dt_bias = rep(params["dt_bias"])[heads].float()
 
     if cache is None:
         xc, tail_x = _causal_depthwise_conv(xin, w["conv_wx"], params["conv_bx"], compute)
         bc, tail_b = _causal_depthwise_conv(braw, w["conv_wb"], params["conv_bb"], compute)
         cc, tail_c = _causal_depthwise_conv(craw, w["conv_wc"], params["conv_bc"], compute)
         dtp = softplus(dt.float() + dt_bias)
-        y, h_final = ssd_ops.ssd(xc.reshape(bsz, s, nh, c.head_dim), dtp, a, bc, cc,
+        y, h_final = ssd_ops.ssd(xc.reshape(bsz, s, nh, c.head_dim), dtp, a, rep(bc), rep(cc),
                                  chunk=c.chunk_size)
         new_cache = None
         if update_cache:
@@ -233,7 +245,7 @@ def ssm_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, *, cache: dict | 
             cache[name].copy_(t)
         new_cache = cache
 
-    y = y + xin.reshape(bsz, s, nh, c.head_dim).float() * params["d_skip"][heads].float(
+    y = y + xin.reshape(bsz, s, nh, c.head_dim).float() * rep(params["d_skip"])[heads].float(
         ).reshape(1, 1, nh, 1)
     y = y.reshape(bsz, s, d_inner).to(compute)
     y = _gated_norm(y, z, params["norm"], cfg.norm_eps, d_full, tp)

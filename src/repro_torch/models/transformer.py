@@ -25,7 +25,8 @@ JAX stack's ``jax.checkpoint`` over the scanned block: its activations are
 recomputed in the backward pass, so attention's forward, the MoE layer's
 three grouped matmuls and the SSD scan's forward run twice a layer per step.
 The recompute routes exactly as the forward did: routing depends only on
-the block's inputs.
+the block's inputs.  On a mesh it runs the layer's collectives again,
+every rank in the same order.
 
 An encoder block (``encoder_apply``) is bidirectional GQA attention with no
 RoPE and no qk-norm, then a dense FFN, never MoE.  A decoder block of an
@@ -156,11 +157,13 @@ def cross_kv(params: dict, memory: torch.Tensor, cfg: ModelConfig) -> tuple:
 
 def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *, positions,
                 cache: dict | None = None, update_cache: bool = False, ragged: bool = False,
-                cross: tuple | None = None, mesh=None):
+                cross: tuple | None = None, mesh=None, key=None, rows=None):
     """Layer ``i``; returns (x, cache, aux): aux is the MoE layer's
     load-balancing loss (fp32), None on a layer without MoE.  ``cross`` is
     the layer's encoder-memory (k, v) in an encoder-decoder.  With ``mesh``
-    the params are this rank's blocks."""
+    the params are this rank's blocks; ``key`` reaches the MoE layer (the
+    Valiant shuffle), the same key on every layer, as in the reference, and
+    so does ``rows`` (``moe_apply``'s)."""
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     kind = mixer_kind(cfg, i)
     if kind == "ssm":  # positions unused: the state carries no positional record
@@ -182,7 +185,7 @@ def block_apply(params: dict, x: torch.Tensor, cfg: ModelConfig, i: int, *, posi
     if "ffn" in params:
         h = rms_norm(x, params["ln2"], cfg.norm_eps)
         if cfg.layer_is_moe(i):
-            out, aux = moe_mod.moe_apply(params["ffn"], h, cfg, mesh=mesh)
+            out, aux = moe_mod.moe_apply(params["ffn"], h, cfg, key=key, mesh=mesh, rows=rows)
             x = x + out
         else:
             x = x + mlp_apply(params["ffn"], h, mesh=mlp_mesh(cfg.d_model, cfg.d_ff, mesh))
@@ -217,7 +220,7 @@ def init_stack_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype=torch.bfl
 
 def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positions,
                 caches: dict | None = None, update_cache: bool = False, ragged: bool = False,
-                cross: dict | None = None, mesh=None):
+                cross: dict | None = None, mesh=None, key=None, rows=None):
     """Returns (x, caches, aux).  With ``caches`` (decode) each layer writes
     into its slice in place and the same dict comes back; with
     ``update_cache`` (prefill) the new entries of every layer are stacked
@@ -234,12 +237,13 @@ def stack_apply(layers: list[dict], x: torch.Tensor, cfg: ModelConfig, *, positi
         layer_cross = (memory["cross_k"][i], memory["cross_v"][i]) if cfg.enc_dec else None
         if remat:
             x, _, aux = checkpoint(block_apply, layer, x, cfg, i, positions=positions,
-                                   cross=layer_cross, use_reentrant=False)
+                                   cross=layer_cross, mesh=mesh, key=key, rows=rows,
+                                   use_reentrant=False)
         else:
             layer_cache = None if caches is None else {n: caches[n][k] for n in CACHE_KEYS[kind]}
             x, nc, aux = block_apply(layer, x, cfg, i, positions=positions, cache=layer_cache,
                                      update_cache=update_cache, ragged=ragged, cross=layer_cross,
-                                     mesh=mesh)
+                                     mesh=mesh, key=key, rows=rows)
             if caches is None and update_cache:
                 emitted[kind].append(nc)
         if aux is not None:

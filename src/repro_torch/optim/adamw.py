@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from ..core import collectives as col
 from ..tree import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "cosine_schedule", "global_norm"]
@@ -49,9 +50,22 @@ def cosine_schedule(cfg: AdamWConfig, step: int) -> float:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """The fp32 2-norm of all leaves together (a 0-d tensor)."""
-    return torch.sqrt(sum(x.float().square().sum() for x in tree_leaves(tree)))
+def global_norm(tree, mesh=None, split=None) -> torch.Tensor:
+    """The fp32 2-norm of all leaves together (a 0-d tensor).  With a
+    ``mesh`` and ``split`` (mirroring ``tree``, a bool per leaf: whether it
+    is this rank's block of a leaf split over ``model``), the norm of the
+    whole leaves, as the reference takes it: the blocks' squares summed
+    over ``model`` (the ordered ``psum``, the same bits on every rank), each
+    leaf that is whole on every rank counted once."""
+    leaves = tree_leaves(tree)
+    squares = [x.float().square().sum() for x in leaves]
+    if mesh is None:
+        return torch.sqrt(sum(squares))
+    flags = tree_leaves(split)
+    zero = leaves[0].new_zeros((), dtype=torch.float32)
+    whole = sum((q for q, f in zip(squares, flags) if not f), zero)
+    blocks = sum((q for q, f in zip(squares, flags) if f), zero)
+    return torch.sqrt(whole + col.psum(blocks, "model", mesh=mesh))
 
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
@@ -67,17 +81,21 @@ def _decay_mask(leaf: torch.Tensor) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig, decay):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, decay, *, mesh=None,
+                 split=None):
     """Returns (params, state, {"grad_norm", "lr"}), params and state
     updated in place.  ``grads`` mirrors ``params``, and so does ``decay``,
     a bool per leaf that says whether it takes weight decay: a model's
     params take ``Model.decay_mask``, the reference's decision on its
     stacked tree; a plain tree ``tree_map(_decay_mask, params)``.  Entries
     of ``state`` other than ``step``, ``m`` and ``v`` (``err``) are left as
-    they are."""
+    they are.  On a ``model`` axis (``mesh`` and ``split``, see
+    ``global_norm``) params, gradients and moments are this rank's blocks,
+    as ``opt_state_shardings`` places the moments, and the clipping norm is
+    the whole leaves'."""
     step = state["step"] + 1
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, split)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     b1, b2 = cfg.betas
     bc1, bc2 = 1 - b1**step, 1 - b2**step

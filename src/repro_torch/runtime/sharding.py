@@ -24,6 +24,8 @@ import math
 
 import torch
 
+from ..core.collectives import all_gather
+
 __all__ = [
     "LOGICAL_RULES",
     "spec_for_axes",
@@ -32,6 +34,10 @@ __all__ = [
     "cache_shardings",
     "opt_state_shardings",
     "reshard_params",
+    "model_dims",
+    "map_blocks",
+    "whole_leaves",
+    "model_blocks",
 ]
 
 LOGICAL_RULES: dict[str, str | None] = {
@@ -230,3 +236,53 @@ def reshard_params(axes_tree, params, mesh):
     itself where it is replicated): pure data movement, bit-exact."""
     psh = param_shardings(axes_tree, mesh, params)
     return _map_axes(lambda _, p, s: _block(p, s, mesh), axes_tree, params, psh)
+
+
+def model_dims(axes_tree, params, mesh):
+    """The dim of each leaf of ``params`` (whole leaves) that the rules
+    split over ``model`` on ``mesh``, None where they leave it whole: where
+    a rank's block of the leaf (``reshard_params``) is cut.  The trainer
+    and the checkpoints read it to put the blocks back together, since a
+    block's shape alone does not say which of its dims was cut."""
+    return _map_axes(lambda axes, p: model_split_dim(axes, tuple(p.shape), mesh), axes_tree,
+                     params)
+
+
+def map_blocks(fn, dims, *trees):
+    """``fn(dim, *leaves)`` on each leaf of ``trees`` (of one structure)
+    that ``dims`` (``model_dims``, mirroring them or a prefix of them: None
+    where a leaf or a subtree is whole) names as cut over ``model`` at
+    ``dim``; the first tree's leaf where it is whole.  The one walk by which
+    the trainer, the checkpoints and the bridge put the ranks' blocks
+    together and take them apart."""
+    first = trees[0]
+    if dims is None:
+        return first
+    if isinstance(first, dict):
+        return {k: map_blocks(fn, dims.get(k), *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(map_blocks(fn, d, *xs) for d, *xs in zip(dims, *trees))
+    return fn(dims, *trees)
+
+
+def whole_leaves(tree, dims, mesh):
+    """The whole leaves of this rank's blocks ``tree``: each leaf that
+    ``dims`` names gathered over ``model`` in rank order along its dim.  A
+    collective call on every rank; no gradient flows through it."""
+    return map_blocks(lambda d, t: torch.cat(list(all_gather(t.detach(), "model", mesh=mesh)
+                                                  .unbind(0)), dim=d), dims, tree)
+
+
+def model_blocks(tree, dims, mesh):
+    """This rank's block of each whole leaf of ``tree`` (tensors or numpy
+    arrays) that ``dims`` names, the inverse of ``whole_leaves``."""
+    if dims is None:
+        return tree
+    m, j = _sizes(mesh).get("model", 1), dict(zip(mesh.axis_names, mesh.coords)).get("model", 0)
+
+    def block(d, t):
+        n = t.shape[d] // m
+        out = t[(slice(None),) * d + (slice(j * n, (j + 1) * n),)]
+        return out.contiguous() if isinstance(out, torch.Tensor) else out
+
+    return map_blocks(block, dims, tree)

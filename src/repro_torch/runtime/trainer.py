@@ -31,12 +31,35 @@ minor.  Its gradients are then synced in one of three ways:
   flattened ``(pod, data)`` index, kept as a ``[1, ...]`` block.
 
 Clipping and AdamW run after the sync, identically on every rank, and the
-metrics are averaged over the data-parallel group.  A ``model`` axis above
-1 (tensor parallelism) and an MoE config with a mesh raise
-``NotImplementedError``: training on a ``model`` axis and MoE across
-ranks in training are the next slice (ROADMAP A11c; serving on a
-``model`` axis is ported).  Without a mesh the step is the
+metrics are averaged over the data-parallel group.  An MoE config takes the
+flat sync whatever the config asks, as in the reference (its hierarchical
+path is for dense and SSM configs).  Without a mesh the step is the
 single-device one whatever the ``ParallelConfig``, as in the reference.
+
+On a ``model`` axis above 1 each rank holds its blocks of the params and
+of AdamW's moments (``runtime/sharding.py``'s rules, as
+``opt_state_shardings`` places them; ``Trainer.init`` draws the whole
+params from the seed on every rank and keeps its blocks), and the ranks of
+one ``model`` slice hold the same rows, which they compute
+tensor-parallel (``Model.train_loss`` on the mesh).  Flat and hierarchical
+syncs run on each rank's blocks over the data-parallel axes: a sum of
+blocks is the block of the sum.  The compressed sync's int8 scale is one
+per chunk of the reference's flattened whole leaf, so the split gradients
+are first gathered over ``model`` into whole leaves (those bytes counted
+under ``model``), synced as above, and each rank keeps its block; the
+``err`` rows keep the whole-leaf layout, the same on the ranks of a
+``model`` slice.  The clipping norm is the whole leaves'
+(``adamw.global_norm``).  Which dim of each leaf is split
+(``sharding.model_dims``) follows from the whole leaves' shapes, which
+``model.init`` gives on the meta device without a draw (the reference's
+``jax.eval_shape``).
+
+An MoE config on a mesh whose ``model`` axis is 1 routes the tokens of all
+the data-parallel ranks as one block, as the reference's ``moe_local``
+routes its global batch there: each MoE layer gathers them
+(``moe_apply``'s ``rows``).  With ``microbatches`` each microbatch is a
+slice of the global batch, as in the reference, and a rank takes its rows
+of each (``local_rows``).
 """
 
 from __future__ import annotations
@@ -51,20 +74,41 @@ from ..core.collectives import error_feedback_slots, hierarchical_all_reduce, pm
 from ..models import Model
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..tree import tree_copy, tree_leaves, tree_map
+from .sharding import model_blocks, model_dims, reshard_params, whole_leaves
 
 __all__ = ["Trainer", "make_train_step", "value_and_grads", "local_rows"]
 
-_NEXT_SLICE = ("training on a model axis above 1 and MoE on a mesh in training are the next "
-               "slice of the port (ROADMAP A11c)")
+
+class _OnMeta(torch.overrides.TorchFunctionMode):
+    """Every call that names a device lands on the meta device: tensors
+    with shapes and dtypes, no memory, no draw."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if "device" in kwargs:
+            kwargs = {**kwargs, "device": "meta"}
+        return func(*args, **kwargs)
 
 
-def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1):
-    """(gradients mirroring ``params``, {"loss"}) of ``model.train_loss``,
-    accumulated over ``microbatches`` equal slices of the batch.  The
-    gradients are those of the loss that is minimised (for an MoE config the
-    cross entropy plus 0.01 x the load-balancing loss); "loss" is the cross
-    entropy alone, as the reference reports it.  Each slice routes its own
-    tokens, so an MoE layer's capacity follows the slice's size."""
+def _split_dims(model: Model, mesh):
+    """The dim of each param leaf that a ``model`` axis above 1 splits
+    (``sharding.model_dims`` of the whole leaves' shapes, from ``init`` on
+    the meta device); None without such an axis."""
+    if not _model_axis(mesh):
+        return None
+    with _OnMeta():
+        shapes = type(model)(model.cfg, device="cpu").init(torch.Generator())
+    return model_dims(model.param_axes(), shapes, mesh)
+
+
+def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1, mesh=None):
+    """(gradients mirroring ``params``, {"loss"}) of ``model.train_loss``
+    (on ``mesh``), accumulated over ``microbatches`` equal slices of the
+    batch.  The gradients are those of the loss that is minimised (for an
+    MoE config the cross entropy plus 0.01 x the load-balancing loss);
+    "loss" is the cross entropy alone, as the reference reports it.  Each
+    slice routes its own tokens, so an MoE layer's capacity follows the
+    slice's size."""
     leaves = tree_leaves(params)
     batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
     b = batch["tokens"].shape[0]
@@ -74,7 +118,7 @@ def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1):
 
     def micro(i):
         sl = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        loss, metrics = model.train_loss(params, sl)
+        loss, metrics = model.train_loss(params, sl, mesh=mesh)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         return list(grads), metrics["loss"].detach()
 
@@ -92,19 +136,27 @@ def value_and_grads(model: Model, params, batch: dict, microbatches: int = 1):
     return tree_map(lambda _: next(it), params), {"loss": loss}
 
 
-def local_rows(batch: dict, mesh) -> dict:
+def local_rows(batch: dict, mesh, microbatches: int = 1) -> dict:
     """This rank's rows of the global ``batch``, as the reference's
     ``P(("pod", "data"), None)`` places them: block ``i`` of ``n``, ``i``
-    the rank's flattened (pod, data) index."""
+    the rank's flattened (pod, data) index.  With ``microbatches`` the
+    rank's block of each of the global batch's equal slices in turn, as the
+    reference slices its global batch."""
     dp = mesh.data_parallel_axes
     n, i = mesh.axis_size(dp), mesh.axis_index(dp)
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % n:
-            raise ValueError(f"batch of {v.shape[0]} rows does not split over {n} ranks")
-        rows = v.shape[0] // n
-        out[k] = v[i * rows:(i + 1) * rows]
+        if v.shape[0] % (n * microbatches):
+            raise ValueError(f"batch of {v.shape[0]} rows does not split over {n} ranks and "
+                             f"{microbatches} microbatches")
+        rows = v.shape[0] // (n * microbatches)
+        blocks = v.reshape((microbatches, n, rows) + tuple(v.shape[1:]))[:, i]
+        out[k] = blocks.reshape((microbatches * rows,) + tuple(v.shape[1:]))
     return out
+
+
+def _model_axis(mesh) -> bool:
+    return mesh is not None and mesh.axis_sizes().get("model", 1) > 1
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, pcfg: ParallelConfig, mesh=None,
@@ -112,12 +164,16 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, pcfg: ParallelConfig, me
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "grad_norm", "lr"}), updating params and state in place."""
     decay = None  # the decay mask depends only on the config and the tree: made at the first step
+    tp = _model_axis(mesh)
+    dims = _split_dims(model, mesh)
+    split = tree_map(lambda d: d is not None, dims) if tp else None
 
     def update(params, grads, opt_state):
         nonlocal decay
         if decay is None:
             decay = model.decay_mask(params)
-        return adamw_update(params, grads, opt_state, opt_cfg, decay)
+        return adamw_update(params, grads, opt_state, opt_cfg, decay,
+                            mesh=mesh if tp else None, split=split)
 
     if mesh is None:
         def train_step(params, opt_state, batch):
@@ -127,24 +183,26 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, pcfg: ParallelConfig, me
 
         return train_step
 
-    if mesh.axis_sizes().get("model", 1) > 1:
-        raise NotImplementedError(f"a model axis of {mesh.axis_sizes()['model']}: {_NEXT_SLICE}")
-    if model.cfg.moe is not None:
-        raise NotImplementedError(f"{model.cfg.name} is an MoE config on a mesh: {_NEXT_SLICE}")
     dp = mesh.data_parallel_axes
-    hier = pcfg.hierarchical_grad_sync and "pod" in mesh.axis_names
+    hier = (pcfg.hierarchical_grad_sync and "pod" in mesh.axis_names
+            and model.cfg.moe is None)
     low_axes = tuple(a for a in ("data",) if a in mesh.axis_names)
 
     def train_step(params, opt_state, batch):
-        grads, metrics = value_and_grads(model, params, local_rows(batch, mesh), microbatches)
+        grads, metrics = value_and_grads(model, params, local_rows(batch, mesh, microbatches),
+                                         microbatches, mesh)
         if hier and pcfg.compress_cross_pod:
             residuals = None
             if "err" in opt_state:
                 residuals = tree_map(lambda e: e[0], opt_state["err"])
+            if tp:  # the int8 scales are the whole leaves'
+                grads = whole_leaves(grads, dims, mesh)
             synced, new_res = hierarchical_all_reduce(
                 reference_leaves(model.cfg, grads), low_axes=low_axes, high_axis="pod",
                 average=True, compress_high=True, residuals=residuals, mesh=mesh)
             grads = port_leaves(model.cfg, synced)
+            if tp:
+                grads = model_blocks(grads, dims, mesh)
             if "err" in opt_state:
                 for e, r in zip(tree_leaves(opt_state["err"]), tree_leaves(new_res)):
                     e.copy_(r[None])
@@ -175,6 +233,7 @@ class Trainer:
     microbatches: int = 1
 
     def __post_init__(self):
+        self.dims = _split_dims(self.model, self.mesh)  # None without a model axis above 1
         self.step = make_train_step(self.model, self.opt_cfg, self.pcfg, self.mesh,
                                     self.microbatches)
 
@@ -182,15 +241,26 @@ class Trainer:
         """(fp32 master params that require grad, optimizer state), the params
         drawn from ``gen`` on the model's device; every rank of a mesh draws
         the same params from the same seed.  With a compressed sync on a
-        mesh the state holds this rank's ``err`` row."""
-        params = tree_map(lambda t: t.requires_grad_(), self.model.init(gen))
-        opt_state = adamw_init(params, self.opt_cfg)
+        mesh the state holds this rank's ``err`` row.  On a ``model`` axis
+        above 1 the params and moments are this rank's blocks, cut at
+        ``dims``."""
+        params = self.model.init(gen)
+        opt_state = {}
         if self.pcfg.compress_cross_pod and self.mesh is not None:
             n_low = self.mesh.axis_sizes().get("data", 1)
-            with torch.no_grad():
-                slots = error_feedback_slots(reference_leaves(self.model.cfg, params), n_low)
+            slots = error_feedback_slots(reference_leaves(self.model.cfg, params), n_low)
             opt_state["err"] = tree_map(lambda e: e[None], slots)
-        return params, opt_state
+        if self.dims is not None:
+            params = reshard_params(self.model.param_axes(), params, self.mesh)
+        params = tree_map(lambda t: t.requires_grad_(), params)
+        return params, {**adamw_init(params, self.opt_cfg), **opt_state}
+
+    def checkpoint_dims(self):
+        """The ``dims`` of ``(params, optimizer state)`` for
+        ``save_checkpoint`` and ``restore_checkpoint``: the split dim of
+        each leaf of the params and of the moments on a ``model`` axis above
+        1, else None."""
+        return None if self.dims is None else (self.dims, {"m": self.dims, "v": self.dims})
 
     def jitted_step(self, donate: bool = True):
         """The train step.  With ``donate`` (the reference's buffer

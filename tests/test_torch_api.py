@@ -37,6 +37,17 @@ UNPORTED = {
 }
 
 
+# modules of the port without a counterpart in the JAX package, and why
+PORT_ONLY = {
+    "bridge": "weights, caches and optimizer state across the packages",
+    "device": "the port's device choice",
+    "tree": "the port's param trees (the reference has jax.tree)",
+    "core.cost_model": "CollectiveCostModel, re-exported from core.collectives",
+    "core.threefry": "the port's copy of the jax.random draws it repeats (the Valiant shift)",
+    "kernels.build": "the build of the hand-written CUDA kernels",
+}
+
+
 def _reference_modules() -> list[str]:
     src = ROOT / "src" / "repro"
     names = []
@@ -60,6 +71,15 @@ PORTED = [m for m in _reference_modules() if _ported(m)]
 def test_the_unported_modules_are_the_listed_ones():
     assert {m for m in _reference_modules() if not _ported(m)} == set(UNPORTED)
     assert {"core.collectives", "launch.mesh", "runtime.trainer"} <= set(PORTED)
+
+
+def test_the_port_only_modules_are_the_listed_ones():
+    def modules(root: Path) -> set[str]:
+        return {".".join(p.relative_to(root).with_suffix("").parts)
+                for p in root.rglob("*.py") if p.name != "__init__.py"}
+
+    src = ROOT / "src"
+    assert modules(src / "repro_torch") - modules(src / "repro") == set(PORT_ONLY)
 
 
 @pytest.mark.parametrize("module", PORTED, ids=lambda m: m or "repro")

@@ -489,3 +489,32 @@ def test_mesh_checkpoint_slices_only_the_rows_the_caller_names(tmp_path):
     assert torch.equal(opt["err"]["w"], torch.ones(1, 4))
     with pytest.raises(ValueError, match="mesh"):
         save_checkpoint(str(tmp_path), 2, tree, rows=(1, "err"))
+
+
+def test_mesh_checkpoint_on_a_model_axis_needs_the_split_dims(tmp_path):
+    """On a model axis above 1 each rank holds blocks, which a checkpoint
+    without ``dims`` would write (and restore) as if they were whole
+    leaves: save and restore refuse, before any collective, and ``{}``
+    says that no leaf is split.  On rank 1 of a model axis of 2 a restore
+    hands the rank its block of each leaf ``dims`` names, in tensors and
+    in numpy leaves."""
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh(("data", "model"), (1, 2), 1, {}, "gloo")
+    whole = {"w": torch.arange(12.0).reshape(3, 4), "b": torch.arange(3.0),
+             "n": np.arange(6.0).reshape(2, 3)}
+    save_checkpoint(str(tmp_path), 1, whole)
+    with pytest.raises(ValueError, match="dims"):
+        save_checkpoint(str(tmp_path), 2, whole, mesh=mesh)
+    like = {"w": torch.zeros(3, 2), "b": torch.zeros(3), "n": np.zeros((2, 3))}
+    with pytest.raises(ValueError, match="dims"):
+        restore_checkpoint(str(tmp_path), like, mesh=mesh)
+    got, step = restore_checkpoint(str(tmp_path), like, mesh=mesh, dims={"w": 1, "b": None})
+    assert step == 1
+    assert torch.equal(got["w"], whole["w"][:, 2:]) and torch.equal(got["b"], whole["b"])
+    np.testing.assert_array_equal(got["n"], whole["n"])
+    like["n"] = np.zeros((1, 3))
+    got, _ = restore_checkpoint(str(tmp_path), like, mesh=mesh, dims={"w": 1, "n": 0})
+    np.testing.assert_array_equal(got["n"], whole["n"][1:])
+    got, _ = restore_checkpoint(str(tmp_path), {"b": torch.zeros(3)}, mesh=mesh, dims={})
+    assert torch.equal(got["b"], whole["b"])

@@ -55,7 +55,15 @@ GMM_SHAPES = [  # e, c, d, f: the JAX sweep, ragged capacities, granite's decode
     # granite's 16 experts a rank on a model axis of 2: [E/m, m C, D] on the all-to-all path
     # (a 2 x 1024 prefill group, 512 tokens a rank of 4), [E/m, 8, D] on the replicated one
     (16, 320, 1024, 512), (16, 320, 512, 1024), (16, 8, 1024, 512), (16, 8, 512, 1024),
+    # training on a model axis of 2: a data rank's 256 tokens in blocks of 128 (C 40 each)
+    (16, 80, 1024, 512), (16, 80, 512, 1024),
 ]
+# a rank's heads on a model axis of 2 in training: internlm2's 8 of 16 query
+# heads over 4 of 8 KV heads (D 128), granite's (D 64); mamba2's 32 of 64
+# SSM heads (chunk 512)
+RANK_FLASH = [(torch.float32, (2, 128, 8, 4, 128)), (torch.bfloat16, (8, 256, 8, 4, 128)),
+              (torch.float32, (2, 128, 8, 4, 64))]
+RANK_SSD = [(torch.float32, (2, 128, 32, 64, 128)), (torch.bfloat16, (8, 256, 32, 64, 128))]
 
 SSD_SHAPES = [  # b, s, h, p, n, the plain version's chunk: the JAX sweep, ragged S, mamba2
     (2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64), (1, 64, 8, 16, 128, 16),
@@ -154,6 +162,60 @@ def test_flash_backward_kernel_matches_plain_version(cuda, dtype):
         for g, w, x in zip(passes[0], want, (q, k, v)):
             assert g.dtype == dtype and g.shape == x.shape
             torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", RANK_FLASH, ids=["fp32-D128", "bf16-D128", "fp32-D64"])
+def test_flash_kernels_at_a_ranks_heads_match_plain_version(cuda, dtype, shape):
+    """The forward and backward kernels at a rank's heads on a model axis
+    of 2 in training against ``attention_forward`` and
+    ``attention_backward`` on the same inputs."""
+    b, s, h, kv, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(b, s, n, d, generator=gen, device=cuda).to(dtype) for n in (h, kv, kv))
+    cot = torch.randn(b, s, h, d, generator=gen, device=cuda).to(dtype)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (kernel.launches, kernel.bwd_launches)
+    out = ops.flash_attention(*leaves, causal=True, window=0)
+    got = torch.autograd.grad(out, leaves, cot)
+    assert (kernel.launches - before[0], kernel.bwd_launches - before[1]) == (1, 1)
+    o_plain, lse_plain = attention_forward(q, k, v, causal=True, window=0)
+    tol = TOL[dtype]
+    torch.testing.assert_close(out.float(), o_plain.float(), atol=tol, rtol=tol)
+    want = attention_backward(q, k, v, o_plain, lse_plain, cot, causal=True, window=0)
+    tol = 1e-4 if dtype == torch.float32 else TOL[dtype]
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,shape", RANK_SSD, ids=["fp32", "bf16"])
+def test_ssd_kernels_at_a_ranks_heads_match_plain_version(cuda, dtype, shape):
+    """The SSD scan forward and backward at a rank's 32 of mamba2's 64
+    heads against autograd through the plain ``ssd_chunked`` on the same
+    inputs: y within 20 x the forward's tolerance of its largest value, each gradient within 5e-4 of
+    its largest value in fp32 (in bf16 dx, db, dc within 2e-2, ddt and da
+    within ``SSD_FP32_STORE_TOL``)."""
+    b, s, h, p, n = shape
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    x = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
+    dt = torch.rand(b, s, h, generator=gen, device=cuda) * 0.2 + 1e-3
+    a = -(torch.rand(h, generator=gen, device=cuda) * 3.5 + 0.5)
+    bb, cc = (torch.randn(b, s, n, generator=gen, device=cuda).to(dtype) for _ in range(2))
+    dy = torch.randn(b, s, h, p, generator=gen, device=cuda).to(dtype)
+    grads = []
+    for fn in (lambda *t: ssd_ops.ssd(*t, chunk=512), lambda *t: ssd_chunked(*t, 512)):
+        leaves = [t.detach().requires_grad_() for t in (x, dt, a, bb, cc)]
+        y, _ = fn(*leaves)
+        grads.append((y, torch.autograd.grad(y, leaves, dy)))
+    (y, got), (y_plain, want) = grads
+    torch.testing.assert_close(y.float(), y_plain.float(),
+                               atol=20 * TOL[dtype] * float(y_plain.float().abs().max()), rtol=0)
+    tols = [5e-4] * 5 if dtype == torch.float32 else [TOL[dtype], *[SSD_FP32_STORE_TOL] * 2,
+                                                       TOL[dtype], TOL[dtype]]
+    for g, w, tol in zip(got, want, tols):
+        torch.testing.assert_close(g.float(), w.float(), atol=tol * float(w.float().abs().max()),
+                                   rtol=0)
 
 
 @pytest.mark.gpu

@@ -41,6 +41,7 @@ def test_every_module_imports_without_jax():
             "repro_torch.configs.phi_3_vision_4_2b",
             "repro_torch.configs.seamless_m4t_large_v2", "repro_torch.configs.clex_paper",
             "repro_torch.core.collectives", "repro_torch.core.cost_model",
+            "repro_torch.core.threefry",
             "repro_torch.launch.mesh",
             *(f"repro_torch.core.{m}" for m in (
                 "hashrng", "topology", "routing", "simulator", "streaming", "torus_sim",

@@ -202,9 +202,14 @@ def _reference_on(mesh, runs, models, params, inputs, prompts):
                                                      mesh=jm).generate(batch, 6)
         elif kind == "moe":
             layer = _layer0(params[arch])["ffn"]
+            vcfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+                model.cfg.moe, valiant_shuffle=True))
             with use_mesh(jm):
                 ref[mesh, kind, rest[0]] = jax.jit(
                     lambda lp, x, cfg=model.cfg: jax_moe.moe_apply(lp, x, cfg))(
+                    layer, inputs[rest[0]])[0]
+                ref[mesh, "valiant", rest[0]] = jax.jit(
+                    lambda lp, x: jax_moe.moe_apply(lp, x, vcfg, key=jax.random.PRNGKey(7)))(
                     layer, inputs[rest[0]])[0]
         else:
             ref[mesh, kind, arch] = _mixer(kind, model.cfg)(
@@ -304,7 +309,11 @@ def test_moe_layer_takes_the_reference_path_and_output(results, mesh, name):
         np.testing.assert_allclose(out[f"moe {MOE} {name}"].numpy(), ref[mesh, "moe", name],
                                    atol=LAYER_TOL, rtol=0, err_msg=f"rank {r} ({path})")
         assert set(out[f"bytes {name}"]) == groups, f"rank {r} ({path})"
-        assert "A11c" in out["valiant"], f"rank {r}: a Valiant key must wait for A11c"
+        np.testing.assert_allclose(out[f"valiant {name}"].numpy(), ref[mesh, "valiant", name],
+                                   atol=LAYER_TOL, rtol=0, err_msg=f"rank {r} ({path}, Valiant)")
+    if path == "a2a":  # the keyed shift moves the tokens between the blocks' buckets
+        assert not np.allclose(ref[mesh, "valiant", name], ref[mesh, "moe", name],
+                               atol=LAYER_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("mesh,kind,arch", [("1x2", "ssm", SSM), ("1x4", "attn", DENSE)],

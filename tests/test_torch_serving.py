@@ -363,8 +363,10 @@ def test_engines_take_the_reference_parameter_order(pair):
     batch, impl, mesh, last_pos); decode_step (params, caches, tokens, pos,
     impl, mesh, ragged).  audit, tiers, obs and a session id are taken in
     their places, a mesh too (one of one rank serves the same tokens); what
-    is not ported raises: MLA on a model axis above 1 (ROADMAP A11c), an
-    impl that is neither "xla" nor "pallas"."""
+    is not ported raises: MLA on a model axis above 1 (ROADMAP A11d), an
+    impl that is neither "xla" nor "pallas".  Beside it, MLA, a frontend
+    and an encoder-decoder refuse a model axis above 1 in training too,
+    naming A11d."""
     mj, pj, mt, pt = pair
     rng = np.random.default_rng(8)
     prompts = _prompts(rng, mt.cfg.vocab, [5, 9, 13, 3])
@@ -389,8 +391,13 @@ def test_engines_take_the_reference_parameter_order(pair):
     two = Mesh(("data", "model"), (1, 2), 0, {}, "none")
     for make in (lambda: ContinuousBatchingEngine(mla, {}, 3, 48, two),
                  lambda: ServingEngine(mla, {}, 48, two)):
-        with pytest.raises(NotImplementedError, match="MLA on a model axis of 2.*A11c"):
+        with pytest.raises(NotImplementedError, match="MLA on a model axis of 2.*A11d"):
             make()
+    for arch, what in (("minicpm3-4b", "MLA"), ("phi-3-vision-4.2b", "a frontend"),
+                       ("seamless-m4t-large-v2", "an encoder-decoder")):
+        model = build_model(get_config(arch, reduced=True), device="cpu")
+        with pytest.raises(NotImplementedError, match=f"{what} on a model axis of 2.*A11d"):
+            model.train_loss({}, {}, mesh=two)
 
     # the constructor's tail: max_queue_depth is 14th, after audit and tiers
     eng = ContinuousBatchingEngine(mt, pt, 3, 48, None, None, None, "fcfs", 0, 0, 8, False,

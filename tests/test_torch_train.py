@@ -269,22 +269,44 @@ def _count_gmm(monkeypatch):
     return calls
 
 
+@pytest.mark.parametrize("rank", range(4))
+def test_local_rows_are_the_ranks_block_of_each_global_microbatch(rank):
+    """The reference slices its global batch into microbatches and splits
+    each over the data-parallel axes (an MoE layer routes the rows of one
+    such slice together): a rank's rows, microbatch by microbatch, are its
+    (pod, data) block of each slice; with one microbatch its block of the
+    batch."""
+    from repro_torch.runtime.trainer import local_rows
+
+    mesh = Mesh(("pod", "data", "model"), (2, 2, 1), rank, {}, "none")
+    batch = {"tokens": np.arange(16 * 3).reshape(16, 3), "targets": torch.arange(16)}
+    got = local_rows(batch, mesh, microbatches=2)
+    block = np.arange(2 * rank, 2 * rank + 2)
+    want = np.concatenate([block, 8 + block])
+    np.testing.assert_array_equal(got["targets"].numpy(), want)
+    np.testing.assert_array_equal(got["tokens"], batch["tokens"][want])
+    one = local_rows(batch, mesh)["targets"].numpy()
+    np.testing.assert_array_equal(one, np.arange(4 * rank, 4 * rank + 4))
+    with pytest.raises(ValueError, match="microbatches"):
+        local_rows(batch, mesh, microbatches=3)
+
+
 @pytest.mark.parametrize("arch,name", [("granite-moe-1b-a400m", "MoE"), ("mamba2-1.3b", "SSM")])
 def test_train_loss_refuses_moe_and_ssm_stacks(arch, name):
     """MoE and SSM stacks train (the grouped matmul and the SSD scan have
     their backward): a finite loss, with a positive load-balancing loss on
     MoE, and a finite gradient that reaches every leaf.  What ``train_loss``
-    still refuses on them is what the port has not ported: a model axis
-    above 1 (ROADMAP A11c) and an ``impl`` that is neither of the
-    reference's."""
+    refuses on them is an ``impl`` that is neither of the reference's; a
+    model axis runs (on ranks: ``tests/test_torch_train_mesh.py``), and one
+    of size 1 changes nothing."""
     model = build_model(get_config(arch, reduced=True), device="cpu")
     params = tree_map(lambda t: t.requires_grad_(), model.init(torch.Generator().manual_seed(0)))
     batch = batch_of(model.cfg.vocab, s=16)
-    with pytest.raises(NotImplementedError, match="training on a model axis of 2.*A11c"):
-        model.train_loss(params, batch, mesh=Mesh(("data", "model"), (1, 2), 0, {}, "none"))
     with pytest.raises(NotImplementedError, match="impl"):
         model.train_loss(params, batch, impl="triton")
     loss, metrics = model.train_loss(params, batch)
+    one, _ = model.train_loss(params, batch, mesh=Mesh(("data", "model"), (1, 1), 0, {}, "none"))
+    assert torch.equal(one, loss)
     assert bool(torch.isfinite(loss))
     assert (float(metrics["aux_loss"].detach()) > 0) == (name == "MoE")
     grads = torch.autograd.grad(loss, tree_leaves(params))
@@ -434,19 +456,34 @@ def test_decay_mask_matches_the_reference_on_its_stacked_tree(arch):
 
 
 def test_trainer_refuses_a_mesh_and_a_parallel_config():
-    """What the port's trainer still refuses (ROADMAP A11's rest): a model
-    axis above 1 and an MoE config on a mesh.  A ``ParallelConfig`` without
-    a mesh runs the plain step, as in the reference; data-parallel meshes
-    are tested on ranks in ``tests/test_torch_parallel_train.py``."""
+    """A trainer on a model axis above 1 knows, once made, the dim each
+    leaf is split at, from the leaves' shapes alone: the dims of the whole
+    params drawn.  Its ``init`` draws the whole params and keeps this
+    rank's blocks (rank 1 of a model axis of 2 here, no collective
+    needed).  A ``ParallelConfig`` without a mesh runs the plain step, as
+    in the reference; meshes are tested on ranks in
+    ``tests/test_torch_parallel_train.py`` and
+    ``tests/test_torch_train_mesh.py``."""
     from repro_torch.launch.mesh import Mesh
+    from repro_torch.runtime.sharding import model_dims
 
     _, _, mt = make_pair("internlm2-1.8b")
-    tp = Mesh(("data", "model"), (1, 2), 0, {}, "gloo")
-    with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(mt, adamw.AdamWConfig(), mesh=tp)
+    tp = Mesh(("data", "model"), (1, 2), 1, {}, "gloo")
+    trainer = Trainer(mt, adamw.AdamWConfig(), mesh=tp)
+    whole = mt.init(torch.Generator().manual_seed(0))
+    assert trainer.dims == model_dims(mt.param_axes(), whole, tp)
+    assert callable(trainer.step) and trainer.jitted_step() is trainer.step
+    params, opt = trainer.init(torch.Generator().manual_seed(0))
+    assert trainer.dims["layers"][0]["mixer"]["w_q"] == 1
+    assert trainer.dims["layers"][0]["ffn"]["w_down"] == 0
+    assert trainer.dims["final_norm"] is None
+    cols = params["layers"][0]["mixer"]["w_q"].shape[1]
+    assert torch.equal(params["layers"][0]["mixer"]["w_q"],
+                       whole["layers"][0]["mixer"]["w_q"][:, cols:])
+    assert opt["m"]["layers"][0]["mixer"]["w_q"].shape == params["layers"][0]["mixer"]["w_q"].shape
+    assert trainer.checkpoint_dims() == (trainer.dims, {"m": trainer.dims, "v": trainer.dims})
     _, _, moe = make_pair("granite-moe-1b-a400m")
-    with pytest.raises(NotImplementedError, match="A11"):
-        Trainer(moe, adamw.AdamWConfig(), mesh=Mesh(("data", "model"), (1, 1), 0, {}, "gloo"))
+    Trainer(moe, adamw.AdamWConfig(), mesh=Mesh(("data", "model"), (1, 1), 0, {}, "gloo"))
     trainer = Trainer(mt, adamw.AdamWConfig(), ParallelConfig(hierarchical_grad_sync=True))
     assert trainer.jitted_step() is trainer.step
 

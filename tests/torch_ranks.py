@@ -12,10 +12,14 @@ only: the ranks load no JAX.
 
 Cases: ``collectives`` (each collective of ``core/collectives.py``),
 ``train`` (the flat, hierarchical and compressed train steps, and the
-checkpoints of the compressed state with a mesh) and ``serve`` (the runs
+checkpoints of the compressed state with a mesh), ``serve`` (the runs
 ``serve.json`` lists on a mesh with a ``model`` axis: the engines' token
 streams, a prefill's logits and single layers, from the JAX package's
-params, which the bridge hands each rank as its block).
+params, which the bridge hands each rank as its block) and ``train_mesh``
+(``train_mesh.json``'s train steps on a mesh with a ``model`` axis, each
+step from the JAX package's params and optimizer state, the second step's
+written by the test while the ranks run the first; the Valiant shuffle's
+loss and gradients; the checkpoints of the ranks' blocks).
 """
 
 import dataclasses
@@ -24,16 +28,18 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.bridge import from_jax_params
+from repro_torch.bridge import from_jax_opt_state, from_jax_params, port_order
 from repro_torch.checkpoint.checkpointing import restore_checkpoint, save_checkpoint
 from repro_torch.configs.base import ParallelConfig, get_config
 from repro_torch.core import collectives as col
+from repro_torch.core.threefry import prng_key
 from repro_torch.launch.mesh import make_mesh, parse_mesh_flag
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import build_model
@@ -41,7 +47,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.serving import ContinuousBatchingEngine, ServingEngine
-from repro_torch.runtime.trainer import Trainer
+from repro_torch.runtime.trainer import Trainer, local_rows
 from repro_torch.tree import tree_leaves, tree_map
 
 MESH = ((2, 2, 1), ("pod", "data", "model"))
@@ -127,17 +133,19 @@ def case_train(mesh, inputs: dict, workdir: str) -> dict:
             (_, jax_opt), _ = restore_checkpoint(os.path.join(workdir, "jax_ckpt"), like,
                                                  mesh=mesh, rows=ROWS)
             out["err_from_jax"] = jax_opt["err"]
-    for name, arg in (("model_axis", "mesh"), ("moe", "moe")):
-        try:
-            if arg == "moe":
-                moe = get_config("granite-moe-1b-a400m", reduced=True)
-                Trainer(_tiny(moe=moe.moe, family="moe"), AdamWConfig(), mesh=mesh)
-            else:
-                Trainer(model, AdamWConfig(), mesh=dataclasses.replace(
-                    mesh, shape=(1, 2, 2)))
-            out[f"raises_{name}"] = ""
-        except NotImplementedError as e:
-            out[f"raises_{name}"] = str(e)
+    # what this trainer once refused: a model axis (the split dims known
+    # when it is made, from the shapes alone) and an MoE config on a mesh
+    # (flat sync)
+    tp = Trainer(model, AdamWConfig(), mesh=dataclasses.replace(mesh, shape=(1, 2, 2)))
+    out["model_axis_dims"] = tp.dims
+    moe = get_config("granite-moe-1b-a400m", reduced=True)
+    moe_model = _tiny(moe=moe.moe, family="moe")
+    moe_trainer = Trainer(moe_model, AdamWConfig(lr=1e-3), modes["hier"], mesh=mesh)
+    mp, mo = moe_trainer.init(torch.Generator().manual_seed(0))
+    mesh.sent.clear()
+    _, _, mm = moe_trainer.step(mp, mo, batches[0])
+    out["moe"] = {"loss": float(mm["loss"]), "bytes": dict(mesh.sent),
+                  "sums": [float(t.detach().double().sum()) for t in tree_leaves(mp)]}
     return out
 
 
@@ -157,8 +165,8 @@ def case_serve(mesh, inputs: dict, workdir: str) -> dict:
     shortest; ``open_loop``: the prompts submitted with the run's arrival
     times and deadlines, run on a virtual clock that each rank skews by
     ``skew`` times its rank (``open_loop``); ``moe``, ``ssm`` and ``attn``:
-    layer 0's FFN or mixer on the test's inputs (and, for ``moe``, whether
-    a Valiant key raises)."""
+    layer 0's FFN or mixer on the test's inputs (and, for ``moe``, the
+    layer with the Valiant shuffle keyed by the reference's key 7)."""
     out = {}
     prompts = [inputs[f"prompt{i}"] for i in range(int(inputs["n_prompts"]))]
     for run in json.loads(Path(workdir, "serve.json").read_text()):
@@ -196,14 +204,10 @@ def case_serve(mesh, inputs: dict, workdir: str) -> dict:
                     out[name + " " + run["input"]] = moe_mod.moe_apply(layer["ffn"], x, cfg,
                                                                         mesh=mesh)[0]
                     out[f"bytes {run['input']}"] = dict(mesh.sent)
-                    try:
-                        moe_mod.moe_sharded_a2a(
-                            layer["ffn"], x.reshape(-1, x.shape[-1]),
-                            dataclasses.replace(cfg, moe=dataclasses.replace(
-                                cfg.moe, valiant_shuffle=True)), key=0, mesh=mesh)
-                        out["valiant"] = ""
-                    except NotImplementedError as e:
-                        out["valiant"] = str(e)
+                    vcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                        cfg.moe, valiant_shuffle=True))
+                    out[f"valiant {run['input']}"] = moe_mod.moe_apply(
+                        layer["ffn"], x, vcfg, key=prng_key(7), mesh=mesh)[0]
                 elif kind == "ssm":
                     y, cache = ssm_mod.ssm_apply(layer["mixer"], x[:, :-1], cfg,
                                                  update_cache=True, mesh=mesh)
@@ -224,6 +228,104 @@ def case_serve(mesh, inputs: dict, workdir: str) -> dict:
                                                        ragged=True, mesh=mesh)
                     out[name] = torch.cat([y, step], dim=1)
                     out["kv heads"] = attn_mod.head_plan(cfg, mesh)
+    return out
+
+
+SYNCS = {"flat": ParallelConfig(hierarchical_grad_sync=False),
+         "hier": ParallelConfig(hierarchical_grad_sync=True),
+         "comp": ParallelConfig(compress_cross_pod=True)}
+
+
+def train_cfg(arch: str, layers: int):
+    """The train_mesh case's configs: REDUCED, fp32 compute, no remat, cut
+    to ``layers``."""
+    return dataclasses.replace(get_config(arch, reduced=True), compute_dtype="float32",
+                               remat=False, n_layers=layers)
+
+
+def valiant_cfg(cfg):
+    """``cfg`` with the Valiant shuffle on and a tight capacity (0.5)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, valiant_shuffle=True,
+                                                            capacity_factor=0.5))
+
+
+def _wait_for(path: Path, timeout: float = 600.0):
+    """The pickle at ``path``, once the test has written it."""
+    deadline = time.monotonic() + timeout
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} was not written within {timeout} s")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def case_train_mesh(mesh, inputs: dict, workdir: str) -> dict:
+    """For each sync of the spec (``train_mesh.json``: arch, layers, syncs,
+    and the optional ``valiant`` and ``checkpoint`` runs): a step from the
+    reference's initial params and state on batch 0, then a step from the
+    reference's params and state after its own first step (``ref_<sync>.pkl``,
+    which the test writes while the ranks run) on batch 1; of each, the
+    metrics, the first moment and the rank's blocks, its leaves that are
+    whole over ``model`` kept whole.  ``valiant``: the loss and gradient of
+    the shuffled MoE config with the reference's key 7 and without a key,
+    averaged over the data-parallel axes.  ``checkpoint``: the compressed
+    state after step 1 written by the ranks, and a checkpoint the JAX
+    package wrote restored on them."""
+    work = Path(workdir)
+    spec = json.loads((work / "train_mesh.json").read_text())
+    cfg = train_cfg(spec["arch"], spec["layers"])
+    model = build_model(cfg, device="cpu")
+    with open(work / "params.pkl", "rb") as f:
+        ref_params = pickle.load(f)
+    batches = [{k: inputs[k][i] for k in ("tokens", "targets")} for i in range(2)]
+    out = {}
+
+    def blocks(tree):
+        return port_order(cfg, from_jax_params(cfg, tree, mesh=mesh))
+
+    for sync in spec["syncs"]:
+        trainer = Trainer(model, AdamWConfig(lr=1e-3), SYNCS[sync], mesh=mesh)
+        _, opt = trainer.init(torch.Generator().manual_seed(0))  # zero moments and err rows
+        out["dims"] = trainer.dims
+        params = tree_map(lambda t: t.requires_grad_(), blocks(ref_params))
+        mesh.sent.clear()
+        p1, o1, m1 = trainer.step(params, opt, batches[0])
+        out[f"bytes {sync}"] = dict(mesh.sent)
+        out[f"step1 {sync}"] = {"metrics": {k: float(v) for k, v in m1.items()},
+                                "m": o1["m"], "v": o1["v"], "err": o1.get("err"),
+                                "params": tree_map(lambda t: t.detach(), p1)}
+        if spec.get("checkpoint") and sync == "comp":
+            dims = trainer.checkpoint_dims()
+            save_checkpoint(str(work / "ckpt"), 1, (p1, o1), mesh=mesh, rows=ROWS, dims=dims)
+        ref = _wait_for(work / f"ref_{sync}.pkl")
+        p1 = tree_map(lambda t: t.requires_grad_(), blocks(ref["params"]))
+        o1 = from_jax_opt_state(cfg, ref["opt"], mesh=mesh)
+        if spec.get("checkpoint") and sync == "comp":
+            like = tree_map(lambda t: torch.zeros_like(t) if isinstance(t, torch.Tensor) else t,
+                            (p1, o1))
+            (bp, bo), step = restore_checkpoint(str(work / "jax_ckpt"), like, mesh=mesh,
+                                                rows=ROWS, dims=dims)
+            out["from jax ckpt"] = all(torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+                                       for a, b in zip(tree_leaves((bp, bo)),
+                                                       tree_leaves((p1, o1))))
+            out["from jax ckpt step"] = step
+        p2, o2, m2 = trainer.step(p1, o1, batches[1])
+        out[f"step2 {sync}"] = {"metrics": {k: float(v) for k, v in m2.items()},
+                                "m": o2["m"], "params": tree_map(lambda t: t.detach(), p2),
+                                "err": o2.get("err")}
+    if spec.get("valiant"):
+        vmodel = build_model(valiant_cfg(cfg), device="cpu")
+        params = tree_map(lambda t: t.requires_grad_(), blocks(ref_params))
+        dp = mesh.data_parallel_axes
+        rows = local_rows({k: torch.as_tensor(v) for k, v in batches[0].items()}, mesh)
+        for name, key in (("keyed", prng_key(7)), ("keyless", None)):
+            loss, _ = vmodel.train_loss(params, rows, key=key, mesh=mesh)
+            grads = torch.autograd.grad(loss, tree_leaves(params))
+            n = mesh.axis_size(dp)
+            out[f"valiant {name}"] = {
+                "loss": float(col.pmean(loss.detach(), dp, mesh=mesh)),
+                "grads": [col.psum(g, dp, mesh=mesh) / n for g in grads]}
     return out
 
 
@@ -286,7 +388,8 @@ def main() -> None:
         inputs = {k: f[k] for k in f.files}
     cases = {"collectives": lambda: case_collectives(mesh, inputs),
              "train": lambda: case_train(mesh, inputs, workdir),
-             "serve": lambda: case_serve(mesh, inputs, workdir)}
+             "serve": lambda: case_serve(mesh, inputs, workdir),
+             "train_mesh": lambda: case_train_mesh(mesh, inputs, workdir)}
     out = cases[case]()
     out["coords"] = mesh.coords
     out["group sets"] = sorted(mesh.groups)
